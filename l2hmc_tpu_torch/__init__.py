@@ -1,0 +1,22 @@
+"""l2hmc_tpu_torch — the PyTorch/CUDA port of ``l2hmc_tpu``.
+
+The JAX package ``l2hmc_tpu`` is the reference; this package mirrors its
+subpackage and module names so each counterpart is found at the same path.
+It imports ``torch`` and never ``jax``.
+
+Subpackages
+-----------
+lattice   U(1) gauge lattice: Wilson action, observables, exact oracles
+ops       Wilson action with analytic gradient; the fused chain kernels
+          (hand-written CUDA C++ for sm_90a, with plain PyTorch versions)
+networks  the S/T/Q MLP conditioner as an ``nn.Module``
+dynamics  the trained L2HMC transition (u1, merge_v_halves) and plain HMC
+train     gauge config, network/dynamics builders, eval chunk, checkpoints
+
+Conventions kept from the reference: links are ``(B, Lt, Lx, 2)`` angles,
+the flat state is ``(B, 2*Lt*Lx)`` interleaved as ``(t*Lx + s)*2 + mu``,
+chain traces are ``(N, B)``.  Randomness is drawn from an explicit
+``torch.Generator``; nothing uses the global RNG.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,181 @@
+"""PyTorch port: the CUDA chain kernels against their plain versions.
+
+Every test but the last needs a CUDA device (marker ``cuda``) and skips
+without one: the kernels are CUDA C++ for sm_90a and have no CPU mode.  This
+file imports no JAX, so it also runs on the machine with the card::
+
+    python -m pytest tests/test_torch_kernels.py --noconftest -q
+
+(``--noconftest``: tests/conftest.py configures JAX for the CPU suite.)
+
+Tolerance on the card: 1e-4 on link angles (compared modulo 2 pi) and on
+traces.  Kernel and plain version differ only in float32 summation order
+and in CUDA's libm against torch's kernels; the energy change is summed per
+site on both sides, so accept probabilities agree to ~1e-5.
+"""
+
+import shutil
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from l2hmc_tpu_torch.lattice.u1 import typical_links
+from l2hmc_tpu_torch.ops import _cuda
+from l2hmc_tpu_torch.ops import l2hmc_kernel as tl2
+from l2hmc_tpu_torch.ops import leapfrog as tlf
+from l2hmc_tpu_torch.train import gauge as tgauge
+
+ATOL = 1e-4
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the chain kernels are CUDA C++ "
+                    "for sm_90a and have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def _rand(seed, n, b, d, hop, directions, device):
+    rng = np.random.default_rng(seed)
+    out = [rng.standard_normal((n, b, d)), rng.standard_normal((n, b, d))]
+    if directions:
+        out.append(rng.choice([-1.0, 1.0], (n, b)))
+    out.append(rng.uniform(size=(n, b)))
+    if hop:
+        out += [rng.choice([-1.0, 1.0], (n, b)), rng.uniform(size=(n, b))]
+    return [torch.tensor(a, dtype=torch.float32, device=device) for a in out]
+
+
+def _params(lt, lx, K, hidden, device):
+    """MLP/u1/merge_v params with every array perturbed (0.02 normal) so
+    the conditioners matter."""
+    cfg = tgauge.GaugeConfig(time_size=lt, space_size=lx, num_steps=K,
+                             network_arch="mlp", num_hidden=hidden,
+                             merge_v_halves=True, group="u1",
+                             bounded_q=True, eps_init=0.12)
+    g = torch.Generator().manual_seed(lt * 100 + lx)
+    params = tgauge.init_params(cfg, g)
+    with torch.no_grad():
+        for net in (params.xnet, params.vnet):
+            for p in net.parameters():
+                p.add_(0.02 * torch.randn(p.shape, generator=g))
+    return params.to(device)
+
+
+def _assert_matches(got, want):
+    d = torch.remainder(got[0] - want[0] + np.pi, 2 * np.pi) - np.pi
+    assert float(d.abs().max()) <= ATOL
+    for g, w in zip(got[1:], want[1:]):
+        torch.testing.assert_close(g, w, atol=ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hop", [False, True])
+@pytest.mark.parametrize("lt,lx", [(4, 6), (16, 16)])
+def test_torch_hmc_chain_kernel_matches_plain(cuda_device, lt, lx, hop):
+    b, n = 16, 4
+    links = torch.tensor(typical_links(np.random.default_rng(1), b, lt, lx),
+                         device=cuda_device)
+    rand = _rand(2, n, b, lt * lx, hop, False, cuda_device)
+    before = tlf.hmc_chain.launches
+    got = tlf.hmc_chain(links, None, 0.1, 3.0, 4, n, hop=hop,
+                        rand_arrays=rand)
+    assert tlf.hmc_chain.launches == before + 1
+    want = tlf.hmc_chain_reference(links, *rand[:3], 0.1, 3.0, 4,
+                                   hop_arrays=rand[3:] if hop else None)
+    torch.cuda.synchronize()
+    _assert_matches(got, want)
+    assert 0.05 < float(want[3].mean()) < 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hop", [False, True])
+@pytest.mark.parametrize("lt,lx,hidden", [(4, 6, 32), (8, 8, 64)])
+def test_torch_l2hmc_chain_kernel_matches_plain(cuda_device, lt, lx, hidden,
+                                                hop):
+    b, n, K = 7, 3, 3        # 7 chains: a ragged last block of 2 chains
+    params = _params(lt, lx, K, hidden, cuda_device)
+    links = torch.tensor(typical_links(np.random.default_rng(3), b, lt, lx),
+                         device=cuda_device)
+    rand = _rand(4, n, b, lt * lx, hop, True, cuda_device)
+    want = tl2.l2hmc_chain_reference(links, params, *rand[:4], 0.12, 3.0, K,
+                                     hop_arrays=rand[4:] if hop else None)
+    before = tl2.l2hmc_chain.launches
+    got = tl2.l2hmc_chain(links, params, None, 0.12, 3.0, K, n, hop=hop,
+                          rand_arrays=rand)
+    assert tl2.l2hmc_chain.launches == before + 1
+    torch.cuda.synchronize()
+    _assert_matches(got, want)
+    assert 0.05 < float(want[3].mean()) < 1.0
+
+
+@pytest.mark.cuda
+def test_torch_kernels_in_kernel_randomness(cuda_device):
+    """Philox mode: a generator seed fixes the chain, another seed moves it."""
+    b, n, lt, lx = 8, 5, 8, 8
+    links = torch.tensor(typical_links(np.random.default_rng(5), b, lt, lx),
+                         device=cuda_device)
+    params = _params(lt, lx, 3, 32, cuda_device)
+    runs = {
+        "hmc": lambda s: tlf.hmc_chain(
+            links, torch.Generator().manual_seed(s), 0.1, 3.0, 4, n,
+            hop=True),
+        "l2hmc": lambda s: tl2.l2hmc_chain(
+            links, params, torch.Generator().manual_seed(s), 0.12, 3.0, 3, n,
+            hop=True),
+    }
+    for name, run in runs.items():
+        a, b_, c = run(1), run(1), run(2)
+        for x, y in zip(a, b_):
+            assert torch.equal(x, y), name
+        assert not torch.equal(a[0], c[0]), name
+        for t in a:
+            assert bool(torch.isfinite(t).all()), name
+        assert 0.05 < float(a[3].mean()) <= 1.0, name
+
+
+@pytest.mark.cuda
+def test_torch_kernel_wrappers_reject_bad_input(cuda_device):
+    b, n, lt, lx = 4, 2, 4, 4
+    links = torch.zeros((b, lt, lx, 2), device=cuda_device)
+    rand = _rand(6, n, b, lt * lx, False, False, cuda_device)
+    with pytest.raises(ValueError, match="float32"):
+        tlf.hmc_chain(links.double(), None, 0.1, 2.0, 2, n, rand_arrays=rand)
+    with pytest.raises(ValueError, match="shape"):
+        tlf.hmc_chain(links, None, 0.1, 2.0, 2, n + 1, rand_arrays=rand)
+    with pytest.raises(ValueError, match="CUDA"):
+        tlf.hmc_chain(links, None, 0.1, 2.0, 2, n,
+                      rand_arrays=[r.cpu() for r in rand])
+    bad = [rand[0].transpose(0, 1).contiguous().transpose(0, 1)] + rand[1:]
+    with pytest.raises(ValueError, match="contiguous"):
+        tlf.hmc_chain(links, None, 0.1, 2.0, 2, n, rand_arrays=bad)
+    with pytest.raises(ValueError, match="num_leapfrog"):
+        tlf.hmc_chain(links, None, 0.1, 2.0, 0, n, rand_arrays=rand)
+    params = _params(lt, lx, 3, 16, cuda_device)
+    with pytest.raises(ValueError, match="num_leapfrog"):
+        tl2.l2hmc_chain(links, params, torch.Generator().manual_seed(0),
+                        0.1, 2.0, 2, n)
+    with pytest.raises(ValueError, match="shared memory"):
+        tlf.hmc_chain(torch.zeros((1, 128, 128, 2), device=cuda_device),
+                      torch.Generator().manual_seed(0), 0.1, 2.0, 2, 1)
+    # two 48x48 chains need 16 * 2 * 2304 floats (295 KB) per block
+    big = _params(48, 48, 3, 16, cuda_device)
+    with pytest.raises(ValueError, match="shared memory"):
+        tl2.l2hmc_chain(torch.zeros((1, 48, 48, 2), device=cuda_device), big,
+                        torch.Generator().manual_seed(0), 0.1, 2.0, 3, 1)
+
+
+def test_torch_kernel_build_needs_nvcc():
+    """Without a CUDA toolkit the build raises with the reason; it never
+    substitutes another implementation.  The build output goes under the
+    repository's ignored build/ directory."""
+    assert _cuda.BUILD_ROOT.relative_to(
+        Path(__file__).resolve().parents[1]) == Path("build/kernels")
+    if shutil.which("nvcc") or Path("/usr/local/cuda/bin/nvcc").exists():
+        pytest.skip("a CUDA toolkit is present; the build runs on the card")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _cuda.build()

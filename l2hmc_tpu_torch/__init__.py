@@ -6,10 +6,12 @@ It imports ``torch`` and never ``jax``.
 
 Subpackages
 -----------
-lattice   U(1) gauge lattice: Wilson action, observables, exact oracles
+lattice   U(1) gauge lattice: Wilson action, observables, exact oracles;
+          the checkerboard Metropolis sampler (warm start)
 ops       Wilson action with analytic gradient; the fused chain kernels
           (hand-written CUDA C++ for sm_90a, with plain PyTorch versions)
-networks  the S/T/Q MLP conditioner as an ``nn.Module``
+networks  the S/T/Q conditioners (MLP, local 5-point stencil) as
+          ``nn.Module``s
 dynamics  the trained L2HMC transition (u1, merge_v_halves) and plain HMC
 train     gauge config, network/dynamics builders, eval chunk, checkpoints
 

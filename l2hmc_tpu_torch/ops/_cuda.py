@@ -1,15 +1,18 @@
 """Build and load the port's hand-written CUDA kernels.
 
-At first use :func:`library` compiles every ``csrc/*.cu`` into one shared
-library with a plain C interface::
+At first use :func:`library` compiles every ``csrc/*.cu`` into an object,
+one ``nvcc`` process per source, all started together::
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o build/kernels/<hash>/libl2hmc_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
+         -Xcompiler -fPIC -Xptxas -v -c csrc/<name>.cu -o <name>.o
 
-and loads it with ``ctypes``.  The output directory is keyed by a hash of the
-sources and flags, lives under the repository's ``build/`` (listed in
-``.gitignore``), and is reused by later processes.  Only sources in this
-repository and the CUDA toolkit's own headers (curand's Philox) are used.
+links them into one shared library with a plain C interface
+(``nvcc -shared``), and loads it with ``ctypes``.  The output directory is
+keyed by a hash of the sources and flags, lives under the repository's
+``build/`` (listed in ``.gitignore``), and is reused by later processes;
+``ptxas.log`` there holds each kernel's registers, shared memory and
+spills.  Only sources in this repository and the CUDA toolkit's own headers
+(curand's Philox) are used.
 
 Every C entry returns ``cudaGetLastError()`` after its launch; :func:`check`
 raises on a non-zero code.  Pointers and the stream are ``c_void_p`` so
@@ -29,9 +32,11 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                           "-Xptxas", "-v")
 LIB_NAME = "libl2hmc_kernels.so"
+PTXAS_LOG = "ptxas.log"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -60,6 +65,16 @@ _SIGNATURES = {
         _F, _F, _I, _I, _U64,        # eps, beta, bounded_q, hop, seed
         _I, _P,                      # device, stream
     ]),
+    "l2hmc_local_chain_smem_bytes": (ctypes.c_size_t, [_I, _I, _I, _I]),
+    "l2hmc_local_chain_launch": (_I, [
+        _P, _P,                      # x0, x1 (B, d), updated in place
+        _P, _P, _P,                  # flat net weights, mask0, mask1 (K, d)
+        _P, _P, _P, _P, _P, _P,      # v0s, v1s, ds, us, nus, uhs (or null)
+        _P, _P, _P,                  # plaq, chg, prob traces (N, B)
+        _I, _I, _I, _I, _I, _I, _I,  # B, lt, lx, K, N, channels, layers
+        _F, _F, _I, _I, _U64,        # eps, beta, bounded_q, hop, seed
+        _I, _P,                      # device, stream
+    ]),
 }
 
 
@@ -78,6 +93,11 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
+def _run_failed(cmd, proc_out, code):
+    out, err = proc_out
+    return RuntimeError(f"nvcc failed ({code}):\n{' '.join(cmd)}\n{out}\n{err}")
+
+
 def build() -> tuple[Path, float]:
     """Compile the kernels if needed; returns ``(library path, seconds)``."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
@@ -89,16 +109,44 @@ def build() -> tuple[Path, float]:
     if lib.exists():
         return lib, 0.0
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
+    nvcc = _nvcc()
+    pid = os.getpid()
     t0 = time.perf_counter()
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = out_dir / f"{src.stem}.{pid}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+        jobs.append((src, obj, cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    # wait for every compiler before raising, so none is left running
+    results = [(src, obj, cmd, p.communicate(), p.returncode)
+               for src, obj, cmd, p in jobs]
+    for _, _, cmd, out, code in results:
+        if code != 0:
+            raise _run_failed(cmd, out, code)
+    log = "".join(f"== {src.name}\n{out[1]}" for src, _, _, out, _ in results)
+    (out_dir / PTXAS_LOG).write_text(log)
+    tmp = out_dir / f"{LIB_NAME}.{pid}.tmp"
+    cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+           *[str(obj) for _, obj, _, _, _ in results]]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+        raise _run_failed(cmd, (proc.stdout, proc.stderr), proc.returncode)
+    for _, obj, _, _, _ in results:
+        obj.unlink()
     os.replace(tmp, lib)   # atomic: a concurrent loader never sees half a file
     return lib, time.perf_counter() - t0
+
+
+def ptxas_report(lib: Path) -> list[str]:
+    """ptxas's per-kernel lines (registers, spills, shared memory) from the
+    build of ``lib``."""
+    log = lib.parent / PTXAS_LOG
+    if not log.exists():
+        return []
+    keep = ("Compiling entry", "registers", "spill")
+    return [ln.strip() for ln in log.read_text().splitlines()
+            if any(k in ln for k in keep)]
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,4 +1,5 @@
-// Shared device code of the U(1) chain kernels (hmc_chain.cu, l2hmc_chain.cu).
+// Shared device code of the U(1) chain kernels (hmc_chain.cu, l2hmc_chain.cu,
+// l2hmc_local_chain.cu).
 //
 // Link state is two flat fields per chain, one per direction, site index
 // i = t*Lx + s.  Neighbour sites are computed directly:
@@ -65,8 +66,36 @@ __device__ __forceinline__ void winding(int i, int lt, int lx, float delta,
   *w0 = (t == lt - 1) ? seam * (float)s : 0.0f;
 }
 
+// Closed-form rotation of a carried sin/cos plaquette pair by an accepted
+// instanton hop: s' = s cda + c sda, c' = c cda - s sda.  Each product is
+// rounded on its own (no FMA contraction), as the plain version rounds it:
+// the carried fields are rotated again at every accepted hop and never
+// recomputed, so a one-ulp difference per hop would accumulate.
+__device__ __forceinline__ void hop_rotate(float* sp, float* cp, float cda,
+                                           float sda) {
+  const float s = *sp, c = *cp;
+  *sp = __fadd_rn(__fmul_rn(s, cda), __fmul_rn(c, sda));
+  *cp = __fsub_rn(__fmul_rn(c, cda), __fmul_rn(s, sda));
+}
+
+// a + b * c with the product and the sum each rounded (no FMA), as the plain
+// version's leapfrog updates round them.  Contracted, the updates move some
+// link angles an ulp away from the plain version's; at 64x64 (8192 links,
+// K=8) that moved HMC's accept probability by up to ~1e-4.  Rounded like
+// this, the links agree exactly.
+__device__ __forceinline__ float add_mul_rn(float a, float b, float c) {
+  return __fadd_rn(a, __fmul_rn(b, c));
+}
+
+// Per-site kinetic energy change (v0^2 + v1^2) - (w0^2 + w1^2), rounded term
+// by term as the plain version rounds it.
+__device__ __forceinline__ float kinetic_diff(float2 v, float w0, float w1) {
+  return __fsub_rn(__fadd_rn(__fmul_rn(v.x, v.x), __fmul_rn(v.y, v.y)),
+                   __fadd_rn(__fmul_rn(w0, w0), __fmul_rn(w1, w1)));
+}
+
 // Sum each of v[0..NV) over the block; every thread gets the totals back in
-// v.  scratch holds CHAIN_MAX_WARPS * NV floats, out NV floats; blockDim.x
+// v.  scratch holds (blockDim.x / 32) * NV floats, out NV floats; blockDim.x
 // is a multiple of 32 and at least NV.
 template <int NV>
 __device__ __forceinline__ void block_sum(float (&v)[NV], float* scratch,
@@ -104,6 +133,25 @@ __device__ __forceinline__ void philox_at(curandStatePhilox4_32_10_t* st,
                                           unsigned long long offset) {
   curand_init(seed, (unsigned long long)chain * (unsigned long long)N + n,
               offset, st);
+}
+
+// Initial momenta (v0, v1) of site i of `chain` in transition n: the
+// injected arrays' entries (v0s non-null), else the chain's Philox draws at
+// offset 8 i.  Called where the momenta are drawn and again for the energy
+// change, which differences v^2 - w^2 per site before any sum, as the plain
+// version does.  Differencing a thread's partial sums of v^2 and w^2 instead
+// (each ~32 when a thread holds 16 sites, as at 64x64) would carry the
+// rounding of those large sums into the energy change.
+__device__ __forceinline__ float2 initial_momenta(
+    const float* v0s, const float* v1s, unsigned long long seed,
+    long long chain, int B, int n, int N, int d, int i) {
+  if (v0s != nullptr) {
+    const size_t o = ((size_t)n * B + chain) * d + i;
+    return make_float2(v0s[o], v1s[o]);
+  }
+  curandStatePhilox4_32_10_t st;
+  philox_at(&st, seed, chain, n, N, 8ull * i);
+  return curand_normal2(&st);
 }
 
 __device__ __forceinline__ float sign_from_uniform(float u) {

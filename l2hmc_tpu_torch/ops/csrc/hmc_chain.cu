@@ -90,23 +90,11 @@ hmc_chain_kernel(float* __restrict__ x0g, float* __restrict__ x1g,
 
   for (int n = 0; n < N; ++n) {
     // momenta, first half kick from the carried sine field
-    float ke0p = 0.0f;
     for (int i = tid; i < d; i += nt) {
-      float v0, v1;
-      if (injected) {
-        const size_t o = ((size_t)n * B + b) * d + i;
-        v0 = rnd.v0s[o];
-        v1 = rnd.v1s[o];
-      } else {
-        curandStatePhilox4_32_10_t st;
-        philox_at(&st, seed, b, n, N, 8ull * i);
-        const float2 z = curand_normal2(&st);
-        v0 = z.x;
-        v1 = z.y;
-      }
-      ke0p += v0 * v0 + v1 * v1;
-      W0[i] = v0 - 0.5f * eps * beta * grad0(SP, i, lt, lx);
-      W1[i] = v1 - 0.5f * eps * beta * grad1(SP, i, lt, lx);
+      const float2 v =
+          initial_momenta(rnd.v0s, rnd.v1s, seed, b, B, n, N, d, i);
+      W0[i] = add_mul_rn(v.x, -0.5f * eps * beta, grad0(SP, i, lt, lx));
+      W1[i] = add_mul_rn(v.y, -0.5f * eps * beta, grad1(SP, i, lt, lx));
       Y0[i] = X0[i];
       Y1[i] = X1[i];
     }
@@ -131,8 +119,8 @@ hmc_chain_kernel(float* __restrict__ x0g, float* __restrict__ x1g,
     for (int k = 0; k < K; ++k) {
       __syncthreads();  // previous force phase done reading SP1
       for (int i = tid; i < d; i += nt) {
-        Y0[i] = wrap_angle(Y0[i] + eps * W0[i]);
-        Y1[i] = wrap_angle(Y1[i] + eps * W1[i]);
+        Y0[i] = wrap_angle(add_mul_rn(Y0[i], eps, W0[i]));
+        Y1[i] = wrap_angle(add_mul_rn(Y1[i], eps, W1[i]));
       }
       __syncthreads();
       float v[2] = {0.0f, 0.0f};
@@ -150,17 +138,19 @@ hmc_chain_kernel(float* __restrict__ x0g, float* __restrict__ x1g,
       chg1 = v[1] * CHAIN_INV_TWO_PI_F;
       const float c = (k < K - 1) ? eps : 0.5f * eps;
       for (int i = tid; i < d; i += nt) {
-        W0[i] = W0[i] - c * beta * grad0(SP1, i, lt, lx);
-        W1[i] = W1[i] - c * beta * grad1(SP1, i, lt, lx);
+        W0[i] = add_mul_rn(W0[i], -c * beta, grad0(SP1, i, lt, lx));
+        W1[i] = add_mul_rn(W1[i], -c * beta, grad1(SP1, i, lt, lx));
       }
     }
 
     // H0 - H1 from per-site differences (no float32 cancellation of the
     // two ~1e3 Hamiltonians): beta sum(cos P1 - cos P0) + sum(v^2 - w^2)/2
-    float e[2] = {0.0f, ke0p};
+    float e[2] = {0.0f, 0.0f};
     for (int i = tid; i < d; i += nt) {
+      const float2 v =
+          initial_momenta(rnd.v0s, rnd.v1s, seed, b, B, n, N, d, i);
       e[0] += CP1[i] - CP[i];
-      e[1] -= W0[i] * W0[i] + W1[i] * W1[i];
+      e[1] += kinetic_diff(v, W0[i], W1[i]);
     }
     block_sum<2>(e, scratch, red);
     const float dh = beta * e[0] + 0.5f * e[1];
@@ -199,9 +189,7 @@ hmc_chain_kernel(float* __restrict__ x0g, float* __restrict__ x1g,
         winding(i, lt, lx, delta, seam, &w0, &w1);
         X0[i] = wrap_angle(X0[i] + an * w0);
         X1[i] = wrap_angle(X1[i] + an * w1);
-        const float s = SP[i], c = CP[i];
-        SP[i] = s * cda + c * sda;
-        CP[i] = c * cda - s * sda;
+        hop_rotate(SP + i, CP + i, cda, sda);
       }
       pot = pot + acc * ds;
       chg = chg + an * (1.0f - hv[1]);

@@ -379,30 +379,17 @@ l2hmc_chain_kernel(float* __restrict__ x0g, float* __restrict__ x1g,
   }
 
   for (int n = 0; n < g.N; ++n) {
-    float ke0p[C], ldp[C];
+    float ldp[C];
 #pragma unroll
     for (int c = 0; c < C; ++c) {
-      ke0p[c] = 0.0f;
       ldp[c] = 0.0f;
       if (c >= nc) continue;
-      const long long chain = b0 + c;
       for (int i = tid; i < d; i += nt) {
-        float v0, v1;
-        if (injected) {
-          const size_t o = ((size_t)n * B + chain) * d + i;
-          v0 = rnd.v0s[o];
-          v1 = rnd.v1s[o];
-        } else {
-          curandStatePhilox4_32_10_t st;
-          philox_at(&st, g.seed, chain, n, g.N, 8ull * i);
-          const float2 z = curand_normal2(&st);
-          v0 = z.x;
-          v1 = z.y;
-        }
+        const float2 v = initial_momenta(rnd.v0s, rnd.v1s, g.seed, b0 + c,
+                                         B, n, g.N, d, i);
         const int o = c * d + i;
-        s.W0[o] = v0;
-        s.W1[o] = v1;
-        ke0p[c] += v0 * v0 + v1 * v1;
+        s.W0[o] = v.x;
+        s.W1[o] = v.y;
         s.Y0[o] = s.X0[o];
         s.Y1[o] = s.X1[o];
         s.SP1[o] = s.SP[o];
@@ -453,14 +440,16 @@ l2hmc_chain_kernel(float* __restrict__ x0g, float* __restrict__ x1g,
     float e[4 * C];
 #pragma unroll
     for (int c = 0; c < C; ++c) {
-      e[c] = ke0p[c];
+      e[c] = 0.0f;
       e[C + c] = 0.0f;
       e[2 * C + c] = ldp[c];
       e[3 * C + c] = 0.0f;
       if (c >= nc) continue;
       for (int i = tid; i < d; i += nt) {
         const int o = c * d + i;
-        e[c] -= s.W0[o] * s.W0[o] + s.W1[o] * s.W1[o];
+        const float2 v = initial_momenta(rnd.v0s, rnd.v1s, g.seed, b0 + c,
+                                         B, n, g.N, d, i);
+        e[c] += kinetic_diff(v, s.W0[o], s.W1[o]);
         e[C + c] += s.CP1[o] - s.CP[o];
         e[3 * C + c] += fabsf(s.Y0[o]) + fabsf(s.Y1[o]) + fabsf(s.W0[o]) +
                         fabsf(s.W1[o]);
@@ -528,9 +517,7 @@ l2hmc_chain_kernel(float* __restrict__ x0g, float* __restrict__ x1g,
           winding(i, g.lt, g.lx, delta, seam, &w0, &w1);
           s.X0[o] = wrap_angle(s.X0[o] + an * w0);
           s.X1[o] = wrap_angle(s.X1[o] + an * w1);
-          const float sv = s.SP[o], cv = s.CP[o];
-          s.SP[o] = sv * cda + cv * sda;
-          s.CP[o] = cv * cda - sv * sda;
+          hop_rotate(s.SP + o, s.CP + o, cda, sda);
         }
         pot[c] = pot[c] + ah * ds;
         chg[c] = chg[c] + an * (1.0f - hv[C + c]);

@@ -1,18 +1,23 @@
-"""Fused TRAINED L2HMC chain (MLP, U(1)): shared math, plain version, wrapper.
+"""Fused TRAINED L2HMC chains (U(1)): shared math, plain version, wrappers.
 
-Port of ``l2hmc_tpu/ops/l2hmc_kernel.py`` for the champion family:
-``merge_v_halves`` integrator, ``group='u1'`` (periodic cos/sin features and
-the circle diffeomorphism with exact log-Jacobian), MLP conditioners with
-``bounded_q``, per-chain random direction.  One call runs ``N`` transitions —
-K+1 merged momentum kicks and 2K masked position half-updates each, then the
-MH accept with non-finite rejection and, optionally, one exact instanton
-hop — and returns the final links and ``(N, B)`` traces.
+Port of ``l2hmc_tpu/ops/l2hmc_kernel.py``: ``merge_v_halves`` integrator,
+``group='u1'`` (periodic cos/sin features and the circle diffeomorphism with
+exact log-Jacobian), ``bounded_q``, per-chain random direction.  One call
+runs ``N`` transitions — K+1 merged momentum kicks and 2K masked position
+half-updates each, then the MH accept with non-finite rejection and,
+optionally, one exact instanton hop — and returns the final links and
+``(N, B)`` traces.  Two conditioner families:
 
-:func:`pack_weights` de-interleaves the trained parameters (the flat state
-interleaves directions, ``index = (t*Lx + s)*2 + mu``) into per-direction
-blocks; :func:`l2hmc_chain_reference` is the plain PyTorch version and
-:func:`l2hmc_chain` runs it for CPU tensors and launches
-``csrc/l2hmc_chain.cu`` for CUDA tensors.
+- the MLP (``make_mlp_net``): :func:`pack_weights` de-interleaves the
+  trained parameters (the flat state interleaves directions, ``index =
+  (t*Lx + s)*2 + mu``) into per-direction blocks; :func:`l2hmc_chain`
+  launches ``csrc/l2hmc_chain.cu``;
+- the local 5-point stencil (``make_local_flat_net``, ``local_layers > 0``
+  in the shared math): :func:`pack_local_weights`; :func:`l2hmc_local_chain`
+  launches ``csrc/l2hmc_local_chain.cu``.
+
+:func:`l2hmc_chain_reference` is the plain PyTorch version of both; the
+wrappers run it for CPU tensors.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from l2hmc_tpu_torch.networks.nets import stencil_head, stencil_layer
 from l2hmc_tpu_torch.ops import _cuda
 from l2hmc_tpu_torch.ops.leapfrog import (
     _energy_change,
@@ -114,6 +120,54 @@ def pack_weights(params, x_dim: int) -> Tuple[torch.Tensor, ...]:
     return tuple(vals[n].to(torch.float32).contiguous() for n in WEIGHT_NAMES)
 
 
+def local_weight_names(num_layers: int) -> Tuple[str, ...]:
+    """Ordered weight names of the local (5-point stencil) conditioner
+    family; :func:`l2hmc_local_chain` hands the kernel the net weights in
+    this order, flattened into one array."""
+    names = []
+    for n in ("x", "v"):
+        names += [n + "s0w", n + "s0t", n + "s0b"]
+        for i in range(1, num_layers):
+            names += [f"{n}s{i}w", f"{n}s{i}b"]
+        names += [n + "hw", n + "hb", n + "cs", n + "ct"]
+    names += ["mask0", "mask1"]
+    return tuple(names)
+
+
+def pack_local_weights(params, x_dim: int,
+                       num_layers: int) -> Tuple[torch.Tensor, ...]:
+    """``make_local_flat_net`` DynamicsParams -> tensors in
+    :func:`local_weight_names` order (contiguous float32, detached).
+
+    The stencil family is direction-split by construction (its channels are
+    the direction halves), so only the per-step masks are de-interleaved.
+    Shapes: ``s0w (5, cin, c)``, ``s0t (2, c)``, ``s{i}w (5, c, c)``, biases
+    ``(c,)``, ``hw (c, 6)`` with outputs ``[S0 S1 T0 T1 Q0 Q1]``, ``hb
+    (6,)``, ``cs``/``ct (2,)``, masks ``(K, d)``.
+    """
+    vals = {}
+    for n, net in (("x", params.xnet), ("v", params.vnet)):
+        st = net.stencils()
+        if len(st) != num_layers:
+            raise ValueError(f"num_layers={num_layers}, the {n}net has "
+                             f"{len(st)} stencil layers")
+        vals[n + "s0w"] = st[0].w
+        vals[n + "s0t"] = st[0].wt
+        vals[n + "s0b"] = st[0].b
+        for i in range(1, num_layers):
+            vals[f"{n}s{i}w"] = st[i].w
+            vals[f"{n}s{i}b"] = st[i].b
+        vals[n + "hw"] = net.head.w
+        vals[n + "hb"] = net.head.b
+        vals[n + "cs"] = net.coeff_scale
+        vals[n + "ct"] = net.coeff_transformation
+    m = params.masks.reshape(params.masks.shape[0], x_dim // 2, 2)
+    vals["mask0"] = m[..., 0]
+    vals["mask1"] = m[..., 1]
+    return tuple(vals[k].detach().to(torch.float32).contiguous()
+                 for k in local_weight_names(num_layers))
+
+
 # ---------------------------------------------------------------------------
 # Shared transition math
 # ---------------------------------------------------------------------------
@@ -163,25 +217,8 @@ def _circle_scale(x, a):
     return y, logdet
 
 
-def _l2hmc_transition_math(x0, x1, v0, v1, dsign, u, W, eps, beta, K, lx,
-                           bounded_q, pot0, sinp, chg0, cosp):
-    """One trained-L2HMC transition (merge_v_halves, u1, MLP) on flat halves.
-
-    ``dsign (B,)`` in {+1,-1}; ``u (B,)`` accept uniforms; ``W`` a namespace
-    of :data:`WEIGHT_NAMES` tensors; ``pot0/sinp/chg0/cosp`` the carried
-    fields of the input state.  Returns ``(x0', x1', prob, pot, sinp, chg,
-    cosp)`` of the output state.
-    """
-    d_col = dsign[:, None]
-    fwd = d_col > 0
-    g0, g1 = _grad_flat(sinp, lx)
-    g0, g1 = beta * g0, beta * g1
-    y0, y1, w0, w1 = x0, x1, v0, v1
-    sumlogdet = torch.zeros(x0.shape[0], dtype=x0.dtype, device=x0.device)
-    pot1, sinp1, cosp1, chg1 = pot0, sinp, cosp, chg0
-
-    def link_trig(yy0, yy1):
-        return torch.cos(yy0), torch.cos(yy1), torch.sin(yy0), torch.sin(yy1)
+def _make_mlp_nets(W, bounded_q):
+    """vnet/xnet closures of the MLP conditioner on the dir-split halves."""
 
     def vnet(trig, gg0, gg1, tau):
         cy0, cy1, sy0, sy1 = trig
@@ -195,6 +232,63 @@ def _l2hmc_transition_math(x0, x1, v0, v1, dsign, u, W, eps, beta, K, lx,
             [ww0, ww1, m0 * cy0, m1 * cy1, m0 * sy0, m1 * sy1], dim=1)
         pre = feats @ W.xin + _tau_term(tau, W.xt) + W.xb
         return _heads(_trunk(pre, W, "x"), W, "x", bounded_q)
+
+    return vnet, xnet
+
+
+def _make_stencil_nets(W, lx, bounded_q, local_layers):
+    """vnet/xnet closures of the local 5-point stencil conditioner
+    (``make_local_flat_net`` math) on the dir-split halves; ``W`` holds
+    :func:`local_weight_names` tensors.  Channel order is the reference's
+    ``split_dir`` concat: VNet ``[cos y0, cos y1, sin y0, sin y1, g0, g1]``,
+    XNet ``[w0, w1, m0 cos y0, m1 cos y1, m0 sin y0, m1 sin y1]``."""
+
+    def apply_net(p, chans, tau):
+        y = stencil_layer(chans, getattr(W, p + "s0w"), getattr(W, p + "s0b"),
+                          lx, tau, getattr(W, p + "s0t"))
+        for i in range(1, local_layers):
+            y = stencil_layer(y, getattr(W, f"{p}s{i}w"),
+                              getattr(W, f"{p}s{i}b"), lx)
+        return stencil_head(y, getattr(W, p + "hw"), getattr(W, p + "hb"),
+                            getattr(W, p + "cs"), getattr(W, p + "ct"),
+                            bounded_q)
+
+    def vnet(trig, gg0, gg1, tau):
+        cy0, cy1, sy0, sy1 = trig
+        return apply_net("v", [cy0, cy1, sy0, sy1, gg0, gg1], tau)
+
+    def xnet(ww0, ww1, trig, m0, m1, tau):
+        cy0, cy1, sy0, sy1 = trig
+        return apply_net("x", [ww0, ww1, m0 * cy0, m1 * cy1, m0 * sy0,
+                               m1 * sy1], tau)
+
+    return vnet, xnet
+
+
+def _l2hmc_transition_math(x0, x1, v0, v1, dsign, u, W, eps, beta, K, lx,
+                           bounded_q, pot0, sinp, chg0, cosp, local_layers=0):
+    """One trained-L2HMC transition (merge_v_halves, u1) on flat halves.
+
+    ``dsign (B,)`` in {+1,-1}; ``u (B,)`` accept uniforms; ``W`` a namespace
+    of :data:`WEIGHT_NAMES` tensors (MLP) or, with ``local_layers > 0``, of
+    :func:`local_weight_names` tensors (stencil conditioner of that depth);
+    ``pot0/sinp/chg0/cosp`` the carried fields of the input state.  Returns
+    ``(x0', x1', prob, pot, sinp, chg, cosp)`` of the output state.
+    """
+    d_col = dsign[:, None]
+    fwd = d_col > 0
+    g0, g1 = _grad_flat(sinp, lx)
+    g0, g1 = beta * g0, beta * g1
+    y0, y1, w0, w1 = x0, x1, v0, v1
+    sumlogdet = torch.zeros(x0.shape[0], dtype=x0.dtype, device=x0.device)
+    pot1, sinp1, cosp1, chg1 = pot0, sinp, cosp, chg0
+    if local_layers > 0:
+        vnet, xnet = _make_stencil_nets(W, lx, bounded_q, local_layers)
+    else:
+        vnet, xnet = _make_mlp_nets(W, bounded_q)
+
+    def link_trig(yy0, yy1):
+        return torch.cos(yy0), torch.cos(yy1), torch.sin(yy0), torch.sin(yy1)
 
     def kick(trig, w0_, w1_, g0_, g1_, tau, factor, ld):
         """Merged momentum kick, direction-fused (l2hmc.py update_v)."""
@@ -276,18 +370,26 @@ def _l2hmc_transition_math(x0, x1, v0, v1, dsign, u, W, eps, beta, K, lx,
 
 
 def l2hmc_chain_reference(links, params, v0s, v1s, ds, us, eps, beta,
-                          num_leapfrog, bounded_q=True, hop_arrays=None):
+                          num_leapfrog, bounded_q=True, hop_arrays=None,
+                          local_layers=0):
     """Run ``N`` trained transitions with injected randomness.
 
     ``links (B, Lt, Lx, 2)``; ``params`` a ``DynamicsParams`` of the MLP/u1
-    family; ``v0s/v1s (N, B, Lt*Lx)``; ``ds/us (N, B)``.  ``hop_arrays=(nus,
-    uhs)`` appends one exact instanton hop after every transition.  Returns
-    ``(links_out, plaq_trace, charge_trace, prob_trace)``.
+    family or, with ``local_layers > 0``, of the ``make_local_flat_net``
+    family of that depth; ``v0s/v1s (N, B, Lt*Lx)``; ``ds/us (N, B)``.
+    ``hop_arrays=(nus, uhs)`` appends one exact instanton hop after every
+    transition.  Returns ``(links_out, plaq_trace, charge_trace,
+    prob_trace)``.
     """
     b, lt, lx, _ = links.shape
     d = lt * lx
-    W = SimpleNamespace(**dict(zip(
-        WEIGHT_NAMES, (w.to(links.device) for w in pack_weights(params, 2 * d)))))
+    if local_layers > 0:
+        names = local_weight_names(local_layers)
+        packed = pack_local_weights(params, 2 * d, local_layers)
+    else:
+        names, packed = WEIGHT_NAMES, pack_weights(params, 2 * d)
+    W = SimpleNamespace(**dict(zip(names, (w.to(links.device)
+                                           for w in packed))))
     x0, x1 = _split_links(links)
     pot, sinp, cosp, chg = _potential_fields(x0, x1, lx)
     if hop_arrays is not None:
@@ -298,7 +400,8 @@ def l2hmc_chain_reference(links, params, v0s, v1s, ds, us, eps, beta,
         for n in range(v0s.shape[0]):
             x0, x1, prob, pot, sinp, chg, cosp = _l2hmc_transition_math(
                 x0, x1, v0s[n], v1s[n], ds[n], us[n], W, eps, beta,
-                num_leapfrog, lx, bounded_q, pot, sinp, chg, cosp)
+                num_leapfrog, lx, bounded_q, pot, sinp, chg, cosp,
+                local_layers)
             if hop_arrays is not None:
                 x0, x1, _, pot, sinp, cosp, chg = _hop_math(
                     x0, x1, pot, sinp, cosp, chg, nus[n], uhs[n], beta,
@@ -330,6 +433,27 @@ def draw_l2hmc_randomness(generator, n, b, d, hop, device=None):
     return tuple(out)
 
 
+def _check_rand_arrays(rand_arrays, hop):
+    if rand_arrays is not None and len(rand_arrays) != (6 if hop else 4):
+        raise ValueError("rand_arrays must be (v0s, v1s, ds, us"
+                         + (", nus, uhs)" if hop else ")"))
+
+
+def _kernel_randomness(rand_arrays, generator, n, b, d):
+    """``(six pointers-or-None, seed)`` for a chain kernel launch: the
+    checked injected arrays, or none and a Philox seed from
+    ``generator``."""
+    rand = [None] * 6
+    if rand_arrays is None:
+        return rand, draw_seed(generator)
+    shapes = [(n, b, d), (n, b, d)] + [(n, b)] * 4
+    for i, (name, arr) in enumerate(zip(
+            ("v0s", "v1s", "ds", "us", "nus", "uhs"), rand_arrays)):
+        check_cuda_input(name, arr, shapes[i])
+        rand[i] = arr
+    return rand, 0
+
+
 def l2hmc_chain(links, params, generator, eps, beta, num_leapfrog,
                 num_transitions, bounded_q=True, hop=False, rand_arrays=None):
     """Run ``num_transitions`` fused trained L2HMC transitions.
@@ -350,9 +474,7 @@ def l2hmc_chain(links, params, generator, eps, beta, num_leapfrog,
     b, lt, lx, _ = links.shape
     d = lt * lx
     n = num_transitions
-    if rand_arrays is not None and len(rand_arrays) != (6 if hop else 4):
-        raise ValueError("rand_arrays must be (v0s, v1s, ds, us"
-                         + (", nus, uhs)" if hop else ")"))
+    _check_rand_arrays(rand_arrays, hop)
     if not links.is_cuda:
         if rand_arrays is None:
             rand_arrays = draw_l2hmc_randomness(generator, n, b, d, hop,
@@ -381,16 +503,7 @@ def l2hmc_chain(links, params, generator, eps, beta, num_leapfrog,
             f"per block (2 chains), the device allows {limit} B")
 
     x0, x1 = _split_links(links)
-    rand = [None] * 6
-    seed = 0
-    if rand_arrays is not None:
-        shapes = [(n, b, d), (n, b, d)] + [(n, b)] * 4
-        for i, (name, arr) in enumerate(zip(
-                ("v0s", "v1s", "ds", "us", "nus", "uhs"), rand_arrays)):
-            check_cuda_input(name, arr, shapes[i])
-            rand[i] = arr
-    else:
-        seed = draw_seed(generator)
+    rand, seed = _kernel_randomness(rand_arrays, generator, n, b, d)
     wptrs = (ctypes.c_void_p * len(weights))(*[w.data_ptr() for w in weights])
     plaq = torch.empty((n, b), dtype=torch.float32, device=dev)
     chg = torch.empty_like(plaq)
@@ -407,3 +520,101 @@ def l2hmc_chain(links, params, generator, eps, beta, num_leapfrog,
 
 
 l2hmc_chain.launches = 0
+
+# what csrc/l2hmc_local_chain.cu takes: 1 or 2 stencil layers of at most
+# LOCAL_MAX_CHANNELS channels over the 6 u1 input channels
+LOCAL_MAX_CHANNELS = 8
+LOCAL_IN_CHANNELS = 6
+
+
+def l2hmc_local_chain(links, params, generator, eps, beta, num_leapfrog,
+                      num_transitions, num_layers, bounded_q=True, hop=False,
+                      rand_arrays=None):
+    """Run ``num_transitions`` fused trained L2HMC transitions with the
+    local 5-point stencil conditioner.
+
+    ``links (B, Lt, Lx, 2)`` float32 angles; ``params`` a
+    ``make_local_flat_net``/u1 ``DynamicsParams`` with ``num_layers``
+    stencil layers.  Returns ``(links_out, plaq_trace (N, B), charge_trace
+    (N, B), prob_trace (N, B))``; charges rounded.
+
+    A CPU tensor runs :func:`l2hmc_chain_reference` (``local_layers=
+    num_layers``), with randomness drawn from ``generator`` unless
+    ``rand_arrays=(v0s, v1s, ds, us[, nus, uhs])`` is given.  A CUDA tensor
+    launches the kernel of ``csrc/l2hmc_local_chain.cu`` — with the injected
+    arrays, or with in-kernel Philox randomness seeded from ``generator`` —
+    or raises.  Each block runs one chain with its fields in shared memory;
+    a lattice, depth or width whose chain does not fit raises a
+    ``ValueError`` naming the bytes it needs.
+    """
+    check_links(links)
+    if num_layers < 1:
+        raise ValueError(f"num_layers={num_layers}: the local conditioner "
+                         "has at least one stencil layer")
+    b, lt, lx, _ = links.shape
+    d = lt * lx
+    n = num_transitions
+    _check_rand_arrays(rand_arrays, hop)
+    if not links.is_cuda:
+        if rand_arrays is None:
+            rand_arrays = draw_l2hmc_randomness(generator, n, b, d, hop,
+                                                links.device)
+        return l2hmc_chain_reference(
+            links, params, *rand_arrays[:4], eps, beta, num_leapfrog,
+            bounded_q, hop_arrays=tuple(rand_arrays[4:]) if hop else None,
+            local_layers=num_layers)
+
+    if links.dtype != torch.float32:
+        raise ValueError(f"links: expected float32, got {links.dtype}")
+    if num_layers > 2:
+        raise ValueError(f"num_layers={num_layers}: the kernel runs 1 or 2 "
+                         "stencil layers")
+    dev = links.device
+    names = local_weight_names(num_layers)
+    weights = pack_local_weights(params, 2 * d, num_layers)
+    for name, w in zip(names, weights):
+        check_cuda_input(name, w)
+    s0w = weights[0]
+    c = s0w.shape[2]
+    if tuple(s0w.shape[:2]) != (5, LOCAL_IN_CHANNELS):
+        raise ValueError(f"xs0w: expected (5, {LOCAL_IN_CHANNELS}, c), got "
+                         f"{tuple(s0w.shape)} (u1 position features)")
+    if c > LOCAL_MAX_CHANNELS:
+        raise ValueError(f"channels={c}: the kernel takes at most "
+                         f"{LOCAL_MAX_CHANNELS}")
+    mask0, mask1 = weights[-2:]
+    K = mask0.shape[0]
+    if K != num_leapfrog or num_leapfrog < 1:
+        raise ValueError(f"masks hold {K} steps, num_leapfrog={num_leapfrog}")
+    masks = torch.stack([mask0, mask1])
+    if not bool(((masks == 0.0) | (masks == 1.0)).all()):
+        raise ValueError("masks: the kernel takes binary hold masks")
+
+    lib = _cuda.library()
+    smem = lib.l2hmc_local_chain_smem_bytes(lt, lx, c, num_layers)
+    limit = lib.smem_optin_bytes(dev.index or 0)
+    if smem > limit:
+        raise ValueError(
+            f"l2hmc_local_chain: {lt}x{lx} c={c} L={num_layers} needs {smem} "
+            f"B of shared memory per block (1 chain), the device allows "
+            f"{limit} B")
+
+    x0, x1 = _split_links(links)
+    rand, seed = _kernel_randomness(rand_arrays, generator, n, b, d)
+    # net weights of both nets, flattened in local_weight_names order
+    flat = torch.cat([w.reshape(-1) for w in weights[:-2]])
+    plaq = torch.empty((n, b), dtype=torch.float32, device=dev)
+    chg = torch.empty_like(plaq)
+    prob = torch.empty_like(plaq)
+    l2hmc_local_chain.launches += 1
+    _cuda.check(lib.l2hmc_local_chain_launch(
+        x0.data_ptr(), x1.data_ptr(), flat.data_ptr(), mask0.data_ptr(),
+        mask1.data_ptr(), *[_cuda.ptr(r) for r in rand],
+        plaq.data_ptr(), chg.data_ptr(), prob.data_ptr(),
+        b, lt, lx, K, n, c, num_layers, float(eps), float(beta),
+        int(bounded_q), int(hop), seed, dev.index or 0,
+        _cuda.stream_handle(dev)), "l2hmc_local_chain_launch")
+    return _join_links(x0, x1, lt, lx), plaq, torch.round(chg), prob
+
+
+l2hmc_local_chain.launches = 0

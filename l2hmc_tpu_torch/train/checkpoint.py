@@ -2,9 +2,10 @@
 
 A JAX ``DynamicsParams`` pytree flattens (``jax.tree_util.tree_flatten``)
 to ``[xnet leaves..., vnet leaves..., raw_eps, masks]``, each net dict with
-its keys in sorted order — :data:`NET_LEAF_ORDER` for the MLP family.  The
-shipped ``benchmarks/champion_16x16.npz`` stores those leaves as
-``arr_0..arr_17`` beside a ``config`` JSON string.
+its keys in sorted order at every level (:func:`net_leaf_order`;
+:data:`NET_LEAF_ORDER` for the MLP family).  The shipped
+``benchmarks/champion_16x16.npz`` stores those leaves as ``arr_0..arr_17``
+beside a ``config`` JSON string.
 """
 
 from __future__ import annotations
@@ -42,10 +43,29 @@ def _net_arrays(net) -> dict:
     return out
 
 
+def net_leaf_order(cfg: GaugeConfig) -> tuple:
+    """Dotted parameter names of one net of ``cfg.network_arch`` in the JAX
+    flatten order (dict keys sorted at every level)."""
+    xnet, _ = build_networks(cfg, torch.Generator().manual_seed(0))
+    return tuple(sorted(xnet.state_dict(), key=lambda k: k.split(".")))
+
+
+def _nest(flat: dict) -> dict:
+    """``{'a.b': v}`` -> ``{'a': {'b': v}}``."""
+    tree = {}
+    for k, v in flat.items():
+        node = tree
+        *parents, leaf = k.split(".")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return tree
+
+
 def params_from_numpy(tree, cfg: GaugeConfig, device=None) -> DynamicsParams:
     """Port params from a reference ``DynamicsParams`` with numpy leaves
-    (fields ``xnet``, ``vnet`` — dicts as in ``make_mlp_net`` —,
-    ``raw_eps`` and ``masks``)."""
+    (fields ``xnet``, ``vnet`` — dicts as in ``make_mlp_net`` or
+    ``make_local_flat_net`` —, ``raw_eps`` and ``masks``)."""
     # the modules' initial values are overwritten; a private generator keeps
     # their construction off the global RNG
     xnet, vnet = build_networks(cfg, torch.Generator().manual_seed(0))
@@ -60,18 +80,14 @@ def params_from_numpy(tree, cfg: GaugeConfig, device=None) -> DynamicsParams:
 
 
 def params_from_leaves(leaves, cfg: GaugeConfig, device=None):
-    """Port params from the flat leaf list (the npz ``arr_i`` order)."""
-    n = len(NET_LEAF_ORDER)
+    """Port params from the flat leaf list (the npz ``arr_i`` order) of a
+    ``cfg.network_arch`` pytree."""
+    order = net_leaf_order(cfg)
+    n = len(order)
     if len(leaves) != 2 * n + 2:
         raise ValueError(f"expected {2 * n + 2} leaves, got {len(leaves)}")
-
-    def net(ls):
-        flat = dict(zip(NET_LEAF_ORDER, ls))
-        tree = {k: v for k, v in flat.items() if not k.startswith("h_layer")}
-        tree["h_layer"] = {"b": flat["h_layer.b"], "w": flat["h_layer.w"]}
-        return tree
-
-    tree = SimpleNamespace(xnet=net(leaves[:n]), vnet=net(leaves[n:2 * n]),
+    tree = SimpleNamespace(xnet=_nest(dict(zip(order, leaves[:n]))),
+                           vnet=_nest(dict(zip(order, leaves[n:2 * n]))),
                            raw_eps=leaves[2 * n], masks=leaves[2 * n + 1])
     return params_from_numpy(tree, cfg, device)
 
@@ -80,5 +96,6 @@ def load_champion(path=CHAMPION_PATH, device=None):
     """``(GaugeConfig, DynamicsParams)`` from the shipped champion npz."""
     with np.load(path, allow_pickle=False) as z:
         cfg = config_from_dict(json.loads(str(z["config"])))
-        leaves = [z[f"arr_{i}"] for i in range(2 * len(NET_LEAF_ORDER) + 2)]
+        n = 2 * len(net_leaf_order(cfg)) + 2
+        leaves = [z[f"arr_{i}"] for i in range(n)]
     return cfg, params_from_leaves(leaves, cfg, device)

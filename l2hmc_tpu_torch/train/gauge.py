@@ -2,9 +2,9 @@
 
 Port of the sampling side of ``l2hmc_tpu/train/gauge.py``: :class:`GaugeConfig`
 (every field, so a reference config JSON loads unchanged), the network and
-dynamics builders for ``network_arch='mlp'``, ``group='u1'``,
-``action='wilson'``, and :func:`make_eval_chunk`.  The optimizer, loss and
-train step are not ported yet (ROADMAP queue A item 4).
+dynamics builders for ``network_arch`` in ``('mlp', 'local_flat')``,
+``group='u1'``, ``action='wilson'``, and :func:`make_eval_chunk`.  The
+optimizer, loss and train step are not ported yet (ROADMAP queue A item 4).
 """
 
 from __future__ import annotations
@@ -20,7 +20,12 @@ from l2hmc_tpu_torch.dynamics.l2hmc import (
     make_masks,
 )
 from l2hmc_tpu_torch.lattice import u1
-from l2hmc_tpu_torch.networks.nets import MLPNetSpec, make_mlp_net
+from l2hmc_tpu_torch.networks.nets import (
+    LocalNetSpec,
+    MLPNetSpec,
+    make_local_flat_net,
+    make_mlp_net,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,13 +95,26 @@ def config_from_dict(d: dict) -> GaugeConfig:
 
 def build_networks(cfg: GaugeConfig, generator=None, device=None):
     """XNet (position, factor=2) and VNet (momentum, factor=1) modules."""
-    if cfg.network_arch != "mlp":
+    if cfg.network_arch not in ("mlp", "local_flat"):
         raise NotImplementedError(
             f"network_arch={cfg.network_arch!r} is not ported yet (ROADMAP "
-            "queue A item 6: make_conv_net, local nets)")
+            "queue A item 6: conv, local, zero)")
     if cfg.group != "u1":
         raise NotImplementedError(
             f"group={cfg.group!r} is not ported yet (ROADMAP queue A item 3)")
+    if cfg.network_arch == "local_flat":
+        # periodic (cos, sin) position features: 4 channels in the
+        # position slot (XNet x slot, VNet v slot)
+        spec = dict(channels=cfg.num_filters, kernel_size=cfg.local_kernel,
+                    num_layers=cfg.local_layers, use_bf16=cfg.use_bf16,
+                    bounded_q=cfg.bounded_q)
+        xnet = make_local_flat_net(LocalNetSpec(
+            cfg.time_size, cfg.space_size, factor=2.0, x_channels=4, **spec),
+            generator, device)
+        vnet = make_local_flat_net(LocalNetSpec(
+            cfg.time_size, cfg.space_size, factor=1.0, v_channels=4, **spec),
+            generator, device)
+        return xnet, vnet
     pos_dim = 2 * cfg.x_dim
     xnet = make_mlp_net(MLPNetSpec(cfg.x_dim, cfg.hidden, factor=2.0,
                                    use_bf16=cfg.use_bf16,

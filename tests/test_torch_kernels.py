@@ -11,7 +11,8 @@ file imports no JAX, so it also runs on the machine with the card::
 Tolerance on the card: 1e-4 on link angles (compared modulo 2 pi) and on
 traces.  Kernel and plain version differ only in float32 summation order
 and in CUDA's libm against torch's kernels; the energy change is summed per
-site on both sides, so accept probabilities agree to ~1e-5.
+site on both sides, so accept probabilities agree to ~1e-5 at 16x16 and
+~4e-5 at 64x64 (8192 links per chain).
 """
 
 import shutil
@@ -66,6 +67,22 @@ def _params(lt, lx, K, hidden, device):
     return params.to(device)
 
 
+def _local_params(lt, lx, K, channels, layers, device, seed=0):
+    """local_flat/u1/merge_v params with every net leaf perturbed by a
+    seeded N(0, 0.05^2), so that S, T and Q are not near zero."""
+    cfg = tgauge.GaugeConfig(time_size=lt, space_size=lx, num_steps=K,
+                             network_arch="local_flat", num_filters=channels,
+                             local_layers=layers, merge_v_halves=True,
+                             group="u1", bounded_q=True, eps_init=0.03)
+    g = torch.Generator().manual_seed(seed)
+    params = tgauge.init_params(cfg, g)
+    with torch.no_grad():
+        for net in (params.xnet, params.vnet):
+            for p in net.parameters():
+                p.add_(0.05 * torch.randn(p.shape, generator=g))
+    return params.to(device)
+
+
 def _assert_matches(got, want):
     d = torch.remainder(got[0] - want[0] + np.pi, 2 * np.pi) - np.pi
     assert float(d.abs().max()) <= ATOL
@@ -75,7 +92,7 @@ def _assert_matches(got, want):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("hop", [False, True])
-@pytest.mark.parametrize("lt,lx", [(4, 6), (16, 16)])
+@pytest.mark.parametrize("lt,lx", [(4, 6), (16, 16), (64, 64)])
 def test_torch_hmc_chain_kernel_matches_plain(cuda_device, lt, lx, hop):
     b, n = 16, 4
     links = torch.tensor(typical_links(np.random.default_rng(1), b, lt, lx),
@@ -114,12 +131,54 @@ def test_torch_l2hmc_chain_kernel_matches_plain(cuda_device, lt, lx, hidden,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("hop", [False, True])
+@pytest.mark.parametrize("layers", [1, 2])
+@pytest.mark.parametrize("lt,lx,b", [(4, 6, 5), (8, 8, 5), (64, 64, 4)])
+def test_torch_local_chain_kernel_matches_plain(cuda_device, lt, lx, b,
+                                                layers, hop):
+    n, K, eps, beta = 3, 4, 0.01, 4.0
+    params = _local_params(lt, lx, K, 4, layers, cuda_device)
+    links = torch.tensor(typical_links(np.random.default_rng(7), b, lt, lx,
+                                       sigma=0.27), device=cuda_device)
+    rand = _rand(8, n, b, lt * lx, hop, True, cuda_device)
+    want = tl2.l2hmc_chain_reference(links, params, *rand[:4], eps, beta, K,
+                                     hop_arrays=rand[4:] if hop else None,
+                                     local_layers=layers)
+    before = tl2.l2hmc_local_chain.launches
+    got = tl2.l2hmc_local_chain(links, params, None, eps, beta, K, n, layers,
+                                hop=hop, rand_arrays=rand)
+    assert tl2.l2hmc_local_chain.launches == before + 1
+    torch.cuda.synchronize()
+    _assert_matches(got, want)
+    assert 0.02 < float(want[3].mean()) <= 1.0
+
+
+@pytest.mark.cuda
+def test_torch_local_chain_kernel_rejects_what_it_cannot_run(cuda_device):
+    links = torch.zeros((1, 64, 64, 2), device=cuda_device)
+    gen = torch.Generator().manual_seed(0)
+    # c=8, L=2 at 64x64: 18 fields of 16 KB per chain
+    big = _local_params(64, 64, 2, 8, 2, cuda_device)
+    with pytest.raises(ValueError, match="shared memory"):
+        tl2.l2hmc_local_chain(links, big, gen, 0.1, 2.0, 2, 1, 2)
+    wide = _local_params(8, 8, 2, 9, 1, cuda_device)
+    with pytest.raises(ValueError, match="channels"):
+        tl2.l2hmc_local_chain(links[:, :8, :8].contiguous(), wide, gen, 0.1,
+                              2.0, 2, 1, 1)
+    deep = _local_params(8, 8, 2, 4, 3, cuda_device)
+    with pytest.raises(ValueError, match="num_layers"):
+        tl2.l2hmc_local_chain(links[:, :8, :8].contiguous(), deep, gen, 0.1,
+                              2.0, 2, 1, 3)
+
+
+@pytest.mark.cuda
 def test_torch_kernels_in_kernel_randomness(cuda_device):
     """Philox mode: a generator seed fixes the chain, another seed moves it."""
     b, n, lt, lx = 8, 5, 8, 8
     links = torch.tensor(typical_links(np.random.default_rng(5), b, lt, lx),
                          device=cuda_device)
     params = _params(lt, lx, 3, 32, cuda_device)
+    local = _local_params(lt, lx, 3, 4, 2, cuda_device)
     runs = {
         "hmc": lambda s: tlf.hmc_chain(
             links, torch.Generator().manual_seed(s), 0.1, 3.0, 4, n,
@@ -127,6 +186,9 @@ def test_torch_kernels_in_kernel_randomness(cuda_device):
         "l2hmc": lambda s: tl2.l2hmc_chain(
             links, params, torch.Generator().manual_seed(s), 0.12, 3.0, 3, n,
             hop=True),
+        "local": lambda s: tl2.l2hmc_local_chain(
+            links, local, torch.Generator().manual_seed(s), 0.03, 3.0, 3, n,
+            2, hop=True),
     }
     for name, run in runs.items():
         a, b_, c = run(1), run(1), run(2)

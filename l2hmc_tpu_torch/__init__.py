@@ -8,12 +8,18 @@ Subpackages
 -----------
 lattice   U(1) gauge lattice: Wilson action, observables, exact oracles;
           the checkerboard Metropolis sampler (warm start)
-ops       Wilson action with analytic gradient; the fused chain kernels
-          (hand-written CUDA C++ for sm_90a, with plain PyTorch versions)
+ops       Wilson action with analytic gradient and its kernels (forward,
+          backward, double backward); the fused chain kernels (hand-written
+          CUDA C++ for sm_90a, with plain PyTorch versions)
 networks  the S/T/Q conditioners (MLP, local 5-point stencil) as
           ``nn.Module``s
-dynamics  the trained L2HMC transition (u1, merge_v_halves) and plain HMC
-train     gauge config, network/dynamics builders, eval chunk, checkpoints
+dynamics  the trained L2HMC transition (u1, merge_v_halves), plain HMC,
+          the exact instanton hop, dual averaging of the step size
+train     gauge config, builders, losses, schedules, the optimizer and train
+          step, train/eval chunks, checkpoints
+
+Entry points that create tensors put them on the first CUDA device unless
+given ``device="cpu"`` (``_device.resolve_device``).
 
 Conventions kept from the reference: links are ``(B, Lt, Lx, 2)`` angles,
 the flat state is ``(B, 2*Lt*Lx)`` interleaved as ``(t*Lx + s)*2 + mu``,

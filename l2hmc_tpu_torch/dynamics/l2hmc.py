@@ -117,8 +117,9 @@ def make_dynamics(cfg: DynamicsConfig, potential_fn: PotentialFn):
     ``integrate(params, x, v, beta, direction) -> (x', v', sumlogdet)``
     ``hamiltonian``, ``potential_energy``, ``kinetic_energy``, ``accept_prob``.
 
-    ``cfg.remat`` is accepted and has no effect on sampling (it selects
-    activation checkpointing, which matters only when training).
+    ``cfg.remat`` is accepted and has no effect: it selects activation
+    checkpointing of the trajectory in the reference, which saves memory
+    in training only at large width (hidden ~4096).
     """
     _check_supported(cfg)
     K = cfg.num_steps

@@ -15,6 +15,8 @@ import numpy as np
 import torch
 from scipy.special import i0e, i1e
 
+from l2hmc_tpu_torch._device import resolve_device
+
 TWO_PI = 2.0 * np.pi
 
 
@@ -80,9 +82,40 @@ def project_angle(x: torch.Tensor) -> torch.Tensor:
     return x - TWO_PI * torch.floor((x + np.pi) / TWO_PI)
 
 
+def project_angle_approx(x: torch.Tensor, n_terms: int = 5) -> torch.Tensor:
+    """Differentiable Fourier-series surrogate of :func:`project_angle`:
+    ``sum_{n=1}^{N-1} (-2/n) (-1)^n sin(n x)`` (``N-1`` terms, as the
+    reference keeps)."""
+    y = torch.zeros_like(x)
+    for n in range(1, n_terms):
+        y = y + (-2.0 / n) * ((-1.0) ** n) * torch.sin(n * x)
+    return y
+
+
 def topological_charge(links: torch.Tensor) -> torch.Tensor:
     """Exact topological charge ``Q = sum proj(P) / 2pi`` (near-integer)."""
     return torch.sum(project_angle(plaq_sums(links)), dim=(-2, -1)) / TWO_PI
+
+
+def topological_charge_approx(links: torch.Tensor,
+                              n_terms: int = 5) -> torch.Tensor:
+    """Differentiable topological charge via the Fourier surrogate."""
+    p = plaq_sums(links)
+    return torch.sum(project_angle_approx(p, n_terms), dim=(-2, -1)) / TWO_PI
+
+
+def charge_diff(x1: torch.Tensor, x2: torch.Tensor,
+                shape: LatticeShape) -> torch.Tensor:
+    """``|Q(x1) - Q(x2)|`` of flat states with the exact projection."""
+    return torch.abs(topological_charge(to_links(x1, shape))
+                     - topological_charge(to_links(x2, shape)))
+
+
+def charge_diff_approx(x1: torch.Tensor, x2: torch.Tensor,
+                       shape: LatticeShape, n_terms: int = 5) -> torch.Tensor:
+    """``|Q(x1) - Q(x2)|`` with the differentiable surrogate (loss path)."""
+    return torch.abs(topological_charge_approx(to_links(x1, shape), n_terms)
+                     - topological_charge_approx(to_links(x2, shape), n_terms))
 
 
 def wrap(x: torch.Tensor) -> torch.Tensor:
@@ -102,18 +135,23 @@ def make_potential_fn(shape: LatticeShape):
 def random_links(generator: Optional[torch.Generator], n: int,
                  shape: LatticeShape, method: str = "uniform",
                  device=None) -> torch.Tensor:
-    """Batch of ``n`` flat link configurations in ``[-pi, pi)``.
+    """Batch of ``n`` flat link configurations in ``[-pi, pi)`` on
+    ``device`` (``None``: the first CUDA device; see ``resolve_device``).
 
+    The draw is made on the generator's device and moved.
     ``method='zeros'`` gives a cold start (no randomness drawn).
     """
+    device = resolve_device(device)
     if method == "zeros":
         return torch.zeros((n, shape.num_links), dtype=torch.float32,
                            device=device)
     if method != "uniform":
         raise ValueError(f"method={method!r}")
     u = torch.rand((n, shape.num_links), generator=generator,
-                   dtype=torch.float32, device=device)
-    return (u * TWO_PI - np.pi).to(torch.float32)
+                   dtype=torch.float32,
+                   device=generator.device if generator is not None
+                   else device)
+    return (u * TWO_PI - np.pi).to(device=device, dtype=torch.float32)
 
 
 def typical_links(rng: np.random.Generator, n: int, lt: int, lx: int,

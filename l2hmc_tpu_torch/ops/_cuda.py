@@ -75,6 +75,19 @@ _SIGNATURES = {
         _F, _F, _I, _I, _U64,        # eps, beta, bounded_q, hop, seed
         _I, _P,                      # device, stream
     ]),
+    "wilson_fwd_launch": (_I, [
+        _P, _P, _P,                  # links (B, Lt, Lx, 2); action (B,), sinp
+        _I, _I, _I, _I, _P,          # B, lt, lx, device, stream
+    ]),
+    "wilson_bwd_launch": (_I, [
+        _P, _P, _P,                  # sinp (B, Lt, Lx), g (B,); force
+        _I, _I, _I, _I, _P,          # B, lt, lx, device, stream
+    ]),
+    "wilson_bwd_bwd_launch": (_I, [
+        _P, _P, _P,                  # links, g (B,), w (B, Lt, Lx, 2)
+        _P, _P,                      # dlinks (B, Lt, Lx, 2), dg (B,)
+        _I, _I, _I, _I, _P,          # B, lt, lx, device, stream
+    ]),
 }
 
 

@@ -17,11 +17,17 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
+from l2hmc_tpu_torch._device import resolve_device
 from l2hmc_tpu_torch.dynamics.l2hmc import DynamicsParams
+from l2hmc_tpu_torch.dynamics.nuts import DualAveragingState
 from l2hmc_tpu_torch.train.gauge import (
     GaugeConfig,
+    OptState,
+    TrainState,
     build_networks,
     config_from_dict,
+    make_optimizer,
+    named_leaves,
 )
 
 # sorted-key flatten order of one make_mlp_net parameter dict
@@ -65,7 +71,9 @@ def _nest(flat: dict) -> dict:
 def params_from_numpy(tree, cfg: GaugeConfig, device=None) -> DynamicsParams:
     """Port params from a reference ``DynamicsParams`` with numpy leaves
     (fields ``xnet``, ``vnet`` — dicts as in ``make_mlp_net`` or
-    ``make_local_flat_net`` —, ``raw_eps`` and ``masks``)."""
+    ``make_local_flat_net`` —, ``raw_eps`` and ``masks``), on ``device``
+    (``None``: the first CUDA device)."""
+    device = resolve_device(device)
     # the modules' initial values are overwritten; a private generator keeps
     # their construction off the global RNG
     xnet, vnet = build_networks(cfg, torch.Generator().manual_seed(0))
@@ -76,7 +84,7 @@ def params_from_numpy(tree, cfg: GaugeConfig, device=None) -> DynamicsParams:
     params = DynamicsParams(
         xnet, vnet, torch.tensor(np.asarray(tree.raw_eps, np.float32)),
         torch.tensor(np.asarray(tree.masks, np.float32)))
-    return params.to(device) if device is not None else params
+    return params.to(device)
 
 
 def params_from_leaves(leaves, cfg: GaugeConfig, device=None):
@@ -93,9 +101,61 @@ def params_from_leaves(leaves, cfg: GaugeConfig, device=None):
 
 
 def load_champion(path=CHAMPION_PATH, device=None):
-    """``(GaugeConfig, DynamicsParams)`` from the shipped champion npz."""
+    """``(GaugeConfig, DynamicsParams)`` from the shipped champion npz, on
+    ``device`` (``None``: the first CUDA device)."""
+    device = resolve_device(device)
     with np.load(path, allow_pickle=False) as z:
         cfg = config_from_dict(json.loads(str(z["config"])))
         n = 2 * len(net_leaf_order(cfg)) + 2
         leaves = [z[f"arr_{i}"] for i in range(n)]
     return cfg, params_from_leaves(leaves, cfg, device)
+
+
+def _find_adam(opt_state):
+    """The ``ScaleByAdamState`` (fields ``count``, ``mu``, ``nu``) inside a
+    reference optax state (chains and ``MaskedState`` are tuples)."""
+    if hasattr(opt_state, "mu") and hasattr(opt_state, "nu"):
+        return opt_state
+    if isinstance(opt_state, tuple):
+        for item in opt_state:
+            found = _find_adam(item)
+            if found is not None:
+                return found
+    return None
+
+
+def _leaf_at(tree, name: str):
+    """The leaf of a reference params-shaped tree at ``xnet/h_layer/w``."""
+    head, *rest = name.split("/")
+    node = getattr(tree, head)
+    for part in rest:
+        node = node[part]
+    return node
+
+
+def train_state_from_numpy(tree, cfg: GaugeConfig, device=None) -> TrainState:
+    """Port ``TrainState`` from a reference ``TrainState`` with numpy leaves
+    (``jax.tree.map(np.asarray, state)``), on ``device`` (``None``: the first
+    CUDA device): params, Adam's ``mu``/``nu`` of the optimized tensors and
+    optax's count, the chain state, the step and the dual-averaging state.
+    """
+    device = resolve_device(device)
+    params = params_from_numpy(tree.params, cfg, device)
+    adam = _find_adam(tree.opt_state)
+    if adam is None:
+        raise ValueError("opt_state holds no Adam state (mu, nu)")
+    init = make_optimizer(cfg).init(named_leaves(params))
+
+    def moments(field):
+        return {k: torch.tensor(np.asarray(_leaf_at(getattr(adam, field), k),
+                                           np.float32), device=device)
+                for k in init.mu}
+
+    opt_state = OptState(count=int(adam.count), mu=moments("mu"),
+                         nu=moments("nu"))
+    da = DualAveragingState(*[torch.tensor(np.asarray(a, np.float32),
+                                           device=device) for a in tree.da])
+    return TrainState(params=params, opt_state=opt_state,
+                      x=torch.tensor(np.asarray(tree.x, np.float32),
+                                     device=device),
+                      step=int(tree.step), da=da)

@@ -113,7 +113,7 @@ def _jax_transition_randomness(key, b, x_dim):
 def test_torch_transition_matches_jax_make_dynamics(hmc):
     jparams, _, jtrans = _jax_params(hmc)
     cfg = _gauge_cfg(hmc=hmc)
-    params = params_from_numpy(jparams, cfg)
+    params = params_from_numpy(jparams, cfg, device="cpu")
     _, dyn = tgauge.build_dynamics(cfg)
     x = _typical_x(1)
     beta = 3.0
@@ -216,7 +216,8 @@ def test_torch_dynamics_helpers():
     masks = tdyn.make_masks(torch.Generator().manual_seed(0), 3, 10)
     assert masks.shape == (3, 10)
     assert torch.equal(masks.sum(dim=1), torch.full((3,), 5.0))
-    params = tgauge.init_params(_gauge_cfg(), torch.Generator().manual_seed(0))
+    params = tgauge.init_params(_gauge_cfg(), torch.Generator().manual_seed(0),
+                                device="cpu")
     cfg = tdyn.DynamicsConfig(x_dim=32, num_steps=3, group="u1",
                               merge_v_halves=True, eps_cap=0.1)
     assert float(tdyn.get_eps(params, cfg).detach()) == pytest.approx(0.1)
@@ -243,7 +244,8 @@ def test_torch_unported_builders_raise():
 
 def test_torch_eval_chunk_runs():
     cfg = _gauge_cfg()
-    params = tgauge.init_params(cfg, torch.Generator().manual_seed(2))
+    params = tgauge.init_params(cfg, torch.Generator().manual_seed(2),
+                                device="cpu")
     chunk = tgauge.make_eval_chunk(cfg, 3)
     x0 = torch.from_numpy(_typical_x(3))
     x, m = chunk(params, x0, 2.0, torch.Generator().manual_seed(4))

@@ -1,4 +1,4 @@
-"""PyTorch port: the CUDA chain kernels against their plain versions.
+"""PyTorch port: the CUDA kernels against their plain versions.
 
 Every test but the last needs a CUDA device (marker ``cuda``) and skips
 without one: the kernels are CUDA C++ for sm_90a and have no CPU mode.  This
@@ -12,9 +12,12 @@ Tolerance on the card: 1e-4 on link angles (compared modulo 2 pi) and on
 traces.  Kernel and plain version differ only in float32 summation order
 and in CUDA's libm against torch's kernels; the energy change is summed per
 site on both sides, so accept probabilities agree to ~1e-5 at 16x16 and
-~4e-5 at 64x64 (8192 links per chain).
+~4e-5 at 64x64 (8192 links per chain).  The Wilson kernels: S and dg to
+1e-5 of the sum of their terms' magnitudes, sin P to 1e-6, the force from
+the same sin P exactly, dlinks to 1e-5 of its largest entry.
 """
 
+import copy
 import shutil
 from pathlib import Path
 
@@ -26,6 +29,7 @@ from l2hmc_tpu_torch.lattice.u1 import typical_links
 from l2hmc_tpu_torch.ops import _cuda
 from l2hmc_tpu_torch.ops import l2hmc_kernel as tl2
 from l2hmc_tpu_torch.ops import leapfrog as tlf
+from l2hmc_tpu_torch.ops import wilson as tw
 from l2hmc_tpu_torch.train import gauge as tgauge
 
 ATOL = 1e-4
@@ -59,7 +63,7 @@ def _params(lt, lx, K, hidden, device):
                              merge_v_halves=True, group="u1",
                              bounded_q=True, eps_init=0.12)
     g = torch.Generator().manual_seed(lt * 100 + lx)
-    params = tgauge.init_params(cfg, g)
+    params = tgauge.init_params(cfg, g, device="cpu")
     with torch.no_grad():
         for net in (params.xnet, params.vnet):
             for p in net.parameters():
@@ -75,7 +79,7 @@ def _local_params(lt, lx, K, channels, layers, device, seed=0):
                              local_layers=layers, merge_v_halves=True,
                              group="u1", bounded_q=True, eps_init=0.03)
     g = torch.Generator().manual_seed(seed)
-    params = tgauge.init_params(cfg, g)
+    params = tgauge.init_params(cfg, g, device="cpu")
     with torch.no_grad():
         for net in (params.xnet, params.vnet):
             for p in net.parameters():
@@ -229,6 +233,104 @@ def test_torch_kernel_wrappers_reject_bad_input(cuda_device):
     with pytest.raises(ValueError, match="shared memory"):
         tl2.l2hmc_chain(torch.zeros((1, 48, 48, 2), device=cuda_device), big,
                         torch.Generator().manual_seed(0), 0.1, 2.0, 3, 1)
+
+
+def _wilson_inputs(seed, b, lt, lx, device):
+    rng = np.random.default_rng(seed)
+
+    def arr(a):
+        return torch.tensor(a, dtype=torch.float32, device=device)
+
+    return (arr(rng.uniform(-np.pi, np.pi, (b, lt, lx, 2))),
+            arr(rng.uniform(1.0, 5.0, b)),
+            arr(rng.standard_normal((b, lt, lx, 2))))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,lt,lx", [(3, 2, 2), (5, 4, 6), (7, 16, 16),
+                                     (2, 64, 64), (1, 3, 37)])
+def test_torch_wilson_kernels_match_plain(cuda_device, b, lt, lx):
+    links, g, w = _wilson_inputs(b * lt + lx, b, lt, lx, cuda_device)
+    before = (tw.wilson_forward.launches, tw.wilson_backward.launches,
+              tw.wilson_double_backward.launches)
+    s_k, sinp_k = tw.wilson_forward(links)
+    s_p, sinp_p = tw.wilson_forward_reference(links)
+    f_k = tw.wilson_backward(sinp_p, g)
+    dl_k, dg_k = tw.wilson_double_backward(links, g, w)
+    dl_p, dg_p = tw.wilson_double_backward_reference(links, g, w)
+    torch.cuda.synchronize()
+    assert (tw.wilson_forward.launches, tw.wilson_backward.launches,
+            tw.wilson_double_backward.launches) == tuple(
+                n + 1 for n in before)
+    p = tw._plaq_sums(links[..., 0], links[..., 1])
+    r = (w[..., 0] - torch.roll(w[..., 0], -1, -1) - w[..., 1]
+         + torch.roll(w[..., 1], -1, -2))
+    s_scale = torch.sum(1.0 - torch.cos(p), dim=(1, 2))
+    dg_scale = torch.sum(torch.abs(r * torch.sin(p)), dim=(1, 2))
+    assert bool(((s_k - s_p).abs() <= 1e-5 * s_scale).all())
+    assert float((sinp_k - sinp_p).abs().max()) <= 1e-6
+    assert torch.equal(f_k, tw.wilson_backward_reference(sinp_p, g))
+    assert float((dl_k - dl_p).abs().max()) <= 1e-5 * float(
+        dl_p.abs().max())
+    assert bool(((dg_k - dg_p).abs() <= 1e-5 * dg_scale).all())
+
+
+@pytest.mark.cuda
+def test_torch_wilson_kernel_autograd_matches_plain(cuda_device):
+    """Second order through the kernels (force recorded, then its
+    backward) against the plain Function, on the card."""
+    links, beta, c = _wilson_inputs(11, 4, 8, 8, cuda_device)
+    out = []
+    for action in (tw.wilson_action_kernel, tw.wilson_action):
+        x = links.clone().requires_grad_(True)
+        b = beta.clone().requires_grad_(True)
+        (f,) = torch.autograd.grad(torch.sum(b * action(x)), x,
+                                   create_graph=True)
+        out.append((f.detach(),) + torch.autograd.grad(torch.sum(c * f),
+                                                       (x, b)))
+    for k, p in zip(*out):
+        torch.testing.assert_close(k, p, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_torch_train_step_kernel_matches_plain(cuda_device):
+    """One train step through the Wilson kernels against the plain
+    potential on the card: same state and draws (8x8, h16, K=2, hops)."""
+    cfg = tgauge.GaugeConfig(time_size=8, space_size=8, num_chains=16,
+                             num_steps=2, network_arch="mlp", num_hidden=16,
+                             merge_v_halves=True, eps_init=0.1,
+                             train_hops=True, charge_reward=True,
+                             lr_warmup_steps=0, beta_init=2.0)
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    state = tgauge.init_train_state(cfg, gen, cuda_device)
+    draws = tgauge.draw_train_randomness(gen, 16, cfg.x_dim, True,
+                                         cuda_device)
+    out = []
+    for pot in (None, tw.make_plain_potential_fn(cfg.shape)):
+        st = state._replace(params=copy.deepcopy(state.params))
+        out.append(tgauge.make_train_step(cfg, pot)[1](st, draws))
+    (sk, mk), (sp, mp) = out
+    assert abs(float(mk["loss"]) - float(mp["loss"])) <= 1e-4 * abs(
+        float(mp["loss"]))
+    for key in ("accept_prob", "plaqs", "eps"):
+        assert abs(float(mk[key]) - float(mp[key])) <= ATOL, key
+    d = torch.remainder(sk.x - sp.x + np.pi, 2 * np.pi) - np.pi
+    assert float(d.abs().max()) <= ATOL
+
+
+@pytest.mark.cuda
+def test_torch_wilson_wrappers_reject_bad_input(cuda_device):
+    links, g, w = _wilson_inputs(3, 2, 4, 4, cuda_device)
+    with pytest.raises(ValueError, match="float32"):
+        tw.wilson_forward(links.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        tw.wilson_double_backward(links, g, w.transpose(1, 2).contiguous()
+                                  .transpose(1, 2))
+    _, sinp = tw.wilson_forward(links)
+    with pytest.raises(ValueError, match="CUDA"):
+        tw.wilson_backward(sinp, g.cpu())
+    with pytest.raises(ValueError, match="shape"):
+        tw.wilson_backward(sinp, g[:1])
 
 
 def test_torch_kernel_build_needs_nvcc():

@@ -99,10 +99,12 @@ def test_torch_topological_susceptibility_exact_matches_jax():
 
 def test_torch_random_links_generator_driven():
     s = tu1.LatticeShape(4, 4)
-    a = tu1.random_links(torch.Generator().manual_seed(5), 8, s)
-    b = tu1.random_links(torch.Generator().manual_seed(5), 8, s)
+    a = tu1.random_links(torch.Generator().manual_seed(5), 8, s,
+                         device="cpu")
+    b = tu1.random_links(torch.Generator().manual_seed(5), 8, s,
+                         device="cpu")
     assert torch.equal(a, b)
     assert a.shape == (8, s.num_links) and a.dtype == torch.float32
     assert float(a.min()) >= -np.pi and float(a.max()) < np.pi
-    cold = tu1.random_links(None, 3, s, method="zeros")
+    cold = tu1.random_links(None, 3, s, method="zeros", device="cpu")
     assert torch.equal(cold, torch.zeros(3, s.num_links))

@@ -81,7 +81,7 @@ def _jax_params(num_layers):
 
 def _port_params(num_layers):
     return tck.params_from_numpy(_jax_params(num_layers),
-                                 _gauge_cfg(num_layers))
+                                 _gauge_cfg(num_layers), device="cpu")
 
 
 def _rand(seed, hop, n=N, b=B, d=D):
@@ -246,8 +246,8 @@ def test_torch_local_params_round_trip_from_jax():
     assert names == ([f"xnet.{n}" for n in order]
                      + [f"vnet.{n}" for n in order] + ["raw_eps", "masks"])
     leaves = [np.asarray(leaf) for _, leaf in pairs]
-    for params in (tck.params_from_numpy(jparams, cfg),
-                   tck.params_from_leaves(leaves, cfg)):
+    for params in (tck.params_from_numpy(jparams, cfg, device="cpu"),
+                   tck.params_from_leaves(leaves, cfg, device="cpu")):
         for net in ("xnet", "vnet"):
             state = getattr(params, net).state_dict()
             for k, v in tck._net_arrays(getattr(jparams, net)).items():
@@ -264,7 +264,8 @@ def test_torch_local_chain_wrapper_on_cpu():
     """The CPU wrapper draws from the generator (same seed, same chain),
     and rejects a depth of 0."""
     cfg = _gauge_cfg(1)
-    params = tgauge.init_params(cfg, torch.Generator().manual_seed(3))
+    params = tgauge.init_params(cfg, torch.Generator().manual_seed(3),
+                                device="cpu")
     links = torch.from_numpy(typical_links(np.random.default_rng(4), 2, LT,
                                            LX, sigma=0.3))
 

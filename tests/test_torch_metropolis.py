@@ -100,7 +100,7 @@ def test_torch_thermalize_reaches_exact_plaquette():
 def test_torch_metropolis_chain_runs():
     plaqs, charges = tmet.metropolis_chain(
         torch.Generator().manual_seed(6), tu1.LatticeShape(6, 6), 2.0,
-        num_sweeps=40, batch=4, thin=2)
+        num_sweeps=40, batch=4, thin=2, device="cpu")
     assert plaqs.shape == charges.shape == (20, 4)
     assert torch.equal(charges, torch.round(charges))
     assert float(plaqs[-5:].mean()) > 0.5     # hot start relaxed

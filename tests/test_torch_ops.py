@@ -175,7 +175,8 @@ def test_torch_hmc_chain_reference_matches_jax(lt, lx, hop):
 def test_torch_l2hmc_chain_reference_matches_jax(lt, lx, hop):
     K, hidden, b, n, d = 3, 32, 8, 4, lt * lx
     _, jparams = _jax_mlp_params(lt, lx, K, hidden)
-    params = params_from_numpy(jparams, _torch_cfg(lt, lx, K, hidden))
+    params = params_from_numpy(jparams, _torch_cfg(lt, lx, K, hidden),
+                               device="cpu")
     links = typical_links(np.random.default_rng(5), b, lt, lx)
     rand = _rand(6, n, b, d, hop, directions=True)
     eps, beta = 0.12, 3.0
@@ -194,7 +195,8 @@ def test_torch_l2hmc_chain_reference_matches_jax(lt, lx, hop):
 def test_torch_pack_weights_matches_jax():
     lt, lx, K, hidden = 4, 4, 3, 32
     _, jparams = _jax_mlp_params(lt, lx, K, hidden)
-    params = params_from_numpy(jparams, _torch_cfg(lt, lx, K, hidden))
+    params = params_from_numpy(jparams, _torch_cfg(lt, lx, K, hidden),
+                               device="cpu")
     want = jl2.pack_weights(jparams, 2 * lt * lx)
     got = tl2.pack_weights(params, 2 * lt * lx)
     assert tl2.WEIGHT_NAMES == jl2.WEIGHT_NAMES
@@ -233,7 +235,8 @@ def test_torch_hmc_chain_wrapper_cpu():
 def test_torch_l2hmc_chain_wrapper_cpu():
     lt, lx, K, hidden = 4, 4, 3, 32
     _, jparams = _jax_mlp_params(lt, lx, K, hidden)
-    params = params_from_numpy(jparams, _torch_cfg(lt, lx, K, hidden))
+    params = params_from_numpy(jparams, _torch_cfg(lt, lx, K, hidden),
+                               device="cpu")
     links = torch.from_numpy(typical_links(np.random.default_rng(9), 4, lt,
                                             lx))
     outs = [tl2.l2hmc_chain(links, params, torch.Generator().manual_seed(1),

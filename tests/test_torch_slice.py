@@ -71,7 +71,7 @@ def test_torch_champion_loads_with_the_jax_leaf_order():
     order = list(tck.NET_LEAF_ORDER)
     assert names == ([f"xnet.{n}" for n in order]
                      + [f"vnet.{n}" for n in order] + ["raw_eps", "masks"])
-    cfg, params = tck.load_champion(CHAMPION)
+    cfg, params = tck.load_champion(CHAMPION, device="cpu")
     assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
     assert (cfg.time_size, cfg.hidden, cfg.num_steps, cfg.group) == (
         16, 64, 3, "u1")
@@ -95,7 +95,7 @@ def test_torch_champion_chain_matches_jax_reference(hop):
     """``l2hmc_chain`` on CPU tensors at full width (16x16, h64) equals the
     JAX ``l2hmc_chain_reference`` on the same arrays."""
     _, jparams, _ = _jax_champion()
-    cfg, params = tck.load_champion(CHAMPION)
+    cfg, params = tck.load_champion(CHAMPION, device="cpu")
     b, n, d = 8, 4, 256
     rng = np.random.default_rng(11)
     links = typical_links(rng, b, 16, 16, sigma=0.3)
@@ -151,7 +151,7 @@ import chip_smoke
 from l2hmc_tpu_torch.dynamics.hmc import hmc_chain_u1_fused
 from l2hmc_tpu_torch.ops.l2hmc_kernel import l2hmc_chain
 from l2hmc_tpu_torch.train.checkpoint import load_champion
-cfg, params = load_champion()
+cfg, params = load_champion(device="cpu")
 g = torch.Generator().manual_seed(0)
 links = torch.zeros(2, 16, 16, 2)
 links, plaq, _, _ = hmc_chain_u1_fused(links, g, 0.08, 4.0, 5, 2)

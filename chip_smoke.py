@@ -16,9 +16,10 @@ Phases (any failure raises and the script exits non-zero):
    ``hmc_chain`` (K=5, eps=0.08) and ``l2hmc_chain`` with the shipped
    champion's weights at 16x16, 2048 chains, 8 transitions; and at 64x64,
    512 chains, 4 transitions: ``hmc_chain`` at local64's K=8, eps=0.04552,
-   and ``l2hmc_local_chain`` at stencil depth L=1 and 2 (c=4, K=4,
-   eps=0.01, where these weights accept ~0.3-0.6), weights from the port's
-   init perturbed by a seeded N(0, 0.05^2).  A
+   and ``l2hmc_local_chain`` at c=4 with stencil depth L=1 and 2 and at
+   c=8 L=1, the two variants phase 9 times (K=4, eps=0.01, where these
+   weights accept ~0.3-0.6), weights from the port's init perturbed by a
+   seeded N(0, 0.05^2).  A
    chain whose accept decision is a near-tie (|u - prob| < 1e-4) may flip
    on rounding; it is reported and excluded, at most 1 in 64.
 4. Main path "champion" (16x16): load the champion, thermalize 2048 chains
@@ -43,6 +44,16 @@ Phases (any failure raises and the script exits non-zero):
    the card, 3 chunks of 100 train steps, every force through the Wilson
    kernels (launches per step checked against the count derived from the
    code); then the trained params served by ``l2hmc_chain`` at beta=4.
+9. Main path "decomposition" (``l2hmc_tpu_torch/benchmarks``): each probe
+   of ``csrc/issue_rates.cu`` against its plain chain; the ablated
+   ``l2hmc_chain`` and ``l2hmc_local_chain`` (c=4 and 8) against their
+   plain versions and against the same kernels on zeroed nets (bit for
+   bit); the bf16
+   ``l2hmc_chain`` against its plain version.  Then, counted: the per-class
+   issue rates inside the kernel at (2048, 256) and (2048, 512), the op
+   counts and issue estimates, the champion's full / ablated / bf16 / HMC
+   decomposition, local64 c4L1 and c8L1 with their ablated forms and HMC at
+   K=4 and 8, and the champion served with bf16 weights (plaquette gate).
 
 Each main path checks plaquettes against I1(4)/I0(4), the hop sampler's
 <Q^2> against the exact finite-volume value, and that its kernels were
@@ -149,7 +160,7 @@ def angle_err(a, b):
     return float(d.abs().max())
 
 
-def check_kernel(name, kernel_out, plain_out, us):
+def check_kernel(name, kernel_out, plain_out, us, atol=ATOL):
     """Compare (links, plaq, charge, prob) of kernel and plain version;
     chains with a near-tie accept decision are excluded."""
     links_k, plaq_k, chg_k, prob_k = kernel_out
@@ -169,10 +180,10 @@ def check_kernel(name, kernel_out, plain_out, us):
         f"{err_prob:.3e}  max|dplaq| {err_plaq:.3e}  charges equal "
         f"{same_q}  excluded {n_ex}/{us.shape[1]}  mean prob "
         f"{float(prob_p.mean()):.4f}")
-    if not (err_links <= ATOL and err_prob <= ATOL and err_plaq <= ATOL
+    if not (err_links <= atol and err_prob <= atol and err_plaq <= atol
             and same_q):
         raise AssertionError(f"{name}: kernel disagrees with its plain "
-                             f"version (atol {ATOL})")
+                             f"version (atol {atol})")
     return max(err_links, err_prob, err_plaq)
 
 
@@ -226,25 +237,38 @@ def check_phase(params, eps_c, K_c, device):
     return errs
 
 
-def local_cfg(layers):
+def local_cfg(layers, channels=L64_CHANNELS):
     from l2hmc_tpu_torch.train.gauge import GaugeConfig
 
     return GaugeConfig(
         time_size=L64_SIDE, space_size=L64_SIDE, num_chains=L64_CHAINS,
-        num_steps=L64_K, network_arch="local_flat", num_filters=L64_CHANNELS,
+        num_steps=L64_K, network_arch="local_flat", num_filters=channels,
         local_layers=layers, merge_v_halves=True, eps_init=L64_EPS,
         eps_trainable=False, beta_final=BETA, bounded_q=True)
 
 
+def live_local_params(layers, channels, seed, device):
+    """local64 params from the port's seeded init, every array perturbed by
+    a seeded N(0, 0.05^2) so that S, T and Q depend on the inputs."""
+    from l2hmc_tpu_torch.train.gauge import init_params
+
+    gen = torch.Generator().manual_seed(seed)
+    params = init_params(local_cfg(layers, channels), gen, device="cpu")
+    with torch.no_grad():
+        for net in (params.xnet, params.vnet):
+            for p in net.parameters():
+                p.add_(0.05 * torch.randn(p.shape, generator=gen))
+    return params.to(device)
+
+
 def local_check_phase(device):
     """Phase 3, 64x64: ``hmc_chain`` at local64's K and eps, and the
-    local-stencil kernel at L=1 and 2, against their plain versions, hop off
-    and on.  Returns ``{kernel: max error}``."""
+    local-stencil kernel at c4L1, c4L2 and c8L1, against their plain
+    versions, hop off and on.  Returns ``{kernel: max error}``."""
     from l2hmc_tpu_torch.lattice.u1 import typical_links
     from l2hmc_tpu_torch.ops.l2hmc_kernel import (l2hmc_chain_reference,
                                                   l2hmc_local_chain)
     from l2hmc_tpu_torch.ops.leapfrog import hmc_chain, hmc_chain_reference
-    from l2hmc_tpu_torch.train.gauge import init_params
 
     rng = np.random.default_rng(4321)
     b, n, d = L64_CHAINS, L64_CHECK_N, L64_SIDE * L64_SIDE
@@ -264,14 +288,9 @@ def local_check_phase(device):
         errs["hmc_chain"] = max(errs["hmc_chain"], check_kernel(
             f"hmc_chain hop={hop} {L64_SIDE}x{L64_SIDE} K={L64_HMC_K}",
             out_k, out_p, us))
-    for layers in (1, 2):
-        gen = torch.Generator().manual_seed(60 + layers)
-        params = init_params(local_cfg(layers), gen, device="cpu")
-        with torch.no_grad():
-            for net in (params.xnet, params.vnet):
-                for p in net.parameters():
-                    p.add_(0.05 * torch.randn(p.shape, generator=gen))
-        params = params.to(device)
+    for layers, channels, seed in ((1, L64_CHANNELS, 61),
+                                   (2, L64_CHANNELS, 62), (1, 8, 69)):
+        params = live_local_params(layers, channels, seed, device)
         for hop in (False, True):
             hop_arrays = (nus, uhs) if hop else None
             rand = (v0s, v1s, ds, us) + ((nus, uhs) if hop else ())
@@ -285,7 +304,7 @@ def local_check_phase(device):
             errs["l2hmc_local_chain"] = max(
                 errs["l2hmc_local_chain"], check_kernel(
                     f"l2hmc_local_chain L={layers} hop={hop} {L64_SIDE}x"
-                    f"{L64_SIDE} c={L64_CHANNELS}", out_k, out_p, us))
+                    f"{L64_SIDE} c={channels}", out_k, out_p, us))
     return errs
 
 
@@ -421,24 +440,38 @@ def accept_vs_plain(path, results, plain_accept, names):
 
 
 def reset_launches():
-    """Set every kernel wrapper's launch count to 0; returns them by name."""
+    """Set every kernel wrapper's launch counts to 0; returns ``{name:
+    (wrapper, count attribute)}``, where ``name[variant]`` counts one mode
+    of a kernel (``l2hmc_chain`` counts all of its launches)."""
     from l2hmc_tpu_torch.ops import wilson as W
+    from l2hmc_tpu_torch.ops.issue_rates import probe_chain
     from l2hmc_tpu_torch.ops.l2hmc_kernel import (l2hmc_chain,
                                                   l2hmc_local_chain)
     from l2hmc_tpu_torch.ops.leapfrog import hmc_chain
 
-    kernels = {"hmc_chain": hmc_chain, "l2hmc_chain": l2hmc_chain,
-               "l2hmc_local_chain": l2hmc_local_chain,
-               "wilson_forward": W.wilson_forward,
-               "wilson_backward": W.wilson_backward,
-               "wilson_double_backward": W.wilson_double_backward}
-    for k in kernels.values():
-        k.launches = 0
+    kernels = {"hmc_chain": (hmc_chain, "launches"),
+               "l2hmc_chain": (l2hmc_chain, "launches"),
+               "l2hmc_chain[ablate]": (l2hmc_chain, "ablate_launches"),
+               "l2hmc_chain[bf16]": (l2hmc_chain, "bf16_launches"),
+               "l2hmc_local_chain": (l2hmc_local_chain, "launches"),
+               "l2hmc_local_chain[ablate]": (l2hmc_local_chain,
+                                             "ablate_launches"),
+               "wilson_forward": (W.wilson_forward, "launches"),
+               "wilson_backward": (W.wilson_backward, "launches"),
+               "wilson_double_backward": (W.wilson_double_backward,
+                                          "launches"),
+               "issue_rates": (probe_chain, "launches")}
+    for fn, attr in kernels.values():
+        setattr(fn, attr, 0)
     return kernels
 
 
+def launch_counts(kernels):
+    return {k: getattr(fn, attr) for k, (fn, attr) in kernels.items()}
+
+
 def read_launches(path, kernels, needed):
-    launches = {k: v.launches for k, v in kernels.items()}
+    launches = launch_counts(kernels)
     log(f"[{path}] launches during the path: {launches}")
     for k in needed:
         if launches[k] < 1:
@@ -582,6 +615,7 @@ def local64_phase(device):
 
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12      # dense, tensor cores
 
 
 def bound(nbytes, flops):
@@ -617,6 +651,13 @@ def l2hmc_chain_bound(b, K, macs):
     """Per transition of the trained chains: K+1 VNet and 2K XNet calls of
     ``macs`` multiply-adds per chain (the conditioners dominate)."""
     return bound(0.0, 2.0 * b * (3 * K + 1) * macs)
+
+
+def bf16_chain_bound(b, K, macs):
+    """The same products with bf16 operands, at the card's dense bf16
+    tensor-core rate (the kernel runs them as float32 FMAs: tensor cores
+    are later work)."""
+    return 1e3 * 2.0 * b * (3 * K + 1) * macs / BF16_FLOP_PER_S, "operations"
 
 
 def wilson_bounds(b, lt, lx):
@@ -981,7 +1022,7 @@ def train_phase(device):
         f"{float(metrics[-1]['beta'][-1]):.5f}; lr "
         f"{float(metrics[-1]['lr'][-1]):.3e}; net params moved up to "
         f"{moved:.3e}")
-    wilson_now = {k: kernels[k].launches for k in
+    wilson_now = {k: launch_counts(kernels)[k] for k in
                   ("wilson_forward", "wilson_backward",
                    "wilson_double_backward")}
     want = {k: v * steps for k, v in wilson_launches_per_step(K).items()}
@@ -1013,7 +1054,7 @@ def train_phase(device):
         probs.append(pr)
     plaq = float(torch.cat(plaqs).double().mean())
     acc = float(torch.cat(probs).double().mean())
-    launches = {k: v.launches for k, v in kernels.items()}
+    launches = launch_counts(kernels)
     log(f"[train] served the trained params with l2hmc_chain at beta={BETA}"
         f": {MAIN_CHAINS} chains, {SERVE_CALLS} x {CALL_N} transitions after"
         f" {SERVE_THERM_N} HMC; plaquette {plaq:.6f} (exact "
@@ -1056,6 +1097,420 @@ def train_phase(device):
             f"top kernels (ms/step): {prof[2]}")
     return launches, kernel_ms, plain_ms
 
+# ---------------------------------------------------------------------------
+# Phase 9: the cost decomposition (l2hmc_tpu_torch/benchmarks)
+# ---------------------------------------------------------------------------
+
+RATE_SHAPES = ((2048, 256), (2048, 512))
+RATE_M = (8192, 32768)        # the two chain lengths of the slope
+PROBE_CHECK_M = 64
+# Probe kernel vs its plain chain on the same inputs, 64 steps: the kernel
+# calls the libdevice routines torch's CUDA kernels call, but contracts
+# x * a + b into one FFMA where torch rounds twice (cheap, floor) and divides
+# where torch multiplies by a reciprocal (div); every probe map contracts, so
+# a one-ulp difference per step stays below ~64 ulp: 1e-5 absolute.
+PROBE_ATOL = 1e-5
+CHEAP_RATE_BAND = (0.5, 1.05)   # x F32_FLOP_PER_S
+DECOMP_NT, DECOMP_REPS = 200, 2
+LOCAL_NT, LOCAL_REPS = 40, 2
+LOCAL_VARIANTS = "c4L1,c8L1"    # c8L2 at 64x64 exceeds the shared memory
+# ablated kernel vs the same kernel on zeroed nets: S = T = Q = 0 either way
+# and the rest is the same code, so the two agree bit for bit (the JAX
+# package's own gate is 1e-6)
+ABLATE_ATOL = 1e-6
+# the ablated local kernel vs its plain version at 64x64: with S = 0 the
+# circle map is the identity computed in float32, which moves each of the
+# 8192 links by an ulp per half-update; the plain version alone lies 2.5e-4
+# from its float64 run on 16 such chains (CPU), and the kernel 1.3e-4 from
+# it (NVIDIA H100, this check's inputs)
+LOCAL_ABLATE_ATOL = 3e-4
+# bf16 kernel vs its plain version: both round the same float32 activations
+# to bf16, but the float32 sums before the rounding run in another order, so
+# an activation within ~1 ulp of a rounding boundary lands one bf16 step
+# (2^-8 relative) apart on the two sides.  A hidden unit feeds every head
+# output, so one such step moves S, T and Q at all 512 links and the energy
+# change by ~1e-3.  Gates: the median chain agrees as in float32 (ATOL), the
+# largest difference stays within BF16_ATOL, and an accept decision may
+# differ only where the plain version's probability lies within BF16_ATOL of
+# its uniform (such chains are excluded from the rest, at most 1 in 64).
+BF16_ATOL = 2e-2
+BF16_CHECK_N = 2
+PLAIN_DECOMP_N, PLAIN_DECOMP_REPS = 2, 3
+
+
+def plain_ms(make, n, reps):
+    """Median ms per transition of ``make(n)()`` over ``reps`` windows."""
+    make(1)()
+    times = sorted(timed(make(n))[1] / n for _ in range(reps))
+    return times[reps // 2]
+
+
+def check_bf16(name, kernel_out, plain_out, us):
+    """The bf16 kernel against its plain version (gates at BF16_ATOL)."""
+    links_k, plaq_k, chg_k, prob_k = kernel_out
+    links_p, plaq_p, chg_p, prob_p = plain_out
+    flip = ((us < prob_k) != (us < prob_p)).any(dim=0)
+    n_flip = int(flip.sum())
+    near = float((us - prob_p).abs()[:, flip].min()) if n_flip else 0.0
+    keep = ~flip
+    dprob = (prob_k[:, keep] - prob_p[:, keep]).abs()
+    err_links = angle_err(links_k[keep], links_p[keep])
+    err_plaq = float((plaq_k[:, keep] - plaq_p[:, keep]).abs().max())
+    q = torch.quantile(dprob.double().flatten(),
+                       torch.tensor([0.5, 0.99], dtype=torch.float64,
+                                    device=dprob.device))
+    same_q = bool(torch.equal(chg_k[:, keep], chg_p[:, keep]))
+    log(f"[check] {name}: max|dlinks| {err_links:.3e}  |dprob| median "
+        f"{float(q[0]):.3e}, 99% {float(q[1]):.3e}, max "
+        f"{float(dprob.max()):.3e}  max|dplaq| {err_plaq:.3e}  charges "
+        f"equal {same_q}  accept decisions differ in {n_flip}/{us.shape[1]}"
+        f" chains (closest |u - prob| {near:.3e})  mean prob "
+        f"{float(prob_p.mean()):.4f}")
+    if not (n_flip <= us.shape[1] // 64 and near < BF16_ATOL
+            and float(q[0]) <= ATOL and float(dprob.max()) <= BF16_ATOL
+            and err_links <= BF16_ATOL and err_plaq <= BF16_ATOL
+            and same_q):
+        raise AssertionError(f"{name}: bf16 kernel disagrees with its plain "
+                             f"version (median {ATOL}, max {BF16_ATOL})")
+    return max(float(dprob.max()), err_links, err_plaq)
+
+
+def live_mlp_params(K, device):
+    """MLP/u1 params of the champion's shape (16x16, h64) from the port's
+    seeded init, every array perturbed by a seeded N(0, 0.01^2) so that S, T
+    and Q depend on the inputs (~0.06; the chain accepts ~0.4)."""
+    from l2hmc_tpu_torch.train.gauge import GaugeConfig, init_params
+
+    cfg = GaugeConfig(time_size=SIDE, space_size=SIDE, num_steps=K,
+                      network_arch="mlp", num_hidden=64, merge_v_halves=True,
+                      eps_init=0.125, eps_trainable=False)
+    gen = torch.Generator().manual_seed(939)
+    params = init_params(cfg, gen, device="cpu")
+    with torch.no_grad():
+        for net in (params.xnet, params.vnet):
+            for p in net.parameters():
+                p.add_(0.01 * torch.randn(p.shape, generator=gen))
+    return params.to(device)
+
+
+def zero_nets(params):
+    import copy
+
+    z = copy.deepcopy(params)
+    with torch.no_grad():
+        for net in (z.xnet, z.vnet):
+            for p in net.parameters():
+                p.zero_()
+    return z
+
+
+def probe_check(device):
+    """9(a): each issue-rate probe against its plain chain at (2048, 256)."""
+    from l2hmc_tpu_torch.ops.issue_rates import (PROBES, probe_chain,
+                                                 probe_chain_reference)
+
+    rng = np.random.default_rng(909)
+    b, d = RATE_SHAPES[0]
+    x = torch.tensor(rng.uniform(0.0, 1.0, (b, d)), dtype=torch.float32,
+                     device=device)
+    err = 0.0
+    for p in PROBES:
+        k = probe_chain(x, p.name, PROBE_CHECK_M)
+        r = probe_chain_reference(x, p.name, PROBE_CHECK_M)
+        torch.cuda.synchronize()
+        e = float((k - r).abs().max())
+        log(f"[decomp] probe {p.name}: kernel vs plain, {PROBE_CHECK_M} "
+            f"steps on ({b}, {d}): max|d| {e:.3e}; finite "
+            f"{bool(torch.isfinite(k).all())}")
+        if not (e <= PROBE_ATOL and bool(torch.isfinite(k).all())):
+            raise AssertionError(f"issue_rates {p.name}: kernel disagrees "
+                                 f"with its plain chain (atol {PROBE_ATOL})")
+        err = max(err, e)
+    return err
+
+
+def decomposition_checks(params, eps_c, K_c, device):
+    """9(d), 9(e): the ablated kernels against their plain versions and
+    against the same kernels on zeroed nets; the bf16 kernel against its
+    plain version.  Returns ``{entry: max error}``."""
+    from l2hmc_tpu_torch.lattice.u1 import typical_links
+    from l2hmc_tpu_torch.ops.l2hmc_kernel import (l2hmc_chain,
+                                                  l2hmc_chain_reference,
+                                                  l2hmc_local_chain)
+    from l2hmc_tpu_torch.train.gauge import init_params
+
+    errs = {}
+    rng = np.random.default_rng(919)
+    b, n, d = CHECK_CHAINS, CHECK_N, SIDE * SIDE
+    links = torch.tensor(typical_links(rng, b, SIDE, SIDE, sigma=0.3),
+                         device=device)
+    rand = injected(rng, n, b, d, device)[:4]
+    abl = l2hmc_chain(links, params, None, eps_c, BETA, K_c, n,
+                      rand_arrays=rand, ablate_nets=True)
+    zero = l2hmc_chain(links, zero_nets(params), None, eps_c, BETA, K_c, n,
+                       rand_arrays=rand)
+    plain = l2hmc_chain_reference(links, params, *rand, eps_c, BETA, K_c,
+                                  ablate_nets=True)
+    torch.cuda.synchronize()
+    e_zero = max(float((a - z).abs().max()) for a, z in zip(abl, zero))
+    log(f"[decomp] l2hmc_chain ablated vs zeroed nets ({b} chains, {n} "
+        f"transitions): max|d| {e_zero:.3e} (atol {ABLATE_ATOL})")
+    if e_zero > ABLATE_ATOL:
+        raise AssertionError("l2hmc_chain: ablated kernel differs from the "
+                             "kernel on zeroed nets")
+    errs["l2hmc_chain[ablate]"] = max(e_zero, check_kernel(
+        "l2hmc_chain(ablate) champion", abl, plain, rand[3]))
+
+    # the champion's VNet trunk is dead past its first layer on such links
+    # (S, T, Q do not depend on the inputs), so the bf16 products are held
+    # against the plain version on live weights of the champion's shape
+    live = live_mlp_params(K_c, device)
+    m = BF16_CHECK_N
+    rand_m = tuple(r[:m] for r in rand)
+    k16 = l2hmc_chain(links, live, None, eps_c, BETA, K_c, m,
+                      rand_arrays=rand_m, precision="bf16")
+    p16 = l2hmc_chain_reference(links, live, *rand_m, eps_c, BETA, K_c,
+                                precision="bf16")
+    p32 = l2hmc_chain_reference(links, live, *rand_m, eps_c, BETA, K_c)
+    torch.cuda.synchronize()
+    log(f"[decomp] live weights, bf16 plain vs f32 plain: max|dprob| "
+        f"{float((p16[3] - p32[3]).abs().max()):.3e}, max|dlinks| "
+        f"{angle_err(p16[0], p32[0]):.3e}")
+    errs["l2hmc_chain[bf16]"] = check_bf16(
+        f"l2hmc_chain(bf16) live h64 {SIDE}x{SIDE}", k16, p16, rand_m[3])
+
+    rng = np.random.default_rng(929)
+    b, n, d = L64_CHAINS, L64_CHECK_N, L64_SIDE * L64_SIDE
+    links = torch.tensor(typical_links(rng, b, L64_SIDE, L64_SIDE,
+                                       sigma=0.27), device=device)
+    rand = injected(rng, n, b, d, device)[:4]
+    eps = L64_CHECK_EPS
+    errs["l2hmc_local_chain[ablate]"] = 0.0
+    for channels in (L64_CHANNELS, 8):     # the variants phase 9 times
+        lp = init_params(local_cfg(L64_LAYERS, channels),
+                         torch.Generator().manual_seed(636 + channels),
+                         device=device)
+        abl = l2hmc_local_chain(links, lp, None, eps, BETA, L64_K, n,
+                                L64_LAYERS, rand_arrays=rand,
+                                ablate_nets=True)
+        zero = l2hmc_local_chain(links, zero_nets(lp), None, eps, BETA,
+                                 L64_K, n, L64_LAYERS, rand_arrays=rand)
+        plain = l2hmc_chain_reference(links, lp, *rand, eps, BETA, L64_K,
+                                      local_layers=L64_LAYERS,
+                                      ablate_nets=True)
+        torch.cuda.synchronize()
+        e_zero = max(float((a - z).abs().max()) for a, z in zip(abl, zero))
+        log(f"[decomp] l2hmc_local_chain c={channels} ablated vs zeroed nets"
+            f" ({b} chains {L64_SIDE}x{L64_SIDE}, {n} transitions): max|d| "
+            f"{e_zero:.3e} (atol {ABLATE_ATOL})")
+        if e_zero > ABLATE_ATOL:
+            raise AssertionError("l2hmc_local_chain: ablated kernel differs "
+                                 "from the kernel on zeroed nets")
+        errs["l2hmc_local_chain[ablate]"] = max(
+            errs["l2hmc_local_chain[ablate]"], e_zero, check_kernel(
+                f"l2hmc_local_chain(ablate) c={channels} {L64_SIDE}x"
+                f"{L64_SIDE}", abl, plain, rand[3], atol=LOCAL_ABLATE_ATOL))
+    return errs
+
+
+def issue_estimates(rates):
+    """Log the per-transition issue estimates of the chain kernels at the
+    main paths' shapes from the port's op counts and the measured rates."""
+    from l2hmc_tpu_torch.benchmarks.vpu_roofline import (issue_estimate,
+                                                         op_counts)
+
+    cases = {
+        "hmc_chain 16x16 K=5": ("hmc", MAIN_CHAINS, SIDE, HMC_K, {}),
+        "hmc_chain 64x64 K=8": ("hmc", L64_CHAINS, L64_SIDE, L64_HMC_K, {}),
+        "l2hmc_chain champion": ("mlp", MAIN_CHAINS, SIDE, 3,
+                                 {"hidden": 64}),
+        "l2hmc_chain[ablate] champion": ("ablated", MAIN_CHAINS, SIDE, 3,
+                                         {}),
+        "l2hmc_local_chain c4L1": ("local", L64_CHAINS, L64_SIDE, L64_K,
+                                   {"channels": L64_CHANNELS,
+                                    "layers": L64_LAYERS}),
+        "l2hmc_local_chain[ablate]": ("ablated", L64_CHAINS, L64_SIDE,
+                                      L64_K, {}),
+    }
+    for name, (kind, b, side, K, kw) in cases.items():
+        counts = op_counts(kind, b, side, side, K, **kw)
+        log(f"[decomp] issue estimate {name}: "
+            f"{1e6 * issue_estimate(counts, rates):.2f} us/transition from "
+            f"counts {counts}")
+
+
+def decomposition_phase(params, eps_c, K_c, device):
+    """Phase 9: the per-class rates, the op counts and the kernels' cost
+    decomposition at the champion and local64 configs, and the champion
+    served with bf16 weights."""
+    from l2hmc_tpu_torch.benchmarks.kernel_decomposition import (
+        decomposition, time_variants)
+    from l2hmc_tpu_torch.benchmarks.local_kernel_bench import (
+        parse_variants, time_local)
+    from l2hmc_tpu_torch.benchmarks import best_ms
+    from l2hmc_tpu_torch.benchmarks.vpu_roofline import (
+        issue_estimate, measure_rates_kernel, transition_op_counts)
+    from l2hmc_tpu_torch.dynamics.hmc import hmc_chain_u1_fused
+    from l2hmc_tpu_torch.lattice import u1
+    from l2hmc_tpu_torch.lattice.u1 import u1_plaq_exact
+    from l2hmc_tpu_torch.ops.issue_rates import (probe_chain,
+                                                 probe_chain_reference)
+    from l2hmc_tpu_torch.ops.l2hmc_kernel import (draw_l2hmc_randomness,
+                                                  l2hmc_chain,
+                                                  l2hmc_chain_reference)
+
+    t0 = time.perf_counter()
+    errs = {"issue_rates": probe_check(device)}
+    errs.update(decomposition_checks(params, eps_c, K_c, device))
+
+    kernels = reset_launches()
+    # (b) the per-class rates inside the kernel
+    rates_at = {}
+    for b, d in RATE_SHAPES:
+        rates, _ = measure_rates_kernel(b, d, m_lo=RATE_M[0],
+                                        m_hi=RATE_M[1], device=device)
+        rates_at[(b, d)] = rates
+        log(f"[decomp] kernel rates at ({b}, {d}), m {RATE_M}: " + ", ".join(
+            f"{k} {v / 1e9:.1f} Gelem/s" for k, v in rates.items())
+            + f"; cheap {rates['cheap'] / F32_FLOP_PER_S:.3f} x 67e12 ops/s")
+        lo, hi = CHEAP_RATE_BAND
+        if not lo * F32_FLOP_PER_S <= rates["cheap"] <= hi * F32_FLOP_PER_S:
+            raise AssertionError(f"cheap rate {rates['cheap']:.4g} ops/s "
+                                 f"outside {CHEAP_RATE_BAND} x 67e12")
+        fast = [k for k, v in rates.items() if v > hi * rates["cheap"]]
+        if fast:
+            raise AssertionError(f"classes {fast} read faster than the "
+                                 f"cheap class: a chain was folded")
+    rates = rates_at[RATE_SHAPES[0]]
+    b0, d0 = RATE_SHAPES[0]
+    x = torch.full((b0, d0), 0.5, device=device)
+    probe_ms = best_ms(lambda: probe_chain(x, "cheap", RATE_M[0]), 2, 4)
+    plain_probe_ms = best_ms(
+        lambda: probe_chain_reference(x, "cheap", RATE_M[0]), 1)
+
+    # (c) op counts at the champion shape and the issue estimates
+    c_abl, c_hmc = transition_op_counts(MAIN_CHAINS, SIDE, SIDE, K_c)
+    delta = {k: c_abl.get(k, 0) - c_hmc.get(k, 0)
+             for k in set(c_abl) | set(c_hmc)}
+    log(f"[decomp] op counts per transition at {MAIN_CHAINS} chains "
+        f"{SIDE}x{SIDE} K={K_c}: ablated {c_abl}; hmc {c_hmc}; machinery "
+        f"{delta}")
+    issue_estimates(rates)
+    mach_est = issue_estimate(delta, rates)
+
+    # (f) the four champion variants
+    gen = torch.Generator(device=device).manual_seed(9090)
+    links = torch.zeros((MAIN_CHAINS, SIDE, SIDE, 2), device=device)
+    links = hmc_chain_u1_fused(links, gen, HMC_EPS, BETA, HMC_K, THERM_N)[0]
+    t = time_variants(links, params, gen, eps_c, BETA, K_c, DECOMP_NT,
+                      reps=DECOMP_REPS)
+    dec = decomposition(t, K_c, MAIN_CHAINS, f"champion {SIDE}x{SIDE}, "
+                        f"{MAIN_CHAINS} chains, K={K_c}")
+    mach = t["ablated"] - t["hmc"]
+    log(f"[decomp] champion us/transition: " + ", ".join(
+        f"{k} {1e6 * v:.1f}" for k, v in t.items())
+        + f"; components {dec['component_us']}; shares "
+        f"{dec['component_share_pct']}; bf16_vs_f32 "
+        f"{dec['bf16_vs_f32']:.4f}; trained_over_hmc_cost_sameK "
+        f"{dec['trained_over_hmc_cost_sameK']:.3f}; machinery measured "
+        f"{1e6 * mach:.1f} us against its issue estimate "
+        f"{1e6 * mach_est:.2f} us (ratio {mach / mach_est:.2f})")
+    log(f"[decomp] {dec['floor_statement']}")
+
+    # (g) local64: c4L1, c8L1 and their ablated forms, HMC at K=4 and K=8
+    shape = u1.LatticeShape(L64_SIDE, L64_SIDE)
+    links64 = u1.to_links(u1.random_links(gen, L64_CHAINS, shape,
+                                          device=device), shape).contiguous()
+    loc = time_local(links64, gen, parse_variants(LOCAL_VARIANTS), L64_K,
+                     L64_EPS, BETA, LOCAL_NT, LOCAL_REPS,
+                     hmc_ks=(("hmc_fused_kT", L64_K),
+                             ("hmc_fused", L64_HMC_K)),
+                     hmc_eps=L64_HMC_EPS)
+    c64_abl, c64_hmc = transition_op_counts(L64_CHAINS, L64_SIDE, L64_SIDE,
+                                            L64_K)
+    mach64_est = issue_estimate({k: c64_abl.get(k, 0) - c64_hmc.get(k, 0)
+                                 for k in c64_abl}, rates)
+    for name, _, _ in parse_variants(LOCAL_VARIANTS):
+        full, abl, hmc = loc[name], loc[name + "_abl"], loc["hmc_fused_kT"]
+        log(f"[decomp] local64 {name}: full {full:.1f}, ablated {abl:.1f}, "
+            f"hmc K=4 {hmc:.1f} us/transition; conditioner "
+            f"{full - abl:.1f} ({100 * (full - abl) / full:.1f}%), machinery "
+            f"{abl - hmc:.1f} ({100 * (abl - hmc) / full:.1f}%), base flow "
+            f"{100 * hmc / full:.1f}%; machinery against its issue "
+            f"estimate {1e6 * mach64_est:.2f} us (ratio "
+            f"{(abl - hmc) * 1e-6 / mach64_est:.2f})")
+    log(f"[decomp] local64 hmc K={L64_HMC_K} {loc['hmc_fused']:.1f} "
+        f"us/transition")
+
+    # (h) serving the champion with bf16 weights
+    served = torch.zeros((MAIN_CHAINS, SIDE, SIDE, 2), device=device)
+    served = hmc_chain_u1_fused(served, gen, HMC_EPS, BETA, HMC_K,
+                                SERVE_THERM_N)[0]
+    plaqs, probs = [], []
+    for _ in range(SERVE_CALLS):
+        served, pl, _, pr = l2hmc_chain(served, params, gen, eps_c, BETA, K_c,
+                                        CALL_N, precision="bf16")
+        plaqs.append(pl)
+        probs.append(pr)
+    plaq = float(torch.cat(plaqs).double().mean())
+    acc = float(torch.cat(probs).double().mean())
+    log(f"[decomp] champion served with bf16 weights: {MAIN_CHAINS} chains,"
+        f" {SERVE_CALLS} x {CALL_N} transitions after {SERVE_THERM_N} HMC; "
+        f"plaquette {plaq:.6f} (exact {u1_plaq_exact(BETA):.6f}), accept "
+        f"{acc:.4f}")
+    if abs(plaq - u1_plaq_exact(BETA)) > PLAQ_TOL or acc <= MIN_ACCEPT:
+        raise AssertionError(f"bf16 serving: plaquette {plaq:.6f} / accept "
+                             f"{acc:.4f} out of bounds")
+    launches = read_launches("decomposition", kernels, (
+        "issue_rates", "l2hmc_chain[ablate]", "l2hmc_chain[bf16]",
+        "l2hmc_local_chain[ablate]", "hmc_chain"))
+
+    # plain versions of the new variants, outside the counted path
+    d = SIDE * SIDE
+
+    def l2_plain(**kw):
+        def make(n):
+            r = draw_l2hmc_randomness(gen, n, MAIN_CHAINS, d, False, device)
+            return lambda: l2hmc_chain_reference(links, params, *r, eps_c,
+                                                 BETA, K_c, **kw)
+        return make
+
+    def local_plain(n):
+        from l2hmc_tpu_torch.train.gauge import init_params
+
+        lp = init_params(local_cfg(L64_LAYERS),
+                         torch.Generator().manual_seed(5), device=device)
+        r = draw_l2hmc_randomness(gen, n, L64_CHAINS, L64_SIDE * L64_SIDE,
+                                  False, device)
+        return lambda: l2hmc_chain_reference(
+            links64, lp, *r, L64_EPS, BETA, L64_K, local_layers=L64_LAYERS,
+            ablate_nets=True)
+
+    plain = {
+        "l2hmc_chain[ablate]": plain_ms(l2_plain(ablate_nets=True),
+                                        PLAIN_DECOMP_N, PLAIN_DECOMP_REPS),
+        "l2hmc_chain[bf16]": plain_ms(l2_plain(precision="bf16"),
+                                      PLAIN_DECOMP_N, PLAIN_DECOMP_REPS),
+        "l2hmc_local_chain[ablate]": plain_ms(local_plain, PLAIN_DECOMP_N,
+                                              PLAIN_DECOMP_REPS),
+        "issue_rates": plain_probe_ms,
+    }
+    ms = {"l2hmc_chain[ablate]": t["ablated"] * 1e3,
+          "l2hmc_chain[bf16]": t["bf16"] * 1e3,
+          "l2hmc_local_chain[ablate]": loc[
+              f"c{L64_CHANNELS}L{L64_LAYERS}_abl"] * 1e-3,
+          "issue_rates": probe_ms}
+    b64 = bound(0.0, sum(c64_abl.values()))
+    nb = {"issue_rates": bound(2 * b0 * d0 * 4, 2 * b0 * d0 * RATE_M[0]),
+          "l2hmc_chain[ablate]": bound(0.0, sum(c_abl.values())),
+          "l2hmc_chain[bf16]": bf16_chain_bound(MAIN_CHAINS, K_c,
+                                                mlp_macs(params.xnet)),
+          "l2hmc_local_chain[ablate]": b64}
+    log(f"[decomp] kernel ms {ms}; plain ms {plain}; bounds {nb}; phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"errs": errs, "ms": ms, "plain": plain, "launches": launches,
+            "bound": nb}
+
 
 def main():
     name, smi = device_phase()
@@ -1079,6 +1534,7 @@ def main():
     werrs = wilson_check_phase(device)
     train_err = train_check_phase(device)
     tl, train_ms, train_plain_ms = train_phase(device)
+    dec = decomposition_phase(params, eps_c, cfg.num_steps, device)
 
     from l2hmc_tpu_torch.train.gauge import init_params
 
@@ -1123,13 +1579,33 @@ def main():
             "ms": w["ms"], "plain_ms": w["plain_ms"],
             "bound_ms": w["bound_ms"], "bound_by": w["bound_by"],
             "library_ms": None})
+    sources = {"issue_rates": ("issue_rates.cu",
+                               "benchmarks/vpu_roofline.py:208"),
+               "l2hmc_chain[ablate]": ("l2hmc_chain.cu",
+                                       "l2hmc_tpu/ops/l2hmc_kernel.py:672"),
+               "l2hmc_chain[bf16]": ("l2hmc_chain.cu",
+                                     "l2hmc_tpu/ops/l2hmc_kernel.py:672"),
+               "l2hmc_local_chain[ablate]": (
+                   "l2hmc_local_chain.cu",
+                   "l2hmc_tpu/ops/l2hmc_kernel.py:925")}
+    for kname, (src, replaces) in sources.items():
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": f"l2hmc_tpu_torch/ops/csrc/{src}",
+            "replaces": replaces, "launches": dec["launches"][kname],
+            "max_abs_err": dec["errs"][kname], "ms": dec["ms"][kname],
+            "plain_ms": dec["plain"][kname],
+            "bound_ms": dec["bound"][kname][0],
+            "bound_by": dec["bound"][kname][1], "library_ms": None})
     log("[result] ms, plain_ms and bound_ms are per transition for "
         f"hmc_chain and l2hmc_chain ({MAIN_CHAINS} chains at {SIDE}x{SIDE})"
         f" and l2hmc_local_chain ({L64_CHAINS} chains at {L64_SIDE}x"
-        f"{L64_SIDE}, c={L64_CHANNELS} L={L64_LAYERS} K={L64_K}), per launch"
-        f" for the Wilson kernels at (128, 16, 16, 2) (device time by "
-        f"torch.profiler); launches are the main"
-        f" paths' (Wilson: the train path's); library_ms null: no single "
+        f"{L64_SIDE}, c={L64_CHANNELS} L={L64_LAYERS} K={L64_K}) and their "
+        f"[ablate]/[bf16] modes, per launch for the Wilson kernels at (128, "
+        f"16, 16, 2) (device time by torch.profiler) and for issue_rates "
+        f"(the cheap probe at {RATE_SHAPES[0]}, m={RATE_M[0]}); launches are"
+        f" the main paths' (Wilson: the train path's; the modes and "
+        f"issue_rates: the decomposition path's); library_ms null: no single "
         f"PyTorch call computes these functions.  Train step {train_ms:.3f} "
         f"ms (plain potential {train_plain_ms:.3f} ms); train-step check "
         f"max rel err {train_err:.3e}; on {smi}")

@@ -9,6 +9,11 @@ Port of ``l2hmc_tpu/networks/nets.py``:
   Parameters keep the reference's names and ``(in, out)`` layouts, so a JAX
   pytree loads with a copy: ``in_w`` rows ``[v | x-features | t]``,
   ``head_w`` columns ``[S | T | Q]``, ``h_layer.w``/``h_layer.b``.
+  ``use_bf16`` rounds each matmul's two operands to bfloat16 and takes the
+  product in float32 (the reference's bf16 operands with float32
+  accumulation).
+- ``make_zero_net``: S = T = Q = 0 (``network_arch='zero'``), with which the
+  augmented leapfrog is plain leapfrog.
 - ``LocalNetSpec``/``make_local_flat_net``: the weight-shared local
   conditioner on the flat link layout — ``num_layers`` periodic 5-point
   stencil layers over per-direction channels, a 1x1 head to per-link S/T/Q.
@@ -39,6 +44,16 @@ def _variance_scaling(generator: Optional[torch.Generator], shape,
     return t * stddev
 
 
+def matmul(x, w, bf16: bool = False):
+    """``x @ w``; with ``bf16`` both operands are rounded to bfloat16 and the
+    product is taken in float32, where a product of two bfloat16 values is
+    exact, so only the order of the sum can differ from the reference's
+    bf16-input, float32-accumulating matmul."""
+    if bf16:
+        return x.bfloat16().float() @ w.bfloat16().float()
+    return x @ w
+
+
 class Dense(nn.Module):
     """``y = x @ w + b`` with ``w`` stored ``(in, out)``."""
 
@@ -49,8 +64,8 @@ class Dense(nn.Module):
             _variance_scaling(generator, (in_dim, out_dim), factor, device))
         self.b = nn.Parameter(torch.zeros(out_dim, device=device))
 
-    def forward(self, x):
-        return x @ self.w + self.b
+    def forward(self, x, bf16: bool = False):
+        return matmul(x, self.w, bf16) + self.b
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,10 +89,6 @@ class MLPNet(nn.Module):
 
     def __init__(self, spec: MLPNetSpec, generator=None, device=None):
         super().__init__()
-        if spec.use_bf16:
-            raise NotImplementedError(
-                "MLPNetSpec.use_bf16: the bf16 conditioner is not ported "
-                "yet (ROADMAP queue A item 6)")
         if spec.aux_dim:
             raise NotImplementedError(
                 "MLPNetSpec.aux_dim: aux conditioning comes with the VAE "
@@ -103,10 +114,11 @@ class MLPNet(nn.Module):
             torch.zeros(1, d, device=device))
 
     def forward(self, v, x, t):
+        bf16 = self.spec.use_bf16
         inp = torch.cat([v, x, t], dim=-1)
-        hh = torch.relu(inp @ self.in_w + self.in_b)
-        hh = torch.relu(self.h_layer(hh))
-        heads = hh @ self.head_w + self.head_b
+        hh = torch.relu(matmul(inp, self.in_w, bf16) + self.in_b)
+        hh = torch.relu(self.h_layer(hh, bf16))
+        heads = matmul(hh, self.head_w, bf16) + self.head_b
         s_raw, translation, q_raw = torch.chunk(heads, 3, dim=-1)
         scale = torch.tanh(s_raw) * torch.exp(self.coeff_scale)
         if self.spec.bounded_q:
@@ -118,6 +130,26 @@ class MLPNet(nn.Module):
 def make_mlp_net(spec: MLPNetSpec, generator=None, device=None) -> MLPNet:
     """Build the MLP conditioner module (random init from ``generator``)."""
     return MLPNet(spec, generator, device)
+
+
+class ZeroNet(nn.Module):
+    """S = T = Q = 0 of shape ``(B, x_dim)``; no parameters."""
+
+    def __init__(self, x_dim: int):
+        super().__init__()
+        self.x_dim = x_dim
+
+    def forward(self, v, x, t):
+        z = torch.zeros((v.shape[0], self.x_dim), dtype=v.dtype,
+                        device=v.device)
+        return z, z, z
+
+
+def make_zero_net(x_dim: int) -> ZeroNet:
+    """The HMC-degenerate conditioner: with S = T = Q = 0 the augmented
+    leapfrog is plain leapfrog.  The outputs have ``x_dim`` columns whatever
+    the width of the inputs (the u1 features double the position slot)."""
+    return ZeroNet(x_dim)
 
 
 # ---------------------------------------------------------------------------

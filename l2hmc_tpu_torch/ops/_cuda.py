@@ -62,7 +62,8 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P,      # v0s, v1s, ds, us, nus, uhs (or null)
         _P, _P, _P,                  # plaq, chg, prob traces (N, B)
         _I, _I, _I, _I, _I, _I,      # B, lt, lx, K, N, hidden
-        _F, _F, _I, _I, _U64,        # eps, beta, bounded_q, hop, seed
+        _F, _F, _I, _I,              # eps, beta, bounded_q, hop
+        _I, _I, _U64,                # bf16, ablate, seed
         _I, _P,                      # device, stream
     ]),
     "l2hmc_local_chain_smem_bytes": (ctypes.c_size_t, [_I, _I, _I, _I]),
@@ -72,7 +73,13 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P,      # v0s, v1s, ds, us, nus, uhs (or null)
         _P, _P, _P,                  # plaq, chg, prob traces (N, B)
         _I, _I, _I, _I, _I, _I, _I,  # B, lt, lx, K, N, channels, layers
-        _F, _F, _I, _I, _U64,        # eps, beta, bounded_q, hop, seed
+        _F, _F, _I, _I,              # eps, beta, bounded_q, hop
+        _I, _U64,                    # ablate, seed
+        _I, _P,                      # device, stream
+    ]),
+    "issue_rates_launch": (_I, [
+        _P, _I,                      # x (n elements), updated in place; n
+        _I, _I,                      # probe id, chain length m
         _I, _P,                      # device, stream
     ]),
     "wilson_fwd_launch": (_I, [

@@ -23,9 +23,26 @@
 // 16x16 h64, C = 2 is faster than 1, 4 and 8 on an H100 (PERF.md).  Tensor
 // cores (wgmma, bf16) and TMA weight staging are later work.
 //
+// Two modes serve the cost decomposition (l2hmc_tpu_torch/benchmarks):
+// - bfloat16 weights (template WT = __nv_bfloat16): the six matmul operands
+//   are bf16 in device memory, which halves the bytes each MLP call streams
+//   from L2.  Features and hidden activations are rounded to bf16 (round to
+//   nearest even) where they are written, which is where the plain version
+//   rounds them for its product; the products and sums stay float32 FMAs
+//   (a product of two bf16 values is exact in float32).
+// - ablated (template ABLATE): the features' sincosf, mlp() and the head
+//   combines are compiled out and S, T and Q are read from a kernel argument
+//   that the wrapper sets to 0, so nvcc cannot fold them into the exp
+//   factors and the circle map; those, the log-Jacobian, the masks and the
+//   direction fusion run as in the full kernel.  A runtime flag instead
+//   slowed the full kernel by 20% (1130 -> 1360 us per transition on an
+//   H100, PERF.md), so the full instantiations stay exactly as before.
+//
 // Randomness: injected arrays (v0s, v1s, ds, us[, nus, uhs]), or
 // Philox4_32_10 keyed by (chain, transition) with the seed drawn by the
 // caller.
+
+#include <cuda_bf16.h>
 
 #include "chain_common.cuh"
 
@@ -35,15 +52,40 @@ constexpr int kThreads = 256;
 constexpr int C = 2;  // chains per block
 constexpr double kPiD = 3.141592653589793;
 
+// WT: the type of the three matmul operands (in, hw, head)
+template <class WT>
 struct NetW {
-  const float *in, *t, *b, *hw, *hb, *head, *headb0, *headb1;
-  const float *cs0, *cs1, *ct0, *ct1;
+  const WT* in;
+  const float *t, *b;
+  const WT* hw;
+  const float* hb;
+  const WT* head;
+  const float *headb0, *headb1, *cs0, *cs1, *ct0, *ct1;
 };
 
+template <class WT>
 struct Weights {
-  NetW x, v;
+  NetW<WT> x, v;
   const float *mask0, *mask1;  // (K, d) each
 };
+
+// A matmul weight as float32 (a bf16 value is the high half of its float).
+__device__ __forceinline__ float wload(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float wload(const __nv_bfloat16* p) {
+  const unsigned short bits =
+      __ldg(reinterpret_cast<const unsigned short*>(p));
+  return __uint_as_float((unsigned)bits << 16);
+}
+
+// An activation as the matmul sees it: itself, or rounded to bf16.
+template <class WT>
+__device__ __forceinline__ float act(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ float act<__nv_bfloat16>(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
 
 struct L2Rand {
   const float *v0s, *v1s, *ds, *us, *nus, *uhs;
@@ -52,6 +94,7 @@ struct L2Rand {
 struct Geo {
   int B, lt, lx, d, K, N, h, bounded_q, hop;
   float eps, beta;
+  float ablated_stq;  // S = T = Q of the ablated kernel: 0, not a constant
   unsigned long long seed;
 };
 
@@ -92,7 +135,8 @@ __device__ __forceinline__ Smem carve(float* smem, int d, int h) {
 
 // One MLP conditioner call on the C feature rows in BUF; the head outputs
 // [S0 | T0 | Q0 | S1 | T1 | Q1] (bias added) overwrite BUF.
-__device__ void mlp(const NetW& w, const Smem& s, int d, int h) {
+template <class WT>
+__device__ void mlp(const NetW<WT>& w, const Smem& s, int d, int h) {
   const int tid = threadIdx.x, nt = blockDim.x;
   const int D6 = 6 * d, D3 = 3 * d;
   const int P = nt / h > 0 ? nt / h : 1;
@@ -107,7 +151,7 @@ __device__ void mlp(const NetW& w, const Smem& s, int d, int h) {
 #pragma unroll
     for (int c = 0; c < C; ++c) acc[c] = 0.0f;
     for (int k = k0; k < k1; ++k) {
-      const float wv = __ldg(w.in + (size_t)k * h + j);
+      const float wv = wload(w.in + (size_t)k * h + j);
 #pragma unroll
       for (int c = 0; c < C; ++c) acc[c] = fmaf(s.BUF[c * D6 + k], wv, acc[c]);
     }
@@ -120,7 +164,7 @@ __device__ void mlp(const NetW& w, const Smem& s, int d, int h) {
     float acc = 0.0f;
     for (int p = 0; p < P; ++p) acc += s.RED[(p * C + c) * h + j];
     const float tt = s.TAU[2 * c] * w.t[j] + s.TAU[2 * c + 1] * w.t[h + j];
-    s.HID1[o] = fmaxf(acc + tt + w.b[j], 0.0f);
+    s.HID1[o] = act<WT>(fmaxf(acc + tt + w.b[j], 0.0f));
   }
   __syncthreads();
   // (C, h) @ (h, h) trunk
@@ -128,8 +172,8 @@ __device__ void mlp(const NetW& w, const Smem& s, int d, int h) {
     const int c = o / h, j = o - c * h;
     float acc = 0.0f;
     for (int k = 0; k < h; ++k)
-      acc = fmaf(s.HID1[c * h + k], __ldg(w.hw + (size_t)k * h + j), acc);
-    s.HID2[o] = fmaxf(acc + w.hb[j], 0.0f);
+      acc = fmaf(s.HID1[c * h + k], wload(w.hw + (size_t)k * h + j), acc);
+    s.HID2[o] = act<WT>(fmaxf(acc + w.hb[j], 0.0f));
   }
   __syncthreads();
   // (C, h) @ (h, 6d) merged heads of both directions
@@ -138,7 +182,7 @@ __device__ void mlp(const NetW& w, const Smem& s, int d, int h) {
 #pragma unroll
     for (int c = 0; c < C; ++c) acc[c] = 0.0f;
     for (int k = 0; k < h; ++k) {
-      const float wv = __ldg(w.head + (size_t)k * D6 + n);
+      const float wv = wload(w.head + (size_t)k * D6 + n);
 #pragma unroll
       for (int c = 0; c < C; ++c) acc[c] = fmaf(s.HID2[c * h + k], wv, acc[c]);
     }
@@ -157,32 +201,36 @@ __device__ __forceinline__ void time_enc(float idx, int K, float* tau) {
 
 // Merged momentum kick (update_v), direction-fused.  The force is
 // beta * grad(SP1), SP1 being the sine field of the current proposal.
-__device__ void kick(const Weights& W, const Smem& s, const Geo& g, int nc,
-                     float factor, float t_fwd, float t_bwd, float (&ldp)[C]) {
+template <class WT, bool ABLATE>
+__device__ void kick(const Weights<WT>& W, const Smem& s, const Geo& g,
+                     int nc, float factor, float t_fwd, float t_bwd,
+                     float (&ldp)[C]) {
   const int tid = threadIdx.x, nt = blockDim.x, d = g.d, D6 = 6 * d;
+  if constexpr (!ABLATE) {
 #pragma unroll
-  for (int c = 0; c < C; ++c) {
-    if (c >= nc) break;
-    const float* y0 = s.Y0 + c * d;
-    const float* y1 = s.Y1 + c * d;
-    const float* sp = s.SP1 + c * d;
-    float* f = s.BUF + c * D6;
-    for (int i = tid; i < d; i += nt) {
-      float s0, c0, s1, c1;
-      sincosf(y0[i], &s0, &c0);
-      sincosf(y1[i], &s1, &c1);
-      f[i] = c0;
-      f[d + i] = c1;
-      f[2 * d + i] = s0;
-      f[3 * d + i] = s1;
-      f[4 * d + i] = g.beta * grad0(sp, i, g.lt, g.lx);
-      f[5 * d + i] = g.beta * grad1(sp, i, g.lt, g.lx);
+    for (int c = 0; c < C; ++c) {
+      if (c >= nc) break;
+      const float* y0 = s.Y0 + c * d;
+      const float* y1 = s.Y1 + c * d;
+      const float* sp = s.SP1 + c * d;
+      float* f = s.BUF + c * D6;
+      for (int i = tid; i < d; i += nt) {
+        float s0, c0, s1, c1;
+        sincosf(y0[i], &s0, &c0);
+        sincosf(y1[i], &s1, &c1);
+        f[i] = act<WT>(c0);
+        f[d + i] = act<WT>(c1);
+        f[2 * d + i] = act<WT>(s0);
+        f[3 * d + i] = act<WT>(s1);
+        f[4 * d + i] = act<WT>(g.beta * grad0(sp, i, g.lt, g.lx));
+        f[5 * d + i] = act<WT>(g.beta * grad1(sp, i, g.lt, g.lx));
+      }
     }
+    if (tid < nc)
+      time_enc(s.SC[tid * 4] > 0.0f ? t_fwd : t_bwd, g.K, s.TAU + 2 * tid);
+    __syncthreads();
+    mlp(W.v, s, d, g.h);
   }
-  if (tid < nc)
-    time_enc(s.SC[tid * 4] > 0.0f ? t_fwd : t_bwd, g.K, s.TAU + 2 * tid);
-  __syncthreads();
-  mlp(W.v, s, d, g.h);
 
   const float fe = factor * g.eps;
 #pragma unroll
@@ -193,17 +241,26 @@ __device__ void kick(const Weights& W, const Smem& s, const Geo& g, int nc,
     for (int i = tid; i < d; i += nt) {
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        const float* hd = s.BUF + c * D6 + r * 3 * d;
-        const float* cs = r ? W.v.cs1 : W.v.cs0;
-        const float* ct = r ? W.v.ct1 : W.v.ct0;
-        const float sv = tanhf(hd[i]) * expf(cs[i]);
-        const float tv = hd[d + i];
-        const float qr = hd[2 * d + i];
-        const float qv = (g.bounded_q ? tanhf(qr) : qr) * expf(ct[i]);
+        float sv = g.ablated_stq, tv = g.ablated_stq, qv = g.ablated_stq;
+        if constexpr (!ABLATE) {
+          const float* hd = s.BUF + c * D6 + r * 3 * d;
+          const float* cs = r ? W.v.cs1 : W.v.cs0;
+          const float* ct = r ? W.v.ct1 : W.v.ct0;
+          sv = tanhf(hd[i]) * expf(cs[i]);
+          tv = hd[d + i];
+          const float qr = hd[2 * d + i];
+          qv = (g.bounded_q ? tanhf(qr) : qr) * expf(ct[i]);
+        }
         const float gg = g.beta * (r ? grad1(sp, i, g.lt, g.lx)
                                      : grad0(sp, i, g.lt, g.lx));
+        // a rounded op by op, as the plain version rounds it: left to nvcc,
+        // the full and the ablated instantiations contract it into FMAs
+        // differently and part by an ulp on the same S, T, Q.  The rest is
+        // exact at S = 0 (e = 1) either way; rounding it too cost the full
+        // kernel 4.5% (PERF.md).
         const float hs = fe * sv;
-        const float a = fe * (expf(g.eps * qv) * gg - tv);
+        const float a = __fmul_rn(
+            fe, __fsub_rn(__fmul_rn(expf(__fmul_rn(g.eps, qv)), gg), tv));
         const float e = expf(dsg * hs);
         float* w = (r ? s.W1 : s.W0) + c * d + i;
         *w = dsg > 0.0f ? *w * e - a : (*w + a) * e;
@@ -217,41 +274,44 @@ __device__ void kick(const Weights& W, const Smem& s, const Geo& g, int nc,
 // One masked position half-update on the torus (update_x, u1 branch).
 // hold = (fwd ? mask[step] : 1 - mask[K-1-step]), inverted for the second
 // half-update of the step.
-__device__ void xhalf(const Weights& W, const Smem& s, const Geo& g, int nc,
-                      int step, bool second, float (&ldp)[C]) {
+template <class WT, bool ABLATE>
+__device__ void xhalf(const Weights<WT>& W, const Smem& s, const Geo& g,
+                      int nc, int step, bool second, float (&ldp)[C]) {
   const int tid = threadIdx.x, nt = blockDim.x, d = g.d, D6 = 6 * d, K = g.K;
   const float* mf0 = W.mask0 + (size_t)step * d;
   const float* mf1 = W.mask1 + (size_t)step * d;
   const float* mb0 = W.mask0 + (size_t)(K - 1 - step) * d;
   const float* mb1 = W.mask1 + (size_t)(K - 1 - step) * d;
+  if constexpr (!ABLATE) {
 #pragma unroll
-  for (int c = 0; c < C; ++c) {
-    if (c >= nc) break;
-    const bool fwd = s.SC[c * 4] > 0.0f;
-    float* f = s.BUF + c * D6;
-    for (int i = tid; i < d; i += nt) {
-      float h0 = fwd ? mf0[i] : 1.0f - mb0[i];
-      float h1 = fwd ? mf1[i] : 1.0f - mb1[i];
-      if (second) {
-        h0 = 1.0f - h0;
-        h1 = 1.0f - h1;
+    for (int c = 0; c < C; ++c) {
+      if (c >= nc) break;
+      const bool fwd = s.SC[c * 4] > 0.0f;
+      float* f = s.BUF + c * D6;
+      for (int i = tid; i < d; i += nt) {
+        float h0 = fwd ? mf0[i] : 1.0f - mb0[i];
+        float h1 = fwd ? mf1[i] : 1.0f - mb1[i];
+        if (second) {
+          h0 = 1.0f - h0;
+          h1 = 1.0f - h1;
+        }
+        float s0, c0, s1, c1;
+        sincosf(s.Y0[c * d + i], &s0, &c0);
+        sincosf(s.Y1[c * d + i], &s1, &c1);
+        f[i] = act<WT>(s.W0[c * d + i]);
+        f[d + i] = act<WT>(s.W1[c * d + i]);
+        f[2 * d + i] = act<WT>(h0 * c0);
+        f[3 * d + i] = act<WT>(h1 * c1);
+        f[4 * d + i] = act<WT>(h0 * s0);
+        f[5 * d + i] = act<WT>(h1 * s1);
       }
-      float s0, c0, s1, c1;
-      sincosf(s.Y0[c * d + i], &s0, &c0);
-      sincosf(s.Y1[c * d + i], &s1, &c1);
-      f[i] = s.W0[c * d + i];
-      f[d + i] = s.W1[c * d + i];
-      f[2 * d + i] = h0 * c0;
-      f[3 * d + i] = h1 * c1;
-      f[4 * d + i] = h0 * s0;
-      f[5 * d + i] = h1 * s1;
     }
+    if (tid < nc)
+      time_enc(s.SC[tid * 4] > 0.0f ? (float)step : (float)(K - 1 - step), K,
+               s.TAU + 2 * tid);
+    __syncthreads();
+    mlp(W.x, s, d, g.h);
   }
-  if (tid < nc)
-    time_enc(s.SC[tid * 4] > 0.0f ? (float)step : (float)(K - 1 - step), K,
-             s.TAU + 2 * tid);
-  __syncthreads();
-  mlp(W.x, s, d, g.h);
 
 #pragma unroll
   for (int c = 0; c < C; ++c) {
@@ -265,28 +325,36 @@ __device__ void xhalf(const Weights& W, const Smem& s, const Geo& g, int nc,
         const float* mb = r ? mb1 : mb0;
         float hold = fwd ? mf[i] : 1.0f - mb[i];
         if (second) hold = 1.0f - hold;
-        const float* hd = s.BUF + c * D6 + r * 3 * d;
-        const float* cs = r ? W.x.cs1 : W.x.cs0;
-        const float* ct = r ? W.x.ct1 : W.x.ct0;
-        const float sv = tanhf(hd[i]) * expf(cs[i]);
-        const float tv = hd[d + i];
-        const float qr = hd[2 * d + i];
-        const float qv = (g.bounded_q ? tanhf(qr) : qr) * expf(ct[i]);
+        float sv = g.ablated_stq, tv = g.ablated_stq, qv = g.ablated_stq;
+        if constexpr (!ABLATE) {
+          const float* hd = s.BUF + c * D6 + r * 3 * d;
+          const float* cs = r ? W.x.cs1 : W.x.cs0;
+          const float* ct = r ? W.x.ct1 : W.x.ct0;
+          sv = tanhf(hd[i]) * expf(cs[i]);
+          tv = hd[d + i];
+          const float qr = hd[2 * d + i];
+          qv = (g.bounded_q ? tanhf(qr) : qr) * expf(ct[i]);
+        }
         float* yp = (r ? s.Y1 : s.Y0) + c * d + i;
         const float w = (r ? s.W1 : s.W0)[c * d + i];
         const float y = *yp;
-        const float es = g.eps * sv;
-        const float bb = g.eps * (expf(g.eps * qv) * w + tv);
-        const float u_in = fwd ? y : wrap_angle(y - bb);
+        // rounded op by op, as the plain version rounds it (see kick())
+        const float es = __fmul_rn(g.eps, sv);
+        const float bb = __fmul_rn(
+            g.eps, __fadd_rn(__fmul_rn(expf(__fmul_rn(g.eps, qv)), w), tv));
+        const float u_in = fwd ? y : wrap_angle(__fsub_rn(y, bb));
         // circle_scale(u_in, dsg * es): 2 atan2(e^a sin(x/2), cos(x/2))
         const float a = dsg * es;
         float s2, c2;
         sincosf(0.5f * u_in, &s2, &c2);
         const float ea = expf(a);
-        const float y2 = 2.0f * atan2f(ea * s2, c2);
-        const float lde = a - logf(c2 * c2 + ea * ea * s2 * s2);
-        const float upd = fwd ? wrap_angle(y2 + bb) : y2;
-        *yp = hold * y + (1.0f - hold) * upd;
+        const float y2 = 2.0f * atan2f(__fmul_rn(ea, s2), c2);
+        const float lde = __fsub_rn(
+            a, logf(__fadd_rn(__fmul_rn(c2, c2),
+                              __fmul_rn(__fmul_rn(__fmul_rn(ea, ea), s2),
+                                        s2))));
+        const float upd = fwd ? wrap_angle(__fadd_rn(y2, bb)) : y2;
+        *yp = __fadd_rn(__fmul_rn(hold, y), __fmul_rn(1.0f - hold, upd));
         ldp[c] += (1.0f - hold) * lde;
       }
     }
@@ -323,9 +391,10 @@ __device__ void proposal_fields(const Smem& s, const Geo& g, int nc,
   }
 }
 
+template <class WT, bool ABLATE>
 __global__ void __launch_bounds__(kThreads)
 l2hmc_chain_kernel(float* __restrict__ x0g, float* __restrict__ x1g,
-                   Weights W, L2Rand rnd, float* __restrict__ plaq_tr,
+                   Weights<WT> W, L2Rand rnd, float* __restrict__ plaq_tr,
                    float* __restrict__ chg_tr, float* __restrict__ prob_tr,
                    Geo g) {
   extern __shared__ float smem[];
@@ -426,14 +495,15 @@ l2hmc_chain_kernel(float* __restrict__ x0g, float* __restrict__ x1g,
     }
     for (int step = 0; step < K; ++step) {
       const bool first = step == 0;
-      kick(W, s, g, nc, first ? 0.5f : 1.0f, first ? 0.0f : step - 0.5f,
-           first ? (float)(K - 1) : K - 0.5f - step, ldp);
-      xhalf(W, s, g, nc, step, false, ldp);
-      xhalf(W, s, g, nc, step, true, ldp);
+      kick<WT, ABLATE>(W, s, g, nc, first ? 0.5f : 1.0f,
+                       first ? 0.0f : step - 0.5f,
+                       first ? (float)(K - 1) : K - 0.5f - step, ldp);
+      xhalf<WT, ABLATE>(W, s, g, nc, step, false, ldp);
+      xhalf<WT, ABLATE>(W, s, g, nc, step, true, ldp);
       proposal_fields(s, g, nc, pot1, chg1);
     }
     // closing half kick at trajectory time K-1 (fwd) / 0 (bwd)
-    kick(W, s, g, nc, 0.5f, (float)(K - 1), 0.0f, ldp);
+    kick<WT, ABLATE>(W, s, g, nc, 0.5f, (float)(K - 1), 0.0f, ldp);
 
     // energy change from per-site differences (no float32 cancellation of
     // the two ~1e3 Hamiltonians), log-det and finiteness, one reduction
@@ -555,34 +625,64 @@ extern "C" size_t l2hmc_chain_smem_bytes(int lt, int lx, int h) {
                           2 * C);
 }
 
-// wptrs: 26 device pointers in the order of ops/l2hmc_kernel.py WEIGHT_NAMES.
+namespace {
+
+template <class WT, bool ABLATE>
+int launch(const void* const* p, float* x0, float* x1, const L2Rand& rnd,
+           float* plaq, float* chg, float* prob, const Geo& g,
+           cudaStream_t stream) {
+  auto net = [&](int o) {
+    return NetW<WT>{static_cast<const WT*>(p[o]),
+                    static_cast<const float*>(p[o + 1]),
+                    static_cast<const float*>(p[o + 2]),
+                    static_cast<const WT*>(p[o + 3]),
+                    static_cast<const float*>(p[o + 4]),
+                    static_cast<const WT*>(p[o + 5]),
+                    static_cast<const float*>(p[o + 6]),
+                    static_cast<const float*>(p[o + 7]),
+                    static_cast<const float*>(p[o + 8]),
+                    static_cast<const float*>(p[o + 9]),
+                    static_cast<const float*>(p[o + 10]),
+                    static_cast<const float*>(p[o + 11])};
+  };
+  const Weights<WT> W{net(0), net(12), static_cast<const float*>(p[24]),
+                      static_cast<const float*>(p[25])};
+  const size_t smem = l2hmc_chain_smem_bytes(g.lt, g.lx, g.h);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        l2hmc_chain_kernel<WT, ABLATE>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int blocks = (g.B + C - 1) / C;
+  l2hmc_chain_kernel<WT, ABLATE><<<blocks, kThreads, smem, stream>>>(
+      x0, x1, W, rnd, plaq, chg, prob, g);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// wptrs: 26 device pointers in the order of ops/l2hmc_kernel.py WEIGHT_NAMES;
+// the six MATMUL_WEIGHTS are bfloat16 when bf16 != 0, every other float32.
+// ablate != 0 runs the ablated kernel, which reads only the masks.
 extern "C" int l2hmc_chain_launch(
     float* x0, float* x1, const void* wptrs, const float* v0s,
     const float* v1s, const float* ds, const float* us, const float* nus,
     const float* uhs, float* plaq, float* chg, float* prob, int B, int lt,
     int lx, int K, int N, int h, float eps, float beta, int bounded_q,
-    int hop, unsigned long long seed, int device, void* stream) {
+    int hop, int bf16, int ablate, unsigned long long seed, int device,
+    void* stream) {
   DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return (int)guard.err;
   if (B <= 0 || N <= 0) return 0;
-  const float* const* p = static_cast<const float* const*>(wptrs);
-  auto net = [&](int o) {
-    return NetW{p[o],     p[o + 1], p[o + 2],  p[o + 3],
-                p[o + 4], p[o + 5], p[o + 6],  p[o + 7],
-                p[o + 8], p[o + 9], p[o + 10], p[o + 11]};
-  };
-  const Weights W{net(0), net(12), p[24], p[25]};
+  const void* const* p = static_cast<const void* const*>(wptrs);
   const L2Rand rnd{v0s, v1s, ds, us, nus, uhs};
-  const Geo g{B, lt, lx, lt * lx, K, N, h, bounded_q, hop, eps, beta, seed};
-  const size_t smem = l2hmc_chain_smem_bytes(lt, lx, h);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        l2hmc_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const int blocks = (B + C - 1) / C;
-  l2hmc_chain_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-      x0, x1, W, rnd, plaq, chg, prob, g);
-  return (int)cudaGetLastError();
+  const Geo g{B, lt, lx, lt * lx, K, N, h, bounded_q, hop, eps, beta, 0.0f,
+              seed};
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (ablate)
+    return launch<float, true>(p, x0, x1, rnd, plaq, chg, prob, g, st);
+  return bf16 ? launch<__nv_bfloat16, false>(p, x0, x1, rnd, plaq, chg, prob,
+                                             g, st)
+              : launch<float, false>(p, x0, x1, rnd, plaq, chg, prob, g, st);
 }

@@ -38,6 +38,13 @@
 // version does), and block sums are float32 as in the plain version: kernel
 // and plain version agree to ~4e-5 on accept probabilities at 64x64.
 //
+// The cost-decomposition mode (template ABLATE, as in l2hmc_chain.cu)
+// compiles out the stencil layers, the head and the neighbours' sincosf of
+// the conditioner inputs, and reads S = T = Q from a kernel argument that
+// the wrapper sets to 0, so nvcc cannot fold them into the exp factors and
+// the circle map; the rest of the transition runs as in the full kernel, for
+// L = 1 and L = 2.
+//
 // Randomness: injected arrays (v0s, v1s, ds, us[, nus, uhs]), or
 // Philox4_32_10 keyed by (chain, transition) with the seed drawn by the
 // caller, as in l2hmc_chain.cu.
@@ -92,6 +99,7 @@ struct LRand {
 struct Geo {
   int B, lt, lx, d, K, N, c, bounded_q, hop;
   float eps, beta;
+  float ablated_stq;  // S = T = Q of the ablated kernel: 0, not a constant
   unsigned long long seed;
 };
 
@@ -307,7 +315,7 @@ __device__ __forceinline__ void hidden_at(const NetW& w, const Smem& s,
 // Merged momentum kick (update_v), direction-fused, from the proposal's
 // links and force.  Writes only the momenta, which the VNet does not read.
 // Returns this thread's log-det terms.
-template <int L>
+template <int L, bool ABLATE>
 __device__ __forceinline__ float kick(const NetW& w, const Smem& s,
                                       const Geo& g, float factor, float t_fwd,
                                       float t_bwd) {
@@ -316,14 +324,17 @@ __device__ __forceinline__ float kick(const NetW& w, const Smem& s,
   float tau0, tau1;
   time_enc(dsg > 0.0f ? t_fwd : t_bwd, g.K, &tau0, &tau1);
   const VnetIn in{s.Y0, s.Y1, s.SP1, g.lt, g.lx, g.beta};
-  if constexpr (L >= 2) fill_h(w, s, g, tau0, tau1, in);
+  if constexpr (L >= 2 && !ABLATE) fill_h(w, s, g, tau0, tau1, in);
   const float fe = factor * g.eps;
   for (int i = threadIdx.x; i < g.d; i += blockDim.x) {
-    const int t = i / g.lx, sx = i - t * g.lx;
-    float y[kMaxC];
-    hidden_at<L>(w, s, g, t, sx, tau0, tau1, in, y);
-    float S[2], T[2], Q[2];
-    head(w, g.c, g.bounded_q, y, S, T, Q);
+    const float z = g.ablated_stq;
+    float S[2] = {z, z}, T[2] = {z, z}, Q[2] = {z, z};
+    if constexpr (!ABLATE) {
+      const int t = i / g.lx, sx = i - t * g.lx;
+      float y[kMaxC];
+      hidden_at<L>(w, s, g, t, sx, tau0, tau1, in, y);
+      head(w, g.c, g.bounded_q, y, S, T, Q);
+    }
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const float gg = g.beta * (r ? grad1(s.SP1, i, g.lt, g.lx)
@@ -344,7 +355,7 @@ __device__ __forceinline__ float kick(const NetW& w, const Smem& s,
 // Sites the mask holds keep their link; a non-finite update there would make
 // the plain version's link non-finite, so it is carried into `poison`,
 // which rejects the proposal.  Returns this thread's log-det terms.
-template <int L>
+template <int L, bool ABLATE>
 __device__ __forceinline__ float xhalf(const float* mask0, const float* mask1,
                                        const NetW& w, const Smem& s,
                                        const Geo& g, int step, bool second,
@@ -359,13 +370,16 @@ __device__ __forceinline__ float xhalf(const float* mask0, const float* mask1,
   float tau0, tau1;
   time_enc(fwd ? (float)step : (float)(g.K - 1 - step), g.K, &tau0, &tau1);
   const XnetIn in{s.Y0, s.Y1, s.W0, s.W1, h0, h1, g.lx};
-  if constexpr (L >= 2) fill_h(w, s, g, tau0, tau1, in);
+  if constexpr (L >= 2 && !ABLATE) fill_h(w, s, g, tau0, tau1, in);
   for (int i = threadIdx.x; i < g.d; i += blockDim.x) {
-    const int t = i / g.lx, sx = i - t * g.lx;
-    float y[kMaxC];
-    hidden_at<L>(w, s, g, t, sx, tau0, tau1, in, y);
-    float S[2], T[2], Q[2];
-    head(w, g.c, g.bounded_q, y, S, T, Q);
+    const float z = g.ablated_stq;
+    float S[2] = {z, z}, T[2] = {z, z}, Q[2] = {z, z};
+    if constexpr (!ABLATE) {
+      const int t = i / g.lx, sx = i - t * g.lx;
+      float y[kMaxC];
+      hidden_at<L>(w, s, g, t, sx, tau0, tau1, in, y);
+      head(w, g.c, g.bounded_q, y, S, T, Q);
+    }
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const float hold = r ? h1(i) : h0(i);
@@ -414,7 +428,7 @@ __device__ __forceinline__ void proposal_fields(const Smem& s,
   *chg1 = v[1] * CHAIN_INV_TWO_PI_F;
 }
 
-template <int L>
+template <int L, bool ABLATE>
 __global__ void __launch_bounds__(kThreads)
 l2hmc_local_chain_kernel(float* __restrict__ x0g, float* __restrict__ x1g,
                          const float* __restrict__ wflat,
@@ -509,11 +523,12 @@ l2hmc_local_chain_kernel(float* __restrict__ x0g, float* __restrict__ x1g,
                           : step == g.K ? (float)(g.K - 1) : step - 0.5f;
       const float t_bwd = step == 0 ? (float)(g.K - 1)
                           : step == g.K ? 0.0f : g.K - 0.5f - step;
-      ld += kick<L>(wv, s, g, edge ? 0.5f : 1.0f, t_fwd, t_bwd);
+      ld += kick<L, ABLATE>(wv, s, g, edge ? 0.5f : 1.0f, t_fwd, t_bwd);
       if (step == g.K) break;
 #pragma unroll 1
       for (int half = 0; half < 2; ++half)
-        ld += xhalf<L>(mask0, mask1, wx, s, g, step, half == 1, poison);
+        ld += xhalf<L, ABLATE>(mask0, mask1, wx, s, g, step, half == 1,
+                               poison);
       proposal_fields(s, g, &pot1, &chg1);
     }
 
@@ -601,7 +616,7 @@ extern "C" int l2hmc_local_chain_launch(
     const float* mask1, const float* v0s, const float* v1s, const float* ds,
     const float* us, const float* nus, const float* uhs, float* plaq,
     float* chg, float* prob, int B, int lt, int lx, int K, int N, int c,
-    int L, float eps, float beta, int bounded_q, int hop,
+    int L, float eps, float beta, int bounded_q, int hop, int ablate,
     unsigned long long seed, int device, void* stream) {
   DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return (int)guard.err;
@@ -609,10 +624,13 @@ extern "C" int l2hmc_local_chain_launch(
   if (c < 1 || c > kMaxC || L < 1 || L > 2 || K < 1)
     return (int)cudaErrorInvalidValue;
   const LRand rnd{v0s, v1s, ds, us, nus, uhs};
-  const Geo g{B, lt, lx, lt * lx, K, N, c, bounded_q, hop, eps, beta, seed};
+  const Geo g{B, lt, lx, lt * lx, K, N, c, bounded_q, hop, eps, beta, 0.0f,
+              seed};
   const size_t smem = l2hmc_local_chain_smem_bytes(lt, lx, c, L);
-  auto kernel = L == 1 ? l2hmc_local_chain_kernel<1>
-                       : l2hmc_local_chain_kernel<2>;
+  auto kernel = L == 1 ? (ablate ? l2hmc_local_chain_kernel<1, true>
+                                 : l2hmc_local_chain_kernel<1, false>)
+                       : (ablate ? l2hmc_local_chain_kernel<2, true>
+                                 : l2hmc_local_chain_kernel<2, false>);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

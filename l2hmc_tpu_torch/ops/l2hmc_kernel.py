@@ -16,8 +16,16 @@ optionally, one exact instanton hop — and returns the final links and
   in the shared math): :func:`pack_local_weights`; :func:`l2hmc_local_chain`
   launches ``csrc/l2hmc_local_chain.cu``.
 
-:func:`l2hmc_chain_reference` is the plain PyTorch version of both; the
-wrappers run it for CPU tensors.
+Two modes serve the cost decomposition (``l2hmc_tpu_torch/benchmarks``):
+``ablate_nets=True`` sets S = T = Q = 0 without computing the features, the
+conditioner or its heads, while the rest of the transition (circle map,
+log-Jacobian, masks, direction fusion, exp factors) still runs; and the MLP
+family's ``precision='bf16'`` stores the six matmul weights
+(:data:`MATMUL_WEIGHTS`) as bfloat16, rounds each activation to bfloat16 at
+its product and sums in float32.
+
+:func:`l2hmc_chain_reference` is the plain PyTorch version of both families
+and modes; the wrappers run it for CPU tensors.
 """
 
 from __future__ import annotations
@@ -29,7 +37,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from l2hmc_tpu_torch.networks.nets import stencil_head, stencil_layer
+from l2hmc_tpu_torch.networks.nets import matmul, stencil_head, stencil_layer
 from l2hmc_tpu_torch.ops import _cuda
 from l2hmc_tpu_torch.ops.leapfrog import (
     _energy_change,
@@ -62,6 +70,10 @@ WEIGHT_NAMES = (
     "mask0", "mask1",
 )
 
+# the conditioner matmul operands: stored bfloat16 under precision='bf16'
+MATMUL_WEIGHTS = ("xin", "xh_w", "xhead", "vin", "vh_w", "vhead")
+PRECISIONS = ("f32", "bf16")
+
 
 def _deinterleave_rows(w, x_dim):
     """(x_dim, h) rows in interleaved mu order -> two (d, h) blocks."""
@@ -78,16 +90,23 @@ def _deinterleave_cols(w, x_dim):
     return w3[..., 0].reshape(h, -1), w3[..., 1].reshape(h, -1)
 
 
-def pack_weights(params, x_dim: int) -> Tuple[torch.Tensor, ...]:
+def pack_weights(params, x_dim: int,
+                 precision: str = "f32") -> Tuple[torch.Tensor, ...]:
     """De-interleave trained MLP ``DynamicsParams`` into kernel blocks.
 
     XNet ``in_w`` rows are ``[v | cos-feats | sin-feats | t (2)]``; VNet rows
     ``[cos | sin | grad | t (2)]``.  The six per-direction input blocks stack
     into one ``(6d, h)`` operand (row order = the feature concat of the
     transition math) and the two head blocks into one ``(h, 6d)`` operand
-    ``[dir0 | dir1]``.  Returns contiguous float32 tensors in
-    :data:`WEIGHT_NAMES` order, detached (the chain is sampling-only).
+    ``[dir0 | dir1]``.  Returns contiguous tensors in :data:`WEIGHT_NAMES`
+    order, detached (the chain is sampling-only): float32, except the
+    :data:`MATMUL_WEIGHTS` under ``precision='bf16'``, which are bfloat16.
+    The bf16 chain is still an exact MH sampler: the forward map and its
+    log-Jacobian use the same rounded S, T and Q.
     """
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}: "
+                         f"{precision!r}")
     d2 = x_dim
     vals = {}
     for p, net in (("x", params.xnet), ("v", params.vnet)):
@@ -117,7 +136,10 @@ def pack_weights(params, x_dim: int) -> Tuple[torch.Tensor, ...]:
     m = params.masks.detach().reshape(params.masks.shape[0], d2 // 2, 2)
     vals["mask0"] = m[..., 0]
     vals["mask1"] = m[..., 1]
-    return tuple(vals[n].to(torch.float32).contiguous() for n in WEIGHT_NAMES)
+    mm_dtype = torch.bfloat16 if precision == "bf16" else torch.float32
+    return tuple(vals[n].to(mm_dtype if n in MATMUL_WEIGHTS
+                            else torch.float32).contiguous()
+                 for n in WEIGHT_NAMES)
 
 
 def local_weight_names(num_layers: int) -> Tuple[str, ...]:
@@ -173,10 +195,15 @@ def pack_local_weights(params, x_dim: int,
 # ---------------------------------------------------------------------------
 
 
+def _mm(a, w):
+    """``a @ w``, in bf16 (:func:`matmul`) for bfloat16 weights."""
+    return matmul(a, w.float(), bf16=w.dtype == torch.bfloat16)
+
+
 def _heads(hh, W, net, bounded_q):
     """Trunk output -> per-direction (S, T, Q); one merged ``(h, 6d)``
     matmul for both directions."""
-    hm = hh @ getattr(W, net + "head")
+    hm = _mm(hh, getattr(W, net + "head"))
     d3 = hm.shape[1] // 2
     h0 = hm[:, :d3] + getattr(W, net + "headb0")
     h1 = hm[:, d3:] + getattr(W, net + "headb1")
@@ -194,7 +221,8 @@ def _heads(hh, W, net, bounded_q):
 
 def _trunk(pre, W, net):
     hh = torch.relu(pre)
-    return torch.relu(hh @ getattr(W, net + "h_w") + getattr(W, net + "h_b"))
+    return torch.relu(_mm(hh, getattr(W, net + "h_w"))
+                      + getattr(W, net + "h_b"))
 
 
 def _tau_term(tau, Wt):
@@ -223,14 +251,14 @@ def _make_mlp_nets(W, bounded_q):
     def vnet(trig, gg0, gg1, tau):
         cy0, cy1, sy0, sy1 = trig
         feats = torch.cat([cy0, cy1, sy0, sy1, gg0, gg1], dim=1)
-        pre = feats @ W.vin + _tau_term(tau, W.vt) + W.vb
+        pre = _mm(feats, W.vin) + _tau_term(tau, W.vt) + W.vb
         return _heads(_trunk(pre, W, "v"), W, "v", bounded_q)
 
     def xnet(ww0, ww1, trig, m0, m1, tau):
         cy0, cy1, sy0, sy1 = trig
         feats = torch.cat(
             [ww0, ww1, m0 * cy0, m1 * cy1, m0 * sy0, m1 * sy1], dim=1)
-        pre = feats @ W.xin + _tau_term(tau, W.xt) + W.xb
+        pre = _mm(feats, W.xin) + _tau_term(tau, W.xt) + W.xb
         return _heads(_trunk(pre, W, "x"), W, "x", bounded_q)
 
     return vnet, xnet
@@ -266,14 +294,17 @@ def _make_stencil_nets(W, lx, bounded_q, local_layers):
 
 
 def _l2hmc_transition_math(x0, x1, v0, v1, dsign, u, W, eps, beta, K, lx,
-                           bounded_q, pot0, sinp, chg0, cosp, local_layers=0):
+                           bounded_q, pot0, sinp, chg0, cosp, local_layers=0,
+                           ablate_nets=False):
     """One trained-L2HMC transition (merge_v_halves, u1) on flat halves.
 
     ``dsign (B,)`` in {+1,-1}; ``u (B,)`` accept uniforms; ``W`` a namespace
     of :data:`WEIGHT_NAMES` tensors (MLP) or, with ``local_layers > 0``, of
     :func:`local_weight_names` tensors (stencil conditioner of that depth);
-    ``pot0/sinp/chg0/cosp`` the carried fields of the input state.  Returns
-    ``(x0', x1', prob, pot, sinp, chg, cosp)`` of the output state.
+    ``pot0/sinp/chg0/cosp`` the carried fields of the input state.
+    ``ablate_nets=True``: S = T = Q = 0 and neither the link features nor
+    the conditioner are computed (only the masks of ``W`` are read).
+    Returns ``(x0', x1', prob, pot, sinp, chg, cosp)`` of the output state.
     """
     d_col = dsign[:, None]
     fwd = d_col > 0
@@ -282,13 +313,24 @@ def _l2hmc_transition_math(x0, x1, v0, v1, dsign, u, W, eps, beta, K, lx,
     y0, y1, w0, w1 = x0, x1, v0, v1
     sumlogdet = torch.zeros(x0.shape[0], dtype=x0.dtype, device=x0.device)
     pot1, sinp1, cosp1, chg1 = pot0, sinp, cosp, chg0
-    if local_layers > 0:
-        vnet, xnet = _make_stencil_nets(W, lx, bounded_q, local_layers)
-    else:
-        vnet, xnet = _make_mlp_nets(W, bounded_q)
+    if ablate_nets:
+        def vnet(*_):
+            z = torch.zeros_like(x0)
+            return [(z, z, z), (z, z, z)]
 
-    def link_trig(yy0, yy1):
-        return torch.cos(yy0), torch.cos(yy1), torch.sin(yy0), torch.sin(yy1)
+        xnet = vnet
+
+        def link_trig(yy0, yy1):
+            return None
+    else:
+        if local_layers > 0:
+            vnet, xnet = _make_stencil_nets(W, lx, bounded_q, local_layers)
+        else:
+            vnet, xnet = _make_mlp_nets(W, bounded_q)
+
+        def link_trig(yy0, yy1):
+            return (torch.cos(yy0), torch.cos(yy1), torch.sin(yy0),
+                    torch.sin(yy1))
 
     def kick(trig, w0_, w1_, g0_, g1_, tau, factor, ld):
         """Merged momentum kick, direction-fused (l2hmc.py update_v)."""
@@ -371,15 +413,17 @@ def _l2hmc_transition_math(x0, x1, v0, v1, dsign, u, W, eps, beta, K, lx,
 
 def l2hmc_chain_reference(links, params, v0s, v1s, ds, us, eps, beta,
                           num_leapfrog, bounded_q=True, hop_arrays=None,
-                          local_layers=0):
+                          local_layers=0, precision="f32", ablate_nets=False):
     """Run ``N`` trained transitions with injected randomness.
 
     ``links (B, Lt, Lx, 2)``; ``params`` a ``DynamicsParams`` of the MLP/u1
     family or, with ``local_layers > 0``, of the ``make_local_flat_net``
     family of that depth; ``v0s/v1s (N, B, Lt*Lx)``; ``ds/us (N, B)``.
     ``hop_arrays=(nus, uhs)`` appends one exact instanton hop after every
-    transition.  Returns ``(links_out, plaq_trace, charge_trace,
-    prob_trace)``.
+    transition.  ``precision='bf16'``: bfloat16 conditioner matmuls (MLP
+    family; the stencil family computes in float32 and ignores it).
+    ``ablate_nets=True``: S = T = Q = 0, the conditioner skipped.  Returns
+    ``(links_out, plaq_trace, charge_trace, prob_trace)``.
     """
     b, lt, lx, _ = links.shape
     d = lt * lx
@@ -387,7 +431,7 @@ def l2hmc_chain_reference(links, params, v0s, v1s, ds, us, eps, beta,
         names = local_weight_names(local_layers)
         packed = pack_local_weights(params, 2 * d, local_layers)
     else:
-        names, packed = WEIGHT_NAMES, pack_weights(params, 2 * d)
+        names, packed = WEIGHT_NAMES, pack_weights(params, 2 * d, precision)
     W = SimpleNamespace(**dict(zip(names, (w.to(links.device)
                                            for w in packed))))
     x0, x1 = _split_links(links)
@@ -401,7 +445,7 @@ def l2hmc_chain_reference(links, params, v0s, v1s, ds, us, eps, beta,
             x0, x1, prob, pot, sinp, chg, cosp = _l2hmc_transition_math(
                 x0, x1, v0s[n], v1s[n], ds[n], us[n], W, eps, beta,
                 num_leapfrog, lx, bounded_q, pot, sinp, chg, cosp,
-                local_layers)
+                local_layers, ablate_nets)
             if hop_arrays is not None:
                 x0, x1, _, pot, sinp, cosp, chg = _hop_math(
                     x0, x1, pot, sinp, cosp, chg, nus[n], uhs[n], beta,
@@ -455,12 +499,16 @@ def _kernel_randomness(rand_arrays, generator, n, b, d):
 
 
 def l2hmc_chain(links, params, generator, eps, beta, num_leapfrog,
-                num_transitions, bounded_q=True, hop=False, rand_arrays=None):
+                num_transitions, bounded_q=True, hop=False, rand_arrays=None,
+                precision="f32", ablate_nets=False):
     """Run ``num_transitions`` fused trained L2HMC transitions.
 
     ``links (B, Lt, Lx, 2)`` float32 angles; ``params`` a trained MLP/u1
     ``DynamicsParams``.  Returns ``(links_out, plaq_trace (N, B),
     charge_trace (N, B), prob_trace (N, B))``; charges rounded.
+    ``precision='bf16'`` runs the conditioners on bfloat16 weights;
+    ``ablate_nets=True`` skips them (S = T = Q = 0), the cost-decomposition
+    mode.
 
     A CPU tensor runs :func:`l2hmc_chain_reference`, with randomness drawn
     from ``generator`` unless ``rand_arrays=(v0s, v1s, ds, us[, nus, uhs])``
@@ -468,7 +516,10 @@ def l2hmc_chain(links, params, generator, eps, beta, num_leapfrog,
     — with the injected arrays, or with in-kernel Philox randomness seeded
     from ``generator`` — or raises.  Each block of the kernel runs two
     chains, so that each read of the weights feeds both; a lattice whose
-    two chains do not fit in one block's shared memory raises.
+    two chains do not fit in one block's shared memory raises.  Every
+    launch adds one to ``l2hmc_chain.launches``, and to
+    ``l2hmc_chain.bf16_launches`` / ``l2hmc_chain.ablate_launches`` in
+    those modes.
     """
     check_links(links)
     b, lt, lx, _ = links.shape
@@ -481,15 +532,18 @@ def l2hmc_chain(links, params, generator, eps, beta, num_leapfrog,
                                                 links.device)
         return l2hmc_chain_reference(
             links, params, *rand_arrays[:4], eps, beta, num_leapfrog,
-            bounded_q, hop_arrays=tuple(rand_arrays[4:]) if hop else None)
+            bounded_q, hop_arrays=tuple(rand_arrays[4:]) if hop else None,
+            precision=precision, ablate_nets=ablate_nets)
 
     if links.dtype != torch.float32:
         raise ValueError(f"links: expected float32, got {links.dtype}")
     dev = links.device
-    weights = pack_weights(params, 2 * d)
+    weights = pack_weights(params, 2 * d, precision)
+    bf16 = precision == "bf16"
     h = weights[0].shape[1]
     for name, w in zip(WEIGHT_NAMES, weights):
-        check_cuda_input(name, w)
+        check_cuda_input(name, w, dtype=torch.bfloat16 if (
+            bf16 and name in MATMUL_WEIGHTS) else torch.float32)
     K = weights[-1].shape[0]
     if K != num_leapfrog:
         raise ValueError(f"masks hold {K} steps, num_leapfrog={num_leapfrog}")
@@ -509,17 +563,21 @@ def l2hmc_chain(links, params, generator, eps, beta, num_leapfrog,
     chg = torch.empty_like(plaq)
     prob = torch.empty_like(plaq)
     l2hmc_chain.launches += 1
+    l2hmc_chain.bf16_launches += int(bf16)
+    l2hmc_chain.ablate_launches += int(ablate_nets)
     _cuda.check(lib.l2hmc_chain_launch(
         x0.data_ptr(), x1.data_ptr(), ctypes.cast(wptrs, ctypes.c_void_p),
         *[_cuda.ptr(r) for r in rand],
         plaq.data_ptr(), chg.data_ptr(), prob.data_ptr(),
         b, lt, lx, num_leapfrog, n, h, float(eps), float(beta),
-        int(bounded_q), int(hop), seed, dev.index or 0,
-        _cuda.stream_handle(dev)), "l2hmc_chain_launch")
+        int(bounded_q), int(hop), int(bf16), int(ablate_nets), seed,
+        dev.index or 0, _cuda.stream_handle(dev)), "l2hmc_chain_launch")
     return _join_links(x0, x1, lt, lx), plaq, torch.round(chg), prob
 
 
 l2hmc_chain.launches = 0
+l2hmc_chain.bf16_launches = 0
+l2hmc_chain.ablate_launches = 0
 
 # what csrc/l2hmc_local_chain.cu takes: 1 or 2 stencil layers of at most
 # LOCAL_MAX_CHANNELS channels over the 6 u1 input channels
@@ -529,7 +587,7 @@ LOCAL_IN_CHANNELS = 6
 
 def l2hmc_local_chain(links, params, generator, eps, beta, num_leapfrog,
                       num_transitions, num_layers, bounded_q=True, hop=False,
-                      rand_arrays=None):
+                      rand_arrays=None, ablate_nets=False):
     """Run ``num_transitions`` fused trained L2HMC transitions with the
     local 5-point stencil conditioner.
 
@@ -545,7 +603,9 @@ def l2hmc_local_chain(links, params, generator, eps, beta, num_leapfrog,
     arrays, or with in-kernel Philox randomness seeded from ``generator`` —
     or raises.  Each block runs one chain with its fields in shared memory;
     a lattice, depth or width whose chain does not fit raises a
-    ``ValueError`` naming the bytes it needs.
+    ``ValueError`` naming the bytes it needs.  ``ablate_nets=True`` skips
+    the conditioner (S = T = Q = 0); such a launch also adds one to
+    ``l2hmc_local_chain.ablate_launches``.
     """
     check_links(links)
     if num_layers < 1:
@@ -562,7 +622,7 @@ def l2hmc_local_chain(links, params, generator, eps, beta, num_leapfrog,
         return l2hmc_chain_reference(
             links, params, *rand_arrays[:4], eps, beta, num_leapfrog,
             bounded_q, hop_arrays=tuple(rand_arrays[4:]) if hop else None,
-            local_layers=num_layers)
+            local_layers=num_layers, ablate_nets=ablate_nets)
 
     if links.dtype != torch.float32:
         raise ValueError(f"links: expected float32, got {links.dtype}")
@@ -607,14 +667,16 @@ def l2hmc_local_chain(links, params, generator, eps, beta, num_leapfrog,
     chg = torch.empty_like(plaq)
     prob = torch.empty_like(plaq)
     l2hmc_local_chain.launches += 1
+    l2hmc_local_chain.ablate_launches += int(ablate_nets)
     _cuda.check(lib.l2hmc_local_chain_launch(
         x0.data_ptr(), x1.data_ptr(), flat.data_ptr(), mask0.data_ptr(),
         mask1.data_ptr(), *[_cuda.ptr(r) for r in rand],
         plaq.data_ptr(), chg.data_ptr(), prob.data_ptr(),
         b, lt, lx, K, n, c, num_layers, float(eps), float(beta),
-        int(bounded_q), int(hop), seed, dev.index or 0,
+        int(bounded_q), int(hop), int(ablate_nets), seed, dev.index or 0,
         _cuda.stream_handle(dev)), "l2hmc_local_chain_launch")
     return _join_links(x0, x1, lt, lx), plaq, torch.round(chg), prob
 
 
 l2hmc_local_chain.launches = 0
+l2hmc_local_chain.ablate_launches = 0

@@ -230,12 +230,13 @@ def check_links(links):
                          f"{tuple(links.shape)}")
 
 
-def check_cuda_input(name, t, shape=None):
-    """Raise unless ``t`` is a contiguous float32 CUDA tensor of ``shape``."""
+def check_cuda_input(name, t, shape=None, dtype=torch.float32):
+    """Raise unless ``t`` is a contiguous ``dtype`` CUDA tensor of
+    ``shape``."""
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name}: expected float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
     if shape is not None and tuple(t.shape) != tuple(shape):

@@ -2,7 +2,7 @@
 
 :class:`GaugeConfig` (every field, so a reference config JSON loads
 unchanged), the network and dynamics builders for ``network_arch`` in
-``('mlp', 'local_flat')``, ``group='u1'``, ``action='wilson'``; the trainer:
+``('mlp', 'local_flat', 'zero')``, ``group='u1'``, ``action='wilson'``; the trainer:
 :class:`TrainState`, the optimizer (optax's ``zero_nans`` ->
 ``clip_by_global_norm`` -> ``adam`` written out), the ESJD + charge loss, the
 train step with the eps dual-averaging warmup and the in-chain instanton hop,
@@ -41,6 +41,7 @@ from l2hmc_tpu_torch.networks.nets import (
     MLPNetSpec,
     make_local_flat_net,
     make_mlp_net,
+    make_zero_net,
 )
 
 
@@ -111,13 +112,15 @@ def config_from_dict(d: dict) -> GaugeConfig:
 
 def build_networks(cfg: GaugeConfig, generator=None, device=None):
     """XNet (position, factor=2) and VNet (momentum, factor=1) modules."""
-    if cfg.network_arch not in ("mlp", "local_flat"):
+    if cfg.network_arch not in ("mlp", "local_flat", "zero"):
         raise NotImplementedError(
             f"network_arch={cfg.network_arch!r} is not ported yet (ROADMAP "
-            "queue A item 6: conv, local, zero)")
+            "queue A item 6: conv, local)")
     if cfg.group != "u1":
         raise NotImplementedError(
             f"group={cfg.group!r} is not ported yet (ROADMAP queue A item 3)")
+    if cfg.network_arch == "zero":
+        return make_zero_net(cfg.x_dim), make_zero_net(cfg.x_dim)
     if cfg.network_arch == "local_flat":
         # periodic (cos, sin) position features: 4 channels in the
         # position slot (XNet x slot, VNet v slot)

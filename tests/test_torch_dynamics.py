@@ -186,8 +186,23 @@ def test_torch_mlp_net_init_statistics():
     blk = a.in_w[64:192].detach()
     assert float(blk.abs().max()) <= 2 * std + 1e-6
     assert abs(float(blk.std()) / std - 0.88) < 0.05
-    with pytest.raises(NotImplementedError, match="bf16"):
-        make_mlp_net(MLPNetSpec(8, 4, use_bf16=True))
+    # use_bf16: bf16 operands and float32 sums, as JAX's bf16 apply
+    jparams, _, _ = _jax_params()
+    x_dim = 2 * LT * LX
+    spec = dict(factor=2.0, bounded_q=True, x_in_dim=2 * x_dim)
+    net = make_mlp_net(MLPNetSpec(x_dim, HIDDEN, use_bf16=True, **spec),
+                       torch.Generator().manual_seed(0))
+    net.load_state_dict({k: torch.from_numpy(np.array(v))
+                         for k, v in _flat(jparams.xnet).items()})
+    _, apply = j_make_mlp_net(JSpec(x_dim, HIDDEN, use_bf16=True, **spec))
+    rng = np.random.default_rng(4)
+    v, xf, t = (rng.standard_normal((B, n)).astype(np.float32)
+                for n in (x_dim, 2 * x_dim, 2))
+    want = apply(jparams.xnet, *map(jnp.asarray, (v, xf, t)))
+    with torch.no_grad():
+        got = net(*map(torch.from_numpy, (v, xf, t)))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5)
 
 
 @pytest.mark.parametrize("num_steps", [1, 4])

@@ -14,7 +14,9 @@ and in CUDA's libm against torch's kernels; the energy change is summed per
 site on both sides, so accept probabilities agree to ~1e-5 at 16x16 and
 ~4e-5 at 64x64 (8192 links per chain).  The Wilson kernels: S and dg to
 1e-5 of the sum of their terms' magnitudes, sin P to 1e-6, the force from
-the same sin P exactly, dlinks to 1e-5 of its largest entry.
+the same sin P exactly, dlinks to 1e-5 of its largest entry.  The issue-rate
+probes to 1e-5, the ablated kernels to their zero-net runs to 1e-6, the
+bf16 kernel as its test states.
 """
 
 import copy
@@ -27,6 +29,7 @@ import torch
 
 from l2hmc_tpu_torch.lattice.u1 import typical_links
 from l2hmc_tpu_torch.ops import _cuda
+from l2hmc_tpu_torch.ops import issue_rates as tir
 from l2hmc_tpu_torch.ops import l2hmc_kernel as tl2
 from l2hmc_tpu_torch.ops import leapfrog as tlf
 from l2hmc_tpu_torch.ops import wilson as tw
@@ -87,11 +90,11 @@ def _local_params(lt, lx, K, channels, layers, device, seed=0):
     return params.to(device)
 
 
-def _assert_matches(got, want):
+def _assert_matches(got, want, atol=ATOL):
     d = torch.remainder(got[0] - want[0] + np.pi, 2 * np.pi) - np.pi
-    assert float(d.abs().max()) <= ATOL
+    assert float(d.abs().max()) <= atol
     for g, w in zip(got[1:], want[1:]):
-        torch.testing.assert_close(g, w, atol=ATOL, rtol=0)
+        torch.testing.assert_close(g, w, atol=atol, rtol=0)
 
 
 @pytest.mark.cuda
@@ -154,6 +157,33 @@ def test_torch_local_chain_kernel_matches_plain(cuda_device, lt, lx, b,
     assert tl2.l2hmc_local_chain.launches == before + 1
     torch.cuda.synchronize()
     _assert_matches(got, want)
+    assert 0.02 < float(want[3].mean()) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ablate", [False, True])
+@pytest.mark.parametrize("lt,lx,b,layers", [(8, 8, 5, 1), (8, 8, 5, 2),
+                                            (64, 64, 4, 1)])
+def test_torch_local_chain_kernel_c8_matches_plain(cuda_device, lt, lx, b,
+                                                   layers, ablate):
+    """c=8, the most channels the kernel takes (local64's c8L1 among them),
+    full and ablated, against the plain version on the same draws.  Ablated
+    at 64x64 the circle map is the identity computed in float32, an ulp per
+    link and half-update, and the plain version alone lies 2.5e-4 from its
+    float64 run there: 3e-4, as chip_smoke.py holds it."""
+    n, K, eps, beta = 3, 4, 0.01, 4.0
+    params = _local_params(lt, lx, K, 8, layers, cuda_device, seed=8)
+    links = torch.tensor(typical_links(np.random.default_rng(17), b, lt, lx,
+                                       sigma=0.27), device=cuda_device)
+    rand = _rand(18, n, b, lt * lx, False, True, cuda_device)
+    want = tl2.l2hmc_chain_reference(links, params, *rand, eps, beta, K,
+                                     local_layers=layers, ablate_nets=ablate)
+    before = tl2.l2hmc_local_chain.launches
+    got = tl2.l2hmc_local_chain(links, params, None, eps, beta, K, n, layers,
+                                rand_arrays=rand, ablate_nets=ablate)
+    assert tl2.l2hmc_local_chain.launches == before + 1
+    torch.cuda.synchronize()
+    _assert_matches(got, want, 3e-4 if ablate and lt == 64 else ATOL)
     assert 0.02 < float(want[3].mean()) <= 1.0
 
 
@@ -331,6 +361,103 @@ def test_torch_wilson_wrappers_reject_bad_input(cuda_device):
         tw.wilson_backward(sinp, g.cpu())
     with pytest.raises(ValueError, match="shape"):
         tw.wilson_backward(sinp, g[:1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("probe", [p.name for p in tir.PROBES])
+def test_torch_issue_rate_probe_matches_plain(cuda_device, probe):
+    """Each probe of csrc/issue_rates.cu against its plain chain, 64 steps:
+    the same libdevice routines, but one FFMA where torch rounds twice and a
+    division where torch multiplies by a reciprocal; the maps contract, so
+    1e-5 absolute."""
+    x = torch.tensor(np.random.default_rng(9).uniform(0.0, 1.0, (300, 7)),
+                     dtype=torch.float32, device=cuda_device)
+    before = tir.probe_chain.launches
+    got = tir.probe_chain(x, probe, 64)
+    assert tir.probe_chain.launches == before + 1
+    want = tir.probe_chain_reference(x, probe, 64)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    assert not torch.equal(got, x)
+
+
+@pytest.mark.cuda
+def test_torch_cheap_probe_rate_is_physical(cuda_device):
+    """The cheap chain (one FFMA, counted as 2 ops) cannot read faster than
+    the card's float32 peak: more would mean the chain was folded."""
+    from l2hmc_tpu_torch.benchmarks.vpu_roofline import measure_rates_kernel
+
+    rates, _ = measure_rates_kernel(2048, 256, device=cuda_device)
+    assert rates["cheap"] <= 1.05 * 67e12
+    assert max(rates.values()) == rates["cheap"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layers", [0, 1, 2])
+def test_torch_ablated_kernels_equal_zero_nets(cuda_device, layers):
+    """ablate_nets=True against the same kernel on zeroed nets (bit for
+    bit, the JAX package's gate 1e-6) and against the ablated plain version
+    (ATOL); layers 0 is the MLP kernel, 1 and 2 the local kernel."""
+    b, n, K, lt, lx = 5, 3, 3, 8, 8
+    if layers:
+        params = _local_params(lt, lx, K, 4, layers, cuda_device)
+        run = lambda p, **kw: tl2.l2hmc_local_chain(  # noqa: E731
+            links, p, None, 0.05, 3.0, K, n, layers, rand_arrays=rand, **kw)
+    else:
+        params = _params(lt, lx, K, 32, cuda_device)
+        run = lambda p, **kw: tl2.l2hmc_chain(  # noqa: E731
+            links, p, None, 0.12, 3.0, K, n, rand_arrays=rand, **kw)
+    links = torch.tensor(typical_links(np.random.default_rng(10), b, lt, lx),
+                         device=cuda_device)
+    rand = _rand(11, n, b, lt * lx, False, True, cuda_device)
+    zero = copy.deepcopy(params)
+    with torch.no_grad():
+        for net in (zero.xnet, zero.vnet):
+            for p in net.parameters():
+                p.zero_()
+    counter = tl2.l2hmc_local_chain if layers else tl2.l2hmc_chain
+    before = counter.ablate_launches
+    got = run(params, ablate_nets=True)
+    assert counter.ablate_launches == before + 1
+    ref = run(zero)
+    eps = 0.05 if layers else 0.12
+    want = tl2.l2hmc_chain_reference(links, params, *rand, eps, 3.0, K,
+                                     local_layers=layers, ablate_nets=True)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, atol=1e-6, rtol=0)
+    _assert_matches(got, want)
+
+
+@pytest.mark.cuda
+def test_torch_bf16_kernel_matches_plain(cuda_device):
+    """precision='bf16' against its plain version.  Both round the same
+    float32 activations to bf16 but sum before the rounding in another
+    order, so a value on a rounding boundary lands one bf16 step apart:
+    the median accept probability agrees as in float32 (ATOL), the largest
+    difference within 2e-2 (chip_smoke.py's gate), links within 2e-2."""
+    b, n, K, lt, lx = 64, 2, 3, 8, 8
+    params = _params(lt, lx, K, 64, cuda_device)
+    links = torch.tensor(typical_links(np.random.default_rng(12), b, lt, lx),
+                         device=cuda_device)
+    rand = _rand(13, n, b, lt * lx, False, True, cuda_device)
+    before = tl2.l2hmc_chain.bf16_launches
+    got = tl2.l2hmc_chain(links, params, None, 0.12, 3.0, K, n,
+                          rand_arrays=rand, precision="bf16")
+    assert tl2.l2hmc_chain.bf16_launches == before + 1
+    want = tl2.l2hmc_chain_reference(links, params, *rand, 0.12, 3.0, K,
+                                     precision="bf16")
+    torch.cuda.synchronize()
+    us = rand[3]
+    keep = ~((us < got[3]) != (us < want[3])).any(dim=0)
+    assert int((~keep).sum()) <= 1
+    dprob = (got[3][:, keep] - want[3][:, keep]).abs()
+    assert float(dprob.median()) <= ATOL
+    assert float(dprob.max()) <= 2e-2
+    d = torch.remainder(got[0][keep] - want[0][keep] + np.pi,
+                        2 * np.pi) - np.pi
+    assert float(d.abs().max()) <= 2e-2
+    assert torch.equal(got[2][:, keep], want[2][:, keep])
 
 
 def test_torch_kernel_build_needs_nvcc():

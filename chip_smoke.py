@@ -67,7 +67,11 @@ the hop sampler must also change the rounded charge in at least 10x as
 many transitions as the local sampler without it.
 
 The last two lines are a JSON object of per-kernel results (with each
-kernel's least possible time ``bound_ms`` from this run's shapes) and the
+kernel's least possible time ``bound_ms`` from this run's shapes: for
+``l2hmc_chain`` the conditioner's products at the tensor-core rate, 3 TF32
+passes for float32, beside the rest at 67 TFLOP/s; ``library_ms`` of
+``l2hmc_chain`` is its ten conditioner products per transition as float32
+``torch.matmul``, a yardstick the port never calls) and the
 ``{"ok": true, "device": ...}`` line.  The script needs a CUDA device; it
 never falls back to the CPU.
 """
@@ -616,6 +620,7 @@ def local64_phase(device):
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12      # dense, tensor cores
+TF32_FLOP_PER_S = 495e12      # dense, tensor cores
 
 
 def bound(nbytes, flops):
@@ -649,15 +654,84 @@ def stencil_macs(net):
 
 def l2hmc_chain_bound(b, K, macs):
     """Per transition of the trained chains: K+1 VNet and 2K XNet calls of
-    ``macs`` multiply-adds per chain (the conditioners dominate)."""
+    ``macs`` multiply-adds per chain (the conditioners dominate), at the
+    float32 rate without tensor cores (the local kernel's route, and the
+    MLP kernel's before it ran its products on tensor cores)."""
     return bound(0.0, 2.0 * b * (3 * K + 1) * macs)
 
 
-def bf16_chain_bound(b, K, macs):
-    """The same products with bf16 operands, at the card's dense bf16
-    tensor-core rate (the kernel runs them as float32 FMAs: tensor cores
-    are later work)."""
-    return 1e3 * 2.0 * b * (3 * K + 1) * macs / BF16_FLOP_PER_S, "operations"
+def tensor_core_chain_bound(b, K, macs, rest_ops, precision="f32"):
+    """Per transition of ``csrc/l2hmc_chain.cu``'s route: the conditioner's
+    products on tensor cores (float32 as 3 TF32 passes at 495 TFLOP/s, bf16
+    as one pass at 989 TFLOP/s) and the rest of the transition
+    (``rest_ops``, the ablated transition's operations) at 67 TFLOP/s; the
+    pipes can overlap, so the larger of the two.  Returns ``(bound_ms,
+    bound_by, tensor-core ms, rest ms)``."""
+    flops = 2.0 * b * (3 * K + 1) * macs
+    t_tc = (3.0 * flops / TF32_FLOP_PER_S if precision == "f32"
+            else flops / BF16_FLOP_PER_S)
+    t_rest = rest_ops / F32_FLOP_PER_S
+    return 1e3 * max(t_tc, t_rest), "operations", 1e3 * t_tc, 1e3 * t_rest
+
+
+def conditioner_matmul_ms(params, K, device, reps=5):
+    """Yardstick for ``l2hmc_chain`` (library_ms; never called by the port):
+    ms of the ten conditioner products of one transition (K+1 VNet and 2K
+    XNet calls, each (B, 6d) @ (6d, h), (B, h) @ (h, h), (B, h) @ (h, 6d))
+    as float32 ``torch.matmul`` calls (TF32 off) at MAIN_CHAINS chains.
+    The 30 calls are captured in a CUDA graph and its replay is timed
+    (median of ``reps``, CUDA events): launched one by one from Python they
+    run at the host's pace, and torch.profiler records only some of them."""
+    from l2hmc_tpu_torch.ops.l2hmc_kernel import WEIGHT_NAMES, pack_weights
+
+    d = SIDE * SIDE
+    w = dict(zip(WEIGHT_NAMES, pack_weights(params, 2 * d)))
+    gen = torch.Generator(device=device).manual_seed(11)
+    f = torch.randn((MAIN_CHAINS, 6 * d), generator=gen, device=device)
+    nets = ["v" if i % 3 == 0 else "x" for i in range(3 * K + 1)]
+
+    def run():
+        for n in nets:
+            h = torch.matmul(f, w[n + "in"])
+            h = torch.matmul(h, w[n + "h_w"])
+            torch.matmul(h, w[n + "head"])
+
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        run()
+    graph.replay()
+    times = sorted(timed(graph.replay)[1] for _ in range(reps))
+    return times[reps // 2]
+
+
+def weight_stream_bytes(b, lt, lx, h, K, precision="f32"):
+    """Bytes ``csrc/l2hmc_chain.cu`` streams from L2 per transition: every
+    block reads its net's packed chunks once per MLP call."""
+    from l2hmc_tpu_torch.ops.l2hmc_kernel import (CHUNK_BYTES,
+                                                  chains_per_block,
+                                                  mma_geometry)
+
+    geo = mma_geometry(lt * lx, h, precision)
+    c, _ = chains_per_block(lt, lx, h, precision)
+    blocks = -(-b // c)
+    return (geo.n_in + geo.n_tr + geo.n_hd) * CHUNK_BYTES * (3 * K + 1) \
+        * blocks
+
+
+def local_trig_per_transition(b, d, K):
+    """sincosf calls of ``csrc/l2hmc_local_chain.cu``'s conditioner inputs
+    per transition: 2 per site for each of the K+1 kicks (both directions
+    staged), none for the first position half-update of a step (it reuses
+    the kick's), d over both directions for the second (the held links: a
+    mask holds half of the 2d).  The design before staging rebuilt 2 per
+    stencil point and site for each kick and 1 per held stencil point for
+    each half-update: (K+1) 10 d + 2K 5 d."""
+    return b * d * (2 * (K + 1) + K), b * d * (10 * (K + 1) + 10 * K)
 
 
 def wilson_bounds(b, lt, lx):
@@ -1503,8 +1577,9 @@ def decomposition_phase(params, eps_c, K_c, device):
     b64 = bound(0.0, sum(c64_abl.values()))
     nb = {"issue_rates": bound(2 * b0 * d0 * 4, 2 * b0 * d0 * RATE_M[0]),
           "l2hmc_chain[ablate]": bound(0.0, sum(c_abl.values())),
-          "l2hmc_chain[bf16]": bf16_chain_bound(MAIN_CHAINS, K_c,
-                                                mlp_macs(params.xnet)),
+          "l2hmc_chain[bf16]": tensor_core_chain_bound(
+              MAIN_CHAINS, K_c, mlp_macs(params.xnet), sum(c_abl.values()),
+              "bf16")[:2],
           "l2hmc_local_chain[ablate]": b64}
     log(f"[decomp] kernel ms {ms}; plain ms {plain}; bounds {nb}; phase "
         f"{time.perf_counter() - t0:.1f} s")
@@ -1538,9 +1613,32 @@ def main():
 
     from l2hmc_tpu_torch.train.gauge import init_params
 
+    from l2hmc_tpu_torch.benchmarks.vpu_roofline import transition_op_counts
+
     k_c = cfg.num_steps
     hmc_b = hmc_chain_bound(MAIN_CHAINS, SIDE * SIDE, HMC_K, CALL_N)
-    l2_b = l2hmc_chain_bound(MAIN_CHAINS, k_c, mlp_macs(params.xnet))
+    macs = mlp_macs(params.xnet)
+    rest = sum(transition_op_counts(MAIN_CHAINS, SIDE, SIDE, k_c)[0]
+               .values())
+    l2_old = l2hmc_chain_bound(MAIN_CHAINS, k_c, macs)
+    l2_b = tensor_core_chain_bound(MAIN_CHAINS, k_c, macs, rest)
+    l16_b = tensor_core_chain_bound(MAIN_CHAINS, k_c, macs, rest, "bf16")
+    lib_ms = conditioner_matmul_ms(params, k_c, device)
+    ms_tr = results["champion"]["us_per_transition"] * 1e-3
+    stream = weight_stream_bytes(MAIN_CHAINS, SIDE, SIDE, cfg.hidden, k_c)
+    trig = local_trig_per_transition(L64_CHAINS, L64_SIDE * L64_SIDE, L64_K)
+    log(f"[result] l2hmc_chain champion: {1e3 * ms_tr:.1f} us/transition; "
+        f"bound {1e3 * l2_b[0]:.2f} us (tensor cores {1e3 * l2_b[2]:.2f} us "
+        f"for 3 TF32 passes, the rest {1e3 * l2_b[3]:.2f} us at 67 TFLOP/s; "
+        f"the float32-FMA route's bound {1e3 * l2_old[0]:.2f} us); bf16 route "
+        f"bound {1e3 * l16_b[0]:.2f} us; weights streamed from L2 "
+        f"{stream / 1e9:.4f} GB/transition = "
+        f"{stream / (ms_tr * 1e-3) / 1e12:.3f} TB/s achieved; the ten "
+        f"conditioner products as torch.matmul (float32, TF32 off) "
+        f"{1e3 * lib_ms:.1f} us/transition (one CUDA graph of the 30 calls)")
+    log(f"[result] l2hmc_local_chain c{L64_CHANNELS}L{L64_LAYERS}: "
+        f"conditioner-input sincosf per transition {trig[0]:,} "
+        f"(rebuilding them at each use: {trig[1]:,})")
     local_b = l2hmc_chain_bound(
         L64_CHAINS * L64_SIDE * L64_SIDE, L64_K, stencil_macs(
             init_params(local_cfg(L64_LAYERS), device="cpu").xnet))
@@ -1558,9 +1656,9 @@ def main():
          "replaces": "l2hmc_tpu/ops/l2hmc_kernel.py:672",
          "launches": launches["l2hmc_chain"],
          "max_abs_err": errs["l2hmc_chain"],
-         "ms": results["champion"]["us_per_transition"] * 1e-3,
+         "ms": ms_tr,
          "plain_ms": plain["champion"],
-         "bound_ms": l2_b[0], "bound_by": l2_b[1], "library_ms": None},
+         "bound_ms": l2_b[0], "bound_by": l2_b[1], "library_ms": lib_ms},
         {"name": "l2hmc_local_chain", "route": "cuda",
          "source": "l2hmc_tpu_torch/ops/csrc/l2hmc_local_chain.cu",
          "replaces": "l2hmc_tpu/ops/l2hmc_kernel.py:925",
@@ -1605,8 +1703,10 @@ def main():
         f"16, 16, 2) (device time by torch.profiler) and for issue_rates "
         f"(the cheap probe at {RATE_SHAPES[0]}, m={RATE_M[0]}); launches are"
         f" the main paths' (Wilson: the train path's; the modes and "
-        f"issue_rates: the decomposition path's); library_ms null: no single "
-        f"PyTorch call computes these functions.  Train step {train_ms:.3f} "
+        f"issue_rates: the decomposition path's); library_ms: l2hmc_chain's "
+        f"ten conditioner products as torch.matmul (a yardstick for part of "
+        f"its work), null elsewhere: no single PyTorch call computes these "
+        f"functions.  Train step {train_ms:.3f} "
         f"ms (plain potential {train_plain_ms:.3f} ms); train-step check "
         f"max rel err {train_err:.3e}; on {smi}")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,11 +1,21 @@
-"""Time the float32 champion chain kernel of two source trees in turns.
+"""Time a chain kernel of two source trees in turns.
 
 A kernel change is compared with its parent on one card in one call: each
-tree's ``l2hmc_chain`` (``csrc/l2hmc_chain.cu`` with the shipped champion's
-weights, 2048 chains thermalized at beta 4, calls of 200 transitions) is
-timed in a process of its own, in the order base, new, new, base, ...,
-so that a drift of the card's clock falls on both sides alike.  Each
-process reports the median of 9 calls (CUDA events) after a warm-up call;
+tree's kernel is timed in a process of its own, in the order base, new,
+new, base, ...,
+so that a drift of the card's clock falls on both sides alike.  Kernels
+(``--kernel``):
+
+- ``champion`` (default): ``l2hmc_chain`` (``csrc/l2hmc_chain.cu``, float32)
+  with the shipped champion's weights, 2048 chains thermalized at beta 4,
+  calls of 200 transitions;
+- ``local``: ``l2hmc_local_chain`` (``csrc/l2hmc_local_chain.cu``) at the
+  local64 config of chip_smoke.py (64x64, ``local_flat`` c=4 L=1 from the
+  port's seeded init, K=4, eps 0.10014, beta 4), 512 chains from a hot
+  start, calls of 50 transitions.
+
+Each process reports the median of 9 calls (CUDA events) after a warm-up
+call;
 each tree is built and warmed up once first.  One JSON line: every
 process's median; the mean and standard error of the paired difference
 new - base and the number of pairs in which new is slower; the spread of
@@ -14,7 +24,8 @@ the base's own runs (the distance between their quartiles).
 Usage (on the card; each tree a checkout of the repository, e.g. the parent
 unpacked with ``git archive`` into an ignored directory)::
 
-    python3 l2hmc_tpu_torch/benchmarks/ab_time.py build/parent . [--pairs 10]
+    python3 l2hmc_tpu_torch/benchmarks/ab_time.py build/parent . \
+        [--kernel champion|local] [--pairs 10]
 
 Run it as a file, not with ``-m``: each process imports the package from
 the tree it times.
@@ -29,39 +40,68 @@ import subprocess
 import sys
 from pathlib import Path
 
-NT, REPS = 200, 9
+REPS = 9
+KERNELS = {"champion": ("l2hmc_chain f32, champion 16x16, 2048 chains", 200),
+           "local": ("l2hmc_local_chain c4L1, local64 64x64, 512 chains",
+                     50)}
 
 
-def time_tree(tree):
-    """us per transition of ``REPS`` calls of the f32 champion kernel, the
-    package imported from ``tree``."""
-    sys.path.insert(0, str(tree))
-    import torch
-
+def _champion(torch, dev, gen):
     from l2hmc_tpu_torch.dynamics.hmc import hmc_chain_u1_fused
     from l2hmc_tpu_torch.dynamics.l2hmc import get_eps
     from l2hmc_tpu_torch.ops import l2hmc_kernel
     from l2hmc_tpu_torch.train.checkpoint import load_champion
     from l2hmc_tpu_torch.train.gauge import build_dynamics
 
+    cfg, params = load_champion(device=dev)
+    eps = float(get_eps(params, build_dynamics(cfg)[0]))
+    links = torch.zeros((2048, cfg.time_size, cfg.space_size, 2), device=dev)
+    links = hmc_chain_u1_fused(links, gen, 0.08, 4.0, 5, 200)[0]
+    nt = KERNELS["champion"][1]
+    return lambda: l2hmc_kernel.l2hmc_chain(links, params, gen, eps, 4.0,
+                                            cfg.num_steps, nt)
+
+
+def _local(torch, dev, gen):
+    from l2hmc_tpu_torch.lattice import u1
+    from l2hmc_tpu_torch.ops import l2hmc_kernel
+    from l2hmc_tpu_torch.train.gauge import GaugeConfig, init_params
+
+    cfg = GaugeConfig(time_size=64, space_size=64, num_chains=512,
+                      num_steps=4, network_arch="local_flat", num_filters=4,
+                      local_layers=1, merge_v_halves=True, eps_init=0.10014,
+                      eps_trainable=False, beta_final=4.0, bounded_q=True)
+    params = init_params(cfg, torch.Generator().manual_seed(640), device=dev)
+    links = u1.to_links(u1.random_links(gen, 512, cfg.shape, device=dev),
+                        cfg.shape).contiguous()
+    nt = KERNELS["local"][1]
+    return lambda: l2hmc_kernel.l2hmc_local_chain(links, params, gen,
+                                                  0.10014, 4.0, 4, nt, 1)
+
+
+def time_tree(tree, kernel):
+    """us per transition of ``REPS`` calls of ``kernel``, the package
+    imported from ``tree``."""
+    sys.path.insert(0, str(tree))
+    import torch
+
+    from l2hmc_tpu_torch.ops import l2hmc_kernel
+
     if not Path(l2hmc_kernel.__file__).resolve().is_relative_to(tree):
         raise RuntimeError(f"imported {l2hmc_kernel.__file__}, not {tree}")
     dev = torch.device("cuda", 0)
-    cfg, params = load_champion(device=dev)
-    eps = float(get_eps(params, build_dynamics(cfg)[0]))
     gen = torch.Generator(device=dev).manual_seed(1)
-    links = torch.zeros((2048, cfg.time_size, cfg.space_size, 2), device=dev)
-    links = hmc_chain_u1_fused(links, gen, 0.08, 4.0, 5, 200)[0]
+    run = {"champion": _champion, "local": _local}[kernel](torch, dev, gen)
+    nt = KERNELS[kernel][1]
 
     def once():
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        l2hmc_kernel.l2hmc_chain(links, params, gen, eps, 4.0,
-                                 cfg.num_steps, NT)
+        run()
         end.record()
         torch.cuda.synchronize()
-        return start.elapsed_time(end) * 1e3 / NT
+        return start.elapsed_time(end) * 1e3 / nt
 
     once()
     return [once() for _ in range(REPS)]
@@ -81,8 +121,9 @@ def paired_difference(runs):
     return statistics.fmean(diffs), se, diffs
 
 
-def _run_one(tree):
-    out = subprocess.run([sys.executable, __file__, "--one", str(tree)],
+def _run_one(tree, kernel):
+    out = subprocess.run([sys.executable, __file__, "--one", str(tree),
+                          "--kernel", kernel],
                          capture_output=True, text=True, check=True)
     return json.loads(out.stdout.strip().splitlines()[-1])["us"]
 
@@ -92,19 +133,22 @@ def main(argv=None):
     p.add_argument("base", nargs="?")
     p.add_argument("new", nargs="?")
     p.add_argument("--pairs", type=int, default=10)
+    p.add_argument("--kernel", choices=sorted(KERNELS), default="champion")
     p.add_argument("--one", help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     if args.one:
-        print(json.dumps({"us": time_tree(Path(args.one).resolve())}))
+        print(json.dumps({"us": time_tree(Path(args.one).resolve(),
+                                          args.kernel)}))
         return 0
     trees = {"base": Path(args.base).resolve(),
              "new": Path(args.new).resolve()}
     for tree in trees.values():            # build and warm each tree once
-        _run_one(tree)
+        _run_one(tree, args.kernel)
     order = []
     for i in range(args.pairs):
         order += ["base", "new"] if i % 2 == 0 else ["new", "base"]
-    runs = [(t, statistics.median(_run_one(trees[t]))) for t in order]
+    runs = [(t, statistics.median(_run_one(trees[t], args.kernel)))
+            for t in order]
     mean, se, diffs = paired_difference(runs)
     base = [m for t, m in runs if t == "base"]
     q1, _, q3 = statistics.quantiles(base, n=4)
@@ -113,7 +157,7 @@ def main(argv=None):
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(json.dumps({
-        "benchmark": "ab_time", "kernel": "l2hmc_chain f32, champion",
+        "benchmark": "ab_time", "kernel": KERNELS[args.kernel][0],
         "device": smi, "trees": {k: str(v) for k, v in trees.items()},
         "runs_median_us": runs, "diff_us": diffs, "diff_us_mean": mean,
         "diff_us_se": se, "diff_pct": 100 * mean / statistics.fmean(base),

@@ -14,6 +14,11 @@ keyed by a hash of the sources and flags, lives under the repository's
 spills.  Only sources in this repository and the CUDA toolkit's own headers
 (curand's Philox) are used.
 
+``L2HMC_NVCC_DEFINES`` (``-D`` flags, space-separated) builds a variant
+into a directory of its own: ``sweep_chains.py`` uses it to time the chain
+kernel at a smaller chains-per-block cap (``L2HMC_CHAIN_MAX_C`` in
+``csrc/l2hmc_chain.cu``); left unset, the build is the committed one.
+
 Every C entry returns ``cudaGetLastError()`` after its launch; :func:`check`
 raises on a non-zero code.  Pointers and the stream are ``c_void_p`` so
 ctypes never truncates them to 32 bits.
@@ -55,20 +60,25 @@ _SIGNATURES = {
         _F, _F, _I, _U64,            # eps, beta, hop, seed
         _I, _P,                      # device, stream
     ]),
-    "l2hmc_chain_smem_bytes": (ctypes.c_size_t, [_I, _I, _I]),
+    "l2hmc_chain_smem_bytes": (ctypes.c_size_t, [_I, _I, _I, _I, _I]),
+    "l2hmc_chain_max_chains": (_I, []),
     "l2hmc_chain_launch": (_I, [
         _P, _P,                      # x0, x1 (B, d), updated in place
-        _P,                          # host array of 26 weight pointers
+        _P,                          # scratch (2, B, d): accepted sin/cos P
+        _P,                          # host array of 22 weight pointers
         _P, _P, _P, _P, _P, _P,      # v0s, v1s, ds, us, nus, uhs (or null)
         _P, _P, _P,                  # plaq, chg, prob traces (N, B)
         _I, _I, _I, _I, _I, _I,      # B, lt, lx, K, N, hidden
         _F, _F, _I, _I,              # eps, beta, bounded_q, hop
         _I, _I, _U64,                # bf16, ablate, seed
+        _I, _I, _I, _I, _I,          # chains per block, hp, mt, n_in, n_tr
+        _I, _I, _I, _I, _I,          # n_hd, kq, bs, hs, stages
         _I, _P,                      # device, stream
     ]),
     "l2hmc_local_chain_smem_bytes": (ctypes.c_size_t, [_I, _I, _I, _I]),
     "l2hmc_local_chain_launch": (_I, [
         _P, _P,                      # x0, x1 (B, d), updated in place
+        _P,                          # scratch (B, 2, d): accepted sin/cos P
         _P, _P, _P,                  # flat net weights, mask0, mask1 (K, d)
         _P, _P, _P, _P, _P, _P,      # v0s, v1s, ds, us, nus, uhs (or null)
         _P, _P, _P,                  # plaq, chg, prob traces (N, B)
@@ -118,9 +128,18 @@ def _run_failed(cmd, proc_out, code):
     return RuntimeError(f"nvcc failed ({code}):\n{' '.join(cmd)}\n{out}\n{err}")
 
 
+def _flags() -> tuple[str, ...]:
+    defines = tuple(os.environ.get("L2HMC_NVCC_DEFINES", "").split())
+    bad = [f for f in defines if not f.startswith("-D")]
+    if bad:
+        raise ValueError(f"L2HMC_NVCC_DEFINES takes -D flags only: {bad}")
+    return NVCC_FLAGS + defines
+
+
 def build() -> tuple[Path, float]:
     """Compile the kernels if needed; returns ``(library path, seconds)``."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    flags = _flags()
+    h = hashlib.sha256(" ".join(flags).encode())
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -135,7 +154,7 @@ def build() -> tuple[Path, float]:
     jobs = []
     for src in sorted(CSRC.glob("*.cu")):
         obj = out_dir / f"{src.stem}.{pid}.o"
-        cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+        cmd = [nvcc, *flags, "-c", str(src), "-o", str(obj)]
         jobs.append((src, obj, cmd, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
     # wait for every compiler before raising, so none is left running

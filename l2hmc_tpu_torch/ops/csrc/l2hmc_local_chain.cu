@@ -10,28 +10,44 @@
 // exact instanton hop from the carried plaquette fields.  Only the final
 // links and three (N, B) traces reach device memory.
 //
-// The conditioner: 1 or 2 periodic 5-point stencil layers (ReLU) of c <= 8
+// The conditioner: 1 or 2 periodic 5-point stencil layers (ReLU) of C
 // channels over 6 per-direction input channels, the time encoding as a
 // per-chain bias of layer 0, and a 1x1 head to [S0 S1 T0 T1 Q0 Q1].  It is
 // weight-shared, so its few hundred weights sit in shared memory and every
 // read of one is a broadcast.
 //
-// What bounds it on an H100: shared memory.  The TPU kernel keeps ~28 + 2c
-// live (chains, d) rows per chain tile in VMEM; an SM has 227 KB, and at
-// 64x64 one field is 16 KB.  This design keeps one chain per block with ten
-// fields (state, proposal, momenta, sin/cos P of state and proposal: 160 KB
-// at 64x64) and stores no conditioner input: a site's layer-0 output is
-// computed from its five neighbours' inputs, which are rebuilt from the
-// proposal, momenta and sin P fields (cos/sin of the neighbours' links, the
-// force from sin P) at each use.  Two layers add the c layer-0 output
-// fields (c = 4: 224 KB in all).  A position half-update writes only sites
-// its mask moves, and reads the links only at sites the mask holds, so it
-// runs in place.  One block per SM is resident; 512 threads each own
-// d / 512 sites, so instruction throughput bounds it: per site and
-// conditioner call about 10 sincos, 150 FMA and as many broadcast weight
-// reads, 3K+1 calls per transition, a barrier after each.  Each phase
-// (kick, position half-update, force) has one call site in the transition
-// loop, so one inlined copy; the depth L is a template parameter.
+// What bounds it on an H100: instruction issue inside one block per SM
+// (512 threads, d / 512 sites each; at 64x64 the ten 16 KB fields per chain
+// leave no room for a second block).  The design spends the issue slots on
+// the stencil's FMAs and keeps the rest off that path:
+// - Staged inputs.  Before a conditioner call the four trigonometric input
+//   channels are written once per site into shared memory: [cos y0, cos y1,
+//   sin y0, sin y1] for the VNet, the same times the hold masks for the
+//   XNet (links read only where held).  The stencil then reads five
+//   neighbours' staged values instead of calling sincosf ten times per
+//   site; the other two channels (the force from sin P, or the momenta) are
+//   read from the fields.  The first position half-update of a step reuses
+//   the kick's staged values (the links have not moved), so a step costs 2
+//   (kick) + 0 + 1 (held half of the links) sincosf per site for the
+//   conditioner, against 10 + 5 + 5 when each use rebuilt them.
+// - Room for them: whole staged fields, not row bands.  At 64x64 the L = 2,
+//   C = 4 net already uses 224 of the 227 KB with ten fields and the layer-0
+//   outputs, which leaves no room for a band of even three rows.  So the
+//   accepted state (links X0, X1 and their plaquette sin/cos SP, CP), which
+//   a transition reads once at its start and writes once on accept or hop,
+//   lives in device memory (the links in the output arrays, SP and CP in a
+//   (B, 2, d) scratch the wrapper allocates: 32 MB at 512 chains, held in
+//   L2), and its 64 KB of shared memory hold the four staged channels.
+// - The channel count C in {4, 8} is a template parameter; the wrapper pads
+//   a net of fewer channels with zero weights, biases, time rows and head
+//   rows, whose outputs are exactly 0 after ReLU and add exact zeros to the
+//   head.  Every channel loop unrolls without predicates, and each weight
+//   row is read as float4: one shared load per 4 FMAs.
+// The staging is safe in place: a position half-update writes links only
+// at sites its mask moves and stages (and the stencil reads) them only at
+// sites it holds; the kick writes only momenta, which the VNet does not read.
+// Each phase (kick, position half-update, force) has one call site in the
+// transition loop, so one inlined copy; the depth L is a template parameter.
 //
 // The carried sin/cos plaquette fields are rotated, not recomputed, after
 // an accepted hop (hop_rotate in chain_common.cuh rounds as the plain
@@ -39,11 +55,10 @@
 // and plain version agree to ~4e-5 on accept probabilities at 64x64.
 //
 // The cost-decomposition mode (template ABLATE, as in l2hmc_chain.cu)
-// compiles out the stencil layers, the head and the neighbours' sincosf of
-// the conditioner inputs, and reads S = T = Q from a kernel argument that
-// the wrapper sets to 0, so nvcc cannot fold them into the exp factors and
-// the circle map; the rest of the transition runs as in the full kernel, for
-// L = 1 and L = 2.
+// compiles out the staging, the stencil layers and the head, and reads
+// S = T = Q from a kernel argument that the wrapper sets to 0, so nvcc
+// cannot fold them into the exp factors and the circle map; the rest of the
+// transition runs as in the full kernel, for L = 1 and L = 2.
 //
 // Randomness: injected arrays (v0s, v1s, ds, us[, nus, uhs]), or
 // Philox4_32_10 keyed by (chain, transition) with the seed drawn by the
@@ -55,36 +70,39 @@ namespace {
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxC = 8;   // most stencil channels
 constexpr int kCin = 6;    // layer-0 input channels (u1)
 constexpr int kOff = 5;    // stencil points
 constexpr double kPiD = 3.141592653589793;
 
-// Floats of one net's weights, flattened in the order of
-// ops/l2hmc_kernel.py local_weight_names: s0w (5, 6, c), s0t (2, c),
-// s0b (c), [s1w (5, c, c), s1b (c)], hw (c, 6), hb (6), cs (2), ct (2).
-__host__ __device__ inline int net_floats(int c, int L) {
-  return kOff * kCin * c + 2 * c + c + (L >= 2 ? kOff * c * c + c : 0) +
-         6 * c + 6 + 2 + 2;
+// Floats of one net's weights in the kernel's order (ops/l2hmc_kernel.py
+// local_kernel_weights): s0w (5, 6, c), s0t (2, c), s0b (c), [s1w (5, c, c),
+// s1b (c)], hw (6, c) (the head transposed), hb (6), cs (2), ct (2); each
+// net padded to a multiple of 4 floats, so every (c)-row is 16-byte aligned
+// for c in {4, 8}.
+__host__ __device__ inline int net_stride(int c, int L) {
+  const int n = kOff * kCin * c + 2 * c + c + (L >= 2 ? kOff * c * c + c : 0) +
+                6 * c + 6 + 2 + 2;
+  return (n + 3) & ~3;
 }
 
 struct NetW {
   const float *s0w, *s0t, *s0b, *s1w, *s1b, *hw, *hb, *cs, *ct;
 };
 
-__device__ __forceinline__ NetW net_at(const float* p, int c, int L) {
+template <int C, int L>
+__device__ __forceinline__ NetW net_at(const float* p) {
   NetW w;
   w.s0w = p;
-  p += kOff * kCin * c;
+  p += kOff * kCin * C;
   w.s0t = p;
-  p += 2 * c;
+  p += 2 * C;
   w.s0b = p;
-  p += c;
+  p += C;
   w.s1w = p;
-  w.s1b = p + kOff * c * c;
-  if (L >= 2) p += kOff * c * c + c;
+  w.s1b = p + kOff * C * C;
+  if (L >= 2) p += kOff * C * C + C;
   w.hw = p;
-  p += 6 * c;
+  p += 6 * C;
   w.hb = p;
   p += 6;
   w.cs = p;
@@ -97,7 +115,7 @@ struct LRand {
 };
 
 struct Geo {
-  int B, lt, lx, d, K, N, c, bounded_q, hop;
+  int B, lt, lx, d, K, N, bounded_q, hop;
   float eps, beta;
   float ablated_stq;  // S = T = Q of the ablated kernel: 0, not a constant
   unsigned long long seed;
@@ -105,30 +123,33 @@ struct Geo {
 
 // SC = {direction, accept uniform, hop winding sign, hop uniform}
 struct Smem {
+  float *WX, *WV;             // net weights (first: 16-byte aligned)
   float *scratch, *red, *SC;  // block sums, per-chain scalars
-  float *X0, *X1, *Y0, *Y1, *W0, *W1, *SP, *CP, *SP1, *CP1;  // d each
-  float* H;                   // (c, d) layer-0 outputs, two layers only
-  float *WX, *WV;             // net weights
+  float *Y0, *Y1, *W0, *W1, *SP1, *CP1;  // proposal, momenta, its sin/cos P
+  float *T0, *T1, *T2, *T3;   // staged trigonometric input channels
+  float* H;                   // (C, d) layer-0 outputs, two layers only
 };
 
-__device__ __forceinline__ Smem carve(float* smem, int d, int c, int L) {
+template <int C, int L>
+__device__ __forceinline__ Smem carve(float* smem, int d) {
   Smem s;
-  s.scratch = smem;
+  const int ns = net_stride(C, L);
+  s.WX = smem;
+  s.WV = s.WX + ns;
+  s.scratch = s.WV + ns;
   s.red = s.scratch + kWarps * 4;
   s.SC = s.red + 4;
-  s.X0 = s.SC + 4;
-  s.X1 = s.X0 + d;
-  s.Y0 = s.X1 + d;
+  s.Y0 = s.SC + 4;
   s.Y1 = s.Y0 + d;
   s.W0 = s.Y1 + d;
   s.W1 = s.W0 + d;
-  s.SP = s.W1 + d;
-  s.CP = s.SP + d;
-  s.SP1 = s.CP + d;
+  s.SP1 = s.W1 + d;
   s.CP1 = s.SP1 + d;
-  s.H = s.CP1 + d;
-  s.WX = s.H + (L >= 2 ? (size_t)c * d : 0);
-  s.WV = s.WX + net_floats(c, L);
+  s.T0 = s.CP1 + d;
+  s.T1 = s.T0 + d;
+  s.T2 = s.T1 + d;
+  s.T3 = s.T2 + d;
+  s.H = s.T3 + d;
   return s;
 }
 
@@ -144,23 +165,20 @@ __device__ __forceinline__ void stencil_point(int t, int s, int o, int lt,
   if (o == 4) *so = s + 1 == lx ? 0 : s + 1;
 }
 
-// VNet layer-0 inputs at (t, s): [cos y0, cos y1, sin y0, sin y1, g0, g1]
-// with g the force beta * dS/du from the proposal's sine field.
+// VNet layer-0 inputs at (t, s): [cos y0, cos y1, sin y0, sin y1] staged,
+// [g0, g1] the force beta * dS/du from the proposal's sine field.
 struct VnetIn {
-  const float *Y0, *Y1, *SP1;
+  const float *T0, *T1, *T2, *T3, *SP1;
   int lt, lx;
   float beta;
   __device__ __forceinline__ void operator()(int t, int s,
                                              float (&x)[kCin]) const {
     const int j = t * lx + s;
-    float s0, c0, s1, c1;
-    sincosf(Y0[j], &s0, &c0);
-    sincosf(Y1[j], &s1, &c1);
+    x[0] = T0[j];
+    x[1] = T1[j];
+    x[2] = T2[j];
+    x[3] = T3[j];
     const float sp = SP1[j];
-    x[0] = c0;
-    x[1] = c1;
-    x[2] = s0;
-    x[3] = s1;
     x[4] = beta * (sp - SP1[t * lx + (s == 0 ? lx - 1 : s - 1)]);
     x[5] = beta * (-sp + SP1[(t == 0 ? lt - 1 : t - 1) * lx + s]);
   }
@@ -177,38 +195,98 @@ struct Hold {
   }
 };
 
-// XNet layer-0 inputs at (t, s): [w0, w1, m0 cos y0, m1 cos y1, m0 sin y0,
-// m1 sin y1].  Links are read only where held (m = 1): the half-update
-// rewrites the others concurrently.
+// XNet layer-0 inputs at (t, s): [w0, w1] from the momenta, [m0 cos y0,
+// m1 cos y1, m0 sin y0, m1 sin y1] staged.
 struct XnetIn {
-  const float *Y0, *Y1, *W0, *W1;
-  Hold h0, h1;
+  const float *W0, *W1, *T0, *T1, *T2, *T3;
   int lx;
   __device__ __forceinline__ void operator()(int t, int s,
                                              float (&x)[kCin]) const {
     const int j = t * lx + s;
-    const float m0 = h0(j), m1 = h1(j);
-    float s0 = 0.0f, c0 = 0.0f, s1 = 0.0f, c1 = 0.0f;
-    if (m0 != 0.0f) sincosf(Y0[j], &s0, &c0);
-    if (m1 != 0.0f) sincosf(Y1[j], &s1, &c1);
     x[0] = W0[j];
     x[1] = W1[j];
-    x[2] = m0 * c0;
-    x[3] = m1 * c1;
-    x[4] = m0 * s0;
-    x[5] = m1 * s1;
+    x[2] = T0[j];
+    x[3] = T1[j];
+    x[4] = T2[j];
+    x[5] = T3[j];
   }
 };
 
-// Layer 0 at (t, s): relu(b + tau . wt + sum_{o, ci} w[o, ci, :] in_ci(o)).
-template <class In>
-__device__ __forceinline__ void layer0(const NetW& w, int c, int t, int s,
-                                       int lt, int lx, float tau0,
-                                       float tau1, const In& in,
-                                       float (&acc)[kMaxC]) {
+// Stage the VNet's trigonometric channels of every site, then a barrier.
+__device__ __forceinline__ void stage_v(const Smem& s, int d) {
+  for (int i = threadIdx.x; i < d; i += blockDim.x) {
+    float s0, c0, s1, c1;
+    sincosf(s.Y0[i], &s0, &c0);
+    sincosf(s.Y1[i], &s1, &c1);
+    s.T0[i] = c0;
+    s.T1[i] = c1;
+    s.T2[i] = s0;
+    s.T3[i] = s1;
+  }
+  __syncthreads();
+}
+
+// Stage the XNet's masked trigonometric channels, then a barrier.  Links are
+// read only where held (the half-update rewrites the others).  With `reuse`
+// (the first half-update of a step: the links are the kick's) the staged
+// VNet values are masked in place instead of recomputed.
+__device__ __forceinline__ void stage_x(const Smem& s, int d, const Hold& h0,
+                                        const Hold& h1, bool reuse) {
+  for (int i = threadIdx.x; i < d; i += blockDim.x) {
+    const float m0 = h0(i), m1 = h1(i);
+    float s0 = 0.0f, c0 = 0.0f, s1 = 0.0f, c1 = 0.0f;
+    if (reuse) {
+      if (m0 != 0.0f) {
+        c0 = s.T0[i];
+        s0 = s.T2[i];
+      }
+      if (m1 != 0.0f) {
+        c1 = s.T1[i];
+        s1 = s.T3[i];
+      }
+    } else {
+      if (m0 != 0.0f) sincosf(s.Y0[i], &s0, &c0);
+      if (m1 != 0.0f) sincosf(s.Y1[i], &s1, &c1);
+    }
+    s.T0[i] = m0 * c0;
+    s.T1[i] = m1 * c1;
+    s.T2[i] = m0 * s0;
+    s.T3[i] = m1 * s1;
+  }
+  __syncthreads();
+}
+
+// acc[j] += sum_q w4[q] (the C weights of one input) * x, as float4 reads.
+template <int C>
+__device__ __forceinline__ void fma_row(const float* wrow, float x,
+                                        float (&acc)[C]) {
+  const float4* w4 = reinterpret_cast<const float4*>(wrow);
 #pragma unroll
-  for (int j = 0; j < kMaxC; ++j)
-    if (j < c) acc[j] = w.s0b[j] + (tau0 * w.s0t[j] + tau1 * w.s0t[c + j]);
+  for (int q = 0; q < C / 4; ++q) {
+    const float4 v = w4[q];
+    acc[4 * q] = fmaf(v.x, x, acc[4 * q]);
+    acc[4 * q + 1] = fmaf(v.y, x, acc[4 * q + 1]);
+    acc[4 * q + 2] = fmaf(v.z, x, acc[4 * q + 2]);
+    acc[4 * q + 3] = fmaf(v.w, x, acc[4 * q + 3]);
+  }
+}
+
+// Layer-0 bias of one call: b + tau . wt per channel.
+template <int C>
+__device__ __forceinline__ void layer0_bias(const NetW& w, float tau0,
+                                            float tau1, float (&bias)[C]) {
+#pragma unroll
+  for (int j = 0; j < C; ++j)
+    bias[j] = w.s0b[j] + (tau0 * w.s0t[j] + tau1 * w.s0t[C + j]);
+}
+
+// Layer 0 at (t, s): relu(bias + sum_{o, ci} w[o, ci, :] in_ci(o)).
+template <int C, class In>
+__device__ __forceinline__ void layer0(const NetW& w, const float (&bias)[C],
+                                       int t, int s, int lt, int lx,
+                                       const In& in, float (&acc)[C]) {
+#pragma unroll
+  for (int j = 0; j < C; ++j) acc[j] = bias[j];
 #pragma unroll
   for (int o = 0; o < kOff; ++o) {
     int to, so;
@@ -216,56 +294,51 @@ __device__ __forceinline__ void layer0(const NetW& w, int c, int t, int s,
     float x[kCin];
     in(to, so, x);
 #pragma unroll
-    for (int ci = 0; ci < kCin; ++ci) {
-      const float* wr = w.s0w + (o * kCin + ci) * c;
-#pragma unroll
-      for (int j = 0; j < kMaxC; ++j)
-        if (j < c) acc[j] = fmaf(wr[j], x[ci], acc[j]);
-    }
+    for (int ci = 0; ci < kCin; ++ci)
+      fma_row<C>(w.s0w + (o * kCin + ci) * C, x[ci], acc);
   }
 #pragma unroll
-  for (int j = 0; j < kMaxC; ++j)
-    if (j < c) acc[j] = fmaxf(acc[j], 0.0f);
+  for (int j = 0; j < C; ++j) acc[j] = fmaxf(acc[j], 0.0f);
 }
 
-// Layer 1 at (t, s) from the layer-0 output fields H (c, d).
-__device__ __forceinline__ void layer1(const NetW& w, int c, int t, int s,
-                                       int lt, int lx, const float* H,
-                                       int d, float (&acc)[kMaxC]) {
+// Layer 1 at (t, s) from the layer-0 output fields H (C, d).
+template <int C>
+__device__ __forceinline__ void layer1(const NetW& w, int t, int s, int lt,
+                                       int lx, const float* H, int d,
+                                       float (&acc)[C]) {
 #pragma unroll
-  for (int j = 0; j < kMaxC; ++j)
-    if (j < c) acc[j] = w.s1b[j];
+  for (int j = 0; j < C; ++j) acc[j] = w.s1b[j];
 #pragma unroll
   for (int o = 0; o < kOff; ++o) {
     int to, so;
     stencil_point(t, s, o, lt, lx, &to, &so);
     const int jn = to * lx + so;
 #pragma unroll
-    for (int ci = 0; ci < kMaxC; ++ci) {
-      if (ci >= c) break;
-      const float hv = H[ci * d + jn];
-      const float* wr = w.s1w + (o * c + ci) * c;
-#pragma unroll
-      for (int j = 0; j < kMaxC; ++j)
-        if (j < c) acc[j] = fmaf(wr[j], hv, acc[j]);
-    }
+    for (int ci = 0; ci < C; ++ci)
+      fma_row<C>(w.s1w + (o * C + ci) * C, H[ci * d + jn], acc);
   }
 #pragma unroll
-  for (int j = 0; j < kMaxC; ++j)
-    if (j < c) acc[j] = fmaxf(acc[j], 0.0f);
+  for (int j = 0; j < C; ++j) acc[j] = fmaxf(acc[j], 0.0f);
 }
 
 // 1x1 head and combines: per direction r, (S, T, Q).
-__device__ __forceinline__ void head(const NetW& w, int c, bool bounded_q,
-                                     const float (&y)[kMaxC], float (&S)[2],
+template <int C>
+__device__ __forceinline__ void head(const NetW& w, bool bounded_q,
+                                     const float (&y)[C], float (&S)[2],
                                      float (&T)[2], float (&Q)[2]) {
   float hd[6];
 #pragma unroll
   for (int k = 0; k < 6; ++k) {
+    const float4* w4 = reinterpret_cast<const float4*>(w.hw + k * C);
     float a = w.hb[k];
 #pragma unroll
-    for (int ci = 0; ci < kMaxC; ++ci)
-      if (ci < c) a = fmaf(w.hw[ci * 6 + k], y[ci], a);
+    for (int q = 0; q < C / 4; ++q) {
+      const float4 v = w4[q];
+      a = fmaf(v.x, y[4 * q], a);
+      a = fmaf(v.y, y[4 * q + 1], a);
+      a = fmaf(v.z, y[4 * q + 2], a);
+      a = fmaf(v.w, y[4 * q + 3], a);
+    }
     hd[k] = a;
   }
 #pragma unroll
@@ -285,56 +358,58 @@ __device__ __forceinline__ void time_enc(float idx, int K, float* t0,
 }
 
 // Layer-0 outputs of every site into H (two-layer nets, first phase).
-template <class In>
+template <int C, class In>
 __device__ __forceinline__ void fill_h(const NetW& w, const Smem& s,
-                                       const Geo& g, float tau0, float tau1,
+                                       const Geo& g, const float (&bias)[C],
                                        const In& in) {
   for (int i = threadIdx.x; i < g.d; i += blockDim.x) {
     const int t = i / g.lx, sx = i - t * g.lx;
-    float acc[kMaxC];
-    layer0(w, g.c, t, sx, g.lt, g.lx, tau0, tau1, in, acc);
+    float acc[C];
+    layer0<C>(w, bias, t, sx, g.lt, g.lx, in, acc);
 #pragma unroll
-    for (int j = 0; j < kMaxC; ++j)
-      if (j < g.c) s.H[j * g.d + i] = acc[j];
+    for (int j = 0; j < C; ++j) s.H[j * g.d + i] = acc[j];
   }
   __syncthreads();
 }
 
-// Last hidden layer's output at site i = (t, sx).
-template <int L, class In>
-__device__ __forceinline__ void hidden_at(const NetW& w, const Smem& s,
-                                          const Geo& g, int t, int sx,
-                                          float tau0, float tau1,
-                                          const In& in, float (&y)[kMaxC]) {
+// S, T, Q at site i = (t, sx): the last hidden layer, then the head.
+template <int L, int C, class In>
+__device__ __forceinline__ void conditioner_at(
+    const NetW& w, const Smem& s, const Geo& g, int i,
+    const float (&bias)[C], const In& in, float (&S)[2], float (&T)[2],
+    float (&Q)[2]) {
+  const int t = i / g.lx, sx = i - t * g.lx;
+  float y[C];
   if constexpr (L >= 2)
-    layer1(w, g.c, t, sx, g.lt, g.lx, s.H, g.d, y);
+    layer1<C>(w, t, sx, g.lt, g.lx, s.H, g.d, y);
   else
-    layer0(w, g.c, t, sx, g.lt, g.lx, tau0, tau1, in, y);
+    layer0<C>(w, bias, t, sx, g.lt, g.lx, in, y);
+  head<C>(w, g.bounded_q, y, S, T, Q);
 }
 
 // Merged momentum kick (update_v), direction-fused, from the proposal's
 // links and force.  Writes only the momenta, which the VNet does not read.
 // Returns this thread's log-det terms.
-template <int L, bool ABLATE>
+template <int L, int C, bool ABLATE>
 __device__ __forceinline__ float kick(const NetW& w, const Smem& s,
                                       const Geo& g, float factor, float t_fwd,
                                       float t_bwd) {
   float ld = 0.0f;
   const float dsg = s.SC[0];
-  float tau0, tau1;
-  time_enc(dsg > 0.0f ? t_fwd : t_bwd, g.K, &tau0, &tau1);
-  const VnetIn in{s.Y0, s.Y1, s.SP1, g.lt, g.lx, g.beta};
-  if constexpr (L >= 2 && !ABLATE) fill_h(w, s, g, tau0, tau1, in);
+  float bias[C];
+  const VnetIn in{s.T0, s.T1, s.T2, s.T3, s.SP1, g.lt, g.lx, g.beta};
+  if constexpr (!ABLATE) {
+    float tau0, tau1;
+    time_enc(dsg > 0.0f ? t_fwd : t_bwd, g.K, &tau0, &tau1);
+    layer0_bias<C>(w, tau0, tau1, bias);
+    stage_v(s, g.d);
+    if constexpr (L >= 2) fill_h<C>(w, s, g, bias, in);
+  }
   const float fe = factor * g.eps;
   for (int i = threadIdx.x; i < g.d; i += blockDim.x) {
     const float z = g.ablated_stq;
     float S[2] = {z, z}, T[2] = {z, z}, Q[2] = {z, z};
-    if constexpr (!ABLATE) {
-      const int t = i / g.lx, sx = i - t * g.lx;
-      float y[kMaxC];
-      hidden_at<L>(w, s, g, t, sx, tau0, tau1, in, y);
-      head(w, g.c, g.bounded_q, y, S, T, Q);
-    }
+    if constexpr (!ABLATE) conditioner_at<L, C>(w, s, g, i, bias, in, S, T, Q);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const float gg = g.beta * (r ? grad1(s.SP1, i, g.lt, g.lx)
@@ -355,7 +430,7 @@ __device__ __forceinline__ float kick(const NetW& w, const Smem& s,
 // Sites the mask holds keep their link; a non-finite update there would make
 // the plain version's link non-finite, so it is carried into `poison`,
 // which rejects the proposal.  Returns this thread's log-det terms.
-template <int L, bool ABLATE>
+template <int L, int C, bool ABLATE>
 __device__ __forceinline__ float xhalf(const float* mask0, const float* mask1,
                                        const NetW& w, const Smem& s,
                                        const Geo& g, int step, bool second,
@@ -367,19 +442,19 @@ __device__ __forceinline__ float xhalf(const float* mask0, const float* mask1,
   const bool flip = fwd == second;
   const Hold h0{mask0 + (size_t)row * g.d, flip};
   const Hold h1{mask1 + (size_t)row * g.d, flip};
-  float tau0, tau1;
-  time_enc(fwd ? (float)step : (float)(g.K - 1 - step), g.K, &tau0, &tau1);
-  const XnetIn in{s.Y0, s.Y1, s.W0, s.W1, h0, h1, g.lx};
-  if constexpr (L >= 2 && !ABLATE) fill_h(w, s, g, tau0, tau1, in);
+  float bias[C];
+  const XnetIn in{s.W0, s.W1, s.T0, s.T1, s.T2, s.T3, g.lx};
+  if constexpr (!ABLATE) {
+    float tau0, tau1;
+    time_enc(fwd ? (float)step : (float)(g.K - 1 - step), g.K, &tau0, &tau1);
+    layer0_bias<C>(w, tau0, tau1, bias);
+    stage_x(s, g.d, h0, h1, !second);
+    if constexpr (L >= 2) fill_h<C>(w, s, g, bias, in);
+  }
   for (int i = threadIdx.x; i < g.d; i += blockDim.x) {
     const float z = g.ablated_stq;
     float S[2] = {z, z}, T[2] = {z, z}, Q[2] = {z, z};
-    if constexpr (!ABLATE) {
-      const int t = i / g.lx, sx = i - t * g.lx;
-      float y[kMaxC];
-      hidden_at<L>(w, s, g, t, sx, tau0, tau1, in, y);
-      head(w, g.c, g.bounded_q, y, S, T, Q);
-    }
+    if constexpr (!ABLATE) conditioner_at<L, C>(w, s, g, i, bias, in, S, T, Q);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const float hold = r ? h1(i) : h0(i);
@@ -408,41 +483,51 @@ __device__ __forceinline__ float xhalf(const float* mask0, const float* mask1,
   return ld;
 }
 
-// Plaquette sine/cosine of the proposal into SP1/CP1; returns the potential
-// and the unrounded charge.
-__device__ __forceinline__ void proposal_fields(const Smem& s,
-                                                const Geo& g, float* pot1,
-                                                float* chg1) {
+// Plaquette sine/cosine of the links (y0, y1) into (sp, cp); returns the
+// potential and the unrounded charge.
+__device__ __forceinline__ void plaq_fields(const float* y0, const float* y1,
+                                            float* sp, float* cp,
+                                            const Smem& s, const Geo& g,
+                                            float* pot, float* chg) {
   float v[2] = {0.0f, 0.0f};
   for (int i = threadIdx.x; i < g.d; i += blockDim.x) {
     float sn, cs;
-    const float p = plaq_angle(s.Y0, s.Y1, i, g.lt, g.lx);
+    const float p = plaq_angle(y0, y1, i, g.lt, g.lx);
     sincosf(p, &sn, &cs);
-    s.SP1[i] = sn;
-    s.CP1[i] = cs;
+    sp[i] = sn;
+    cp[i] = cs;
     v[0] += 1.0f - cs;
     v[1] += wrap_angle(p);
   }
   block_sum<2>(v, s.scratch, s.red);
-  *pot1 = v[0];
-  *chg1 = v[1] * CHAIN_INV_TWO_PI_F;
+  *pot = v[0];
+  *chg = v[1] * CHAIN_INV_TWO_PI_F;
 }
 
-template <int L, bool ABLATE>
-__global__ void __launch_bounds__(kThreads)
+// x0g/x1g (B, d): the chain's links in, its accepted links throughout and
+// out; spcp (B, 2, d): the accepted state's sin P and cos P.
+template <int L, int C, bool ABLATE>
+__global__ void __launch_bounds__(kThreads, 1)  // one block per SM
 l2hmc_local_chain_kernel(float* __restrict__ x0g, float* __restrict__ x1g,
+                         float* __restrict__ spcp,
                          const float* __restrict__ wflat,
                          const float* __restrict__ mask0,
                          const float* __restrict__ mask1, LRand rnd,
                          float* __restrict__ plaq_tr,
                          float* __restrict__ chg_tr,
                          float* __restrict__ prob_tr, Geo g) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const int d = g.d;
   const int tid = threadIdx.x, nt = blockDim.x;
   const int b = blockIdx.x;
-  const Smem s = carve(smem, d, g.c, L);
+  const Smem s = carve<C, L>(smem, d);
   const bool injected = rnd.v0s != nullptr;
+  // the accepted state, in device memory: each thread reads and writes only
+  // its own sites i = tid (mod nt) of it
+  float* X0 = x0g + (size_t)b * d;
+  float* X1 = x1g + (size_t)b * d;
+  float* SP = spcp + (size_t)b * 2 * d;
+  float* CP = SP + d;
 
   const double dd = (double)d;
   const float cd = (float)cos(2.0 * kPiD / dd);
@@ -452,33 +537,20 @@ l2hmc_local_chain_kernel(float* __restrict__ x0g, float* __restrict__ x1g,
   const float delta = (float)(2.0 * kPiD / dd);
   const float seam = (float)(-(2.0 * kPiD / dd) * g.lt);
 
-  const int nwf = 2 * net_floats(g.c, L);
-  for (int k = tid; k < nwf; k += nt) s.WX[k] = wflat[k];
-  const size_t base = (size_t)b * d;
+  if constexpr (!ABLATE) {
+    const int nwf = 2 * net_stride(C, L);
+    for (int k = tid; k < nwf; k += nt) s.WX[k] = wflat[k];
+  }
   for (int i = tid; i < d; i += nt) {
-    s.X0[i] = x0g[base + i];
-    s.X1[i] = x1g[base + i];
+    s.Y0[i] = X0[i];
+    s.Y1[i] = X1[i];
   }
   __syncthreads();
-  const NetW wx = net_at(s.WX, g.c, L);
-  const NetW wv = net_at(s.WV, g.c, L);
+  const NetW wx = net_at<C, L>(s.WX);
+  const NetW wv = net_at<C, L>(s.WV);
 
   float pot, chg;
-  {
-    float v[2] = {0.0f, 0.0f};
-    for (int i = tid; i < d; i += nt) {
-      float sn, cs;
-      const float p = plaq_angle(s.X0, s.X1, i, g.lt, g.lx);
-      sincosf(p, &sn, &cs);
-      s.SP[i] = sn;
-      s.CP[i] = cs;
-      v[0] += 1.0f - cs;
-      v[1] += wrap_angle(p);
-    }
-    block_sum<2>(v, s.scratch, s.red);
-    pot = v[0];
-    chg = v[1] * CHAIN_INV_TWO_PI_F;
-  }
+  plaq_fields(s.Y0, s.Y1, SP, CP, s, g, &pot, &chg);
 
   for (int n = 0; n < g.N; ++n) {
     float ld = 0.0f, poison = 0.0f;
@@ -487,10 +559,10 @@ l2hmc_local_chain_kernel(float* __restrict__ x0g, float* __restrict__ x1g,
           initial_momenta(rnd.v0s, rnd.v1s, g.seed, b, g.B, n, g.N, d, i);
       s.W0[i] = v.x;
       s.W1[i] = v.y;
-      s.Y0[i] = s.X0[i];
-      s.Y1[i] = s.X1[i];
-      s.SP1[i] = s.SP[i];
-      s.CP1[i] = s.CP[i];
+      s.Y0[i] = X0[i];
+      s.Y1[i] = X1[i];
+      s.SP1[i] = SP[i];
+      s.CP1[i] = CP[i];
     }
     if (tid == 0) {
       const size_t o = (size_t)n * g.B + b;
@@ -523,13 +595,13 @@ l2hmc_local_chain_kernel(float* __restrict__ x0g, float* __restrict__ x1g,
                           : step == g.K ? (float)(g.K - 1) : step - 0.5f;
       const float t_bwd = step == 0 ? (float)(g.K - 1)
                           : step == g.K ? 0.0f : g.K - 0.5f - step;
-      ld += kick<L, ABLATE>(wv, s, g, edge ? 0.5f : 1.0f, t_fwd, t_bwd);
+      ld += kick<L, C, ABLATE>(wv, s, g, edge ? 0.5f : 1.0f, t_fwd, t_bwd);
       if (step == g.K) break;
 #pragma unroll 1
       for (int half = 0; half < 2; ++half)
-        ld += xhalf<L, ABLATE>(mask0, mask1, wx, s, g, step, half == 1,
-                               poison);
-      proposal_fields(s, g, &pot1, &chg1);
+        ld += xhalf<L, C, ABLATE>(mask0, mask1, wx, s, g, step, half == 1,
+                                  poison);
+      plaq_fields(s.Y0, s.Y1, s.SP1, s.CP1, s, g, &pot1, &chg1);
     }
 
     // energy change from per-site differences, log-det and finiteness
@@ -538,7 +610,7 @@ l2hmc_local_chain_kernel(float* __restrict__ x0g, float* __restrict__ x1g,
       const float2 v =
           initial_momenta(rnd.v0s, rnd.v1s, g.seed, b, g.B, n, g.N, d, i);
       e[0] += kinetic_diff(v, s.W0[i], s.W1[i]);
-      e[1] += s.CP1[i] - s.CP[i];
+      e[1] += s.CP1[i] - CP[i];
       e[3] += fabsf(s.Y0[i]) + fabsf(s.Y1[i]) + fabsf(s.W0[i]) +
               fabsf(s.W1[i]);
     }
@@ -548,10 +620,10 @@ l2hmc_local_chain_kernel(float* __restrict__ x0g, float* __restrict__ x1g,
     if (!isfinite(prob) || !isfinite(e[3])) prob = 0.0f;
     if (s.SC[1] < prob) {
       for (int i = tid; i < d; i += nt) {
-        s.X0[i] = s.Y0[i];
-        s.X1[i] = s.Y1[i];
-        s.SP[i] = s.SP1[i];
-        s.CP[i] = s.CP1[i];
+        X0[i] = s.Y0[i];
+        X1[i] = s.Y1[i];
+        SP[i] = s.SP1[i];
+        CP[i] = s.CP1[i];
       }
       pot = pot1;
       chg = chg1;
@@ -562,8 +634,8 @@ l2hmc_local_chain_kernel(float* __restrict__ x0g, float* __restrict__ x1g,
       const float nu = s.SC[2], uh = s.SC[3];
       float hv[2] = {0.0f, 0.0f};
       for (int i = tid; i < d; i += nt) {
-        hv[0] += s.SP[i];
-        hv[1] += (s.CP[i] < -cd && nu * s.SP[i] >= 0.0f) ? 1.0f : 0.0f;
+        hv[0] += SP[i];
+        hv[1] += (CP[i] < -cd && nu * SP[i] >= 0.0f) ? 1.0f : 0.0f;
       }
       block_sum<2>(hv, s.scratch, s.red);
       const float dsh = one_minus_cd * ((float)d - pot) + nu * sd * hv[0];
@@ -577,9 +649,9 @@ l2hmc_local_chain_kernel(float* __restrict__ x0g, float* __restrict__ x1g,
       for (int i = tid; i < d; i += nt) {
         float w0, w1;
         winding(i, g.lt, g.lx, delta, seam, &w0, &w1);
-        s.X0[i] = wrap_angle(s.X0[i] + an * w0);
-        s.X1[i] = wrap_angle(s.X1[i] + an * w1);
-        hop_rotate(s.SP + i, s.CP + i, cda, sda);
+        X0[i] = wrap_angle(X0[i] + an * w0);
+        X1[i] = wrap_angle(X1[i] + an * w1);
+        hop_rotate(SP + i, CP + i, cda, sda);
       }
       pot = pot + ah * dsh;
       chg = chg + an * (1.0f - hv[1]);
@@ -593,26 +665,52 @@ l2hmc_local_chain_kernel(float* __restrict__ x0g, float* __restrict__ x1g,
     }
     __syncthreads();  // fields and scalars settled before the next transition
   }
+}
 
-  for (int i = tid; i < d; i += nt) {
-    x0g[base + i] = s.X0[i];
-    x1g[base + i] = s.X1[i];
+template <int L, int C, bool ABLATE>
+int launch(float* x0, float* x1, float* spcp, const float* wflat,
+           const float* mask0, const float* mask1, const LRand& rnd,
+           float* plaq, float* chg, float* prob, const Geo& g, size_t smem,
+           cudaStream_t stream) {
+  auto kernel = l2hmc_local_chain_kernel<L, C, ABLATE>;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
   }
+  int nt = ((g.d + 31) / 32) * 32;
+  if (nt > kThreads) nt = kThreads;
+  kernel<<<g.B, nt, smem, stream>>>(x0, x1, spcp, wflat, mask0, mask1, rnd,
+                                    plaq, chg, prob, g);
+  return (int)cudaGetLastError();
+}
+
+template <int C, bool ABLATE>
+int launch_l(int L, float* x0, float* x1, float* spcp, const float* wflat,
+             const float* mask0, const float* mask1, const LRand& rnd,
+             float* plaq, float* chg, float* prob, const Geo& g, size_t smem,
+             cudaStream_t st) {
+  return L == 1 ? launch<1, C, ABLATE>(x0, x1, spcp, wflat, mask0, mask1, rnd,
+                                       plaq, chg, prob, g, smem, st)
+                : launch<2, C, ABLATE>(x0, x1, spcp, wflat, mask0, mask1, rnd,
+                                       plaq, chg, prob, g, smem, st);
 }
 
 }  // namespace
 
+// c: the kernel's channel count (4 or 8, the net padded to it)
 extern "C" size_t l2hmc_local_chain_smem_bytes(int lt, int lx, int c, int L) {
   const size_t d = (size_t)lt * lx;
   const size_t fields = 10 * d + (L >= 2 ? (size_t)c * d : 0);
   return sizeof(float) *
-         (kWarps * 4 + 4 + 4 + fields + 2 * (size_t)net_floats(c, L));
+         (2 * (size_t)net_stride(c, L) + kWarps * 4 + 4 + 4 + fields);
 }
 
-// wflat: both nets' weights (x then v), each flattened in the order of
-// ops/l2hmc_kernel.py local_weight_names; mask0/mask1 (K, d) binary.
+// wflat: both nets' weights (x then v), each in the kernel order of
+// ops/l2hmc_kernel.py local_kernel_weights, padded to c channels and to a
+// multiple of 4 floats; mask0/mask1 (K, d) binary; spcp (B, 2, d) scratch.
 extern "C" int l2hmc_local_chain_launch(
-    float* x0, float* x1, const float* wflat, const float* mask0,
+    float* x0, float* x1, float* spcp, const float* wflat, const float* mask0,
     const float* mask1, const float* v0s, const float* v1s, const float* ds,
     const float* us, const float* nus, const float* uhs, float* plaq,
     float* chg, float* prob, int B, int lt, int lx, int K, int N, int c,
@@ -621,25 +719,20 @@ extern "C" int l2hmc_local_chain_launch(
   DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return (int)guard.err;
   if (B <= 0 || N <= 0) return 0;
-  if (c < 1 || c > kMaxC || L < 1 || L > 2 || K < 1)
+  if ((c != 4 && c != 8) || L < 1 || L > 2 || K < 1)
     return (int)cudaErrorInvalidValue;
   const LRand rnd{v0s, v1s, ds, us, nus, uhs};
-  const Geo g{B, lt, lx, lt * lx, K, N, c, bounded_q, hop, eps, beta, 0.0f,
+  const Geo g{B, lt, lx, lt * lx, K, N, bounded_q, hop, eps, beta, 0.0f,
               seed};
   const size_t smem = l2hmc_local_chain_smem_bytes(lt, lx, c, L);
-  auto kernel = L == 1 ? (ablate ? l2hmc_local_chain_kernel<1, true>
-                                 : l2hmc_local_chain_kernel<1, false>)
-                       : (ablate ? l2hmc_local_chain_kernel<2, true>
-                                 : l2hmc_local_chain_kernel<2, false>);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const int d = lt * lx;
-  int nt = ((d + 31) / 32) * 32;
-  if (nt > kThreads) nt = kThreads;
-  kernel<<<B, nt, smem, (cudaStream_t)stream>>>(x0, x1, wflat, mask0, mask1,
-                                                rnd, plaq, chg, prob, g);
-  return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (c == 4)
+    return ablate ? launch_l<4, true>(L, x0, x1, spcp, wflat, mask0, mask1,
+                                      rnd, plaq, chg, prob, g, smem, st)
+                  : launch_l<4, false>(L, x0, x1, spcp, wflat, mask0, mask1,
+                                       rnd, plaq, chg, prob, g, smem, st);
+  return ablate ? launch_l<8, true>(L, x0, x1, spcp, wflat, mask0, mask1, rnd,
+                                    plaq, chg, prob, g, smem, st)
+                : launch_l<8, false>(L, x0, x1, spcp, wflat, mask0, mask1,
+                                     rnd, plaq, chg, prob, g, smem, st);
 }

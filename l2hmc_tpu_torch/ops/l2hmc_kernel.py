@@ -30,12 +30,16 @@ and modes; the wrappers run it for CPU tensors.
 
 from __future__ import annotations
 
+import copy
 import ctypes
+import dataclasses
 from types import SimpleNamespace
 from typing import Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch import nn
 
 from l2hmc_tpu_torch.networks.nets import matmul, stencil_head, stencil_layer
 from l2hmc_tpu_torch.ops import _cuda
@@ -498,6 +502,217 @@ def _kernel_randomness(rand_arrays, generator, n, b, d):
     return rand, 0
 
 
+# ---------------------------------------------------------------------------
+# The kernel's tensor-core products: TF32 arithmetic and the weight layout
+# ---------------------------------------------------------------------------
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> the nearest TF32 value (10 mantissa bits), ties away from
+    zero: what ``cvt.rna.tf32.f32`` gives (the low 13 bits zeroed after
+    adding half of their range to the magnitude)."""
+    bits = x.to(torch.float32).contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor):
+    """``x = hi + lo`` with both parts TF32 values (``lo`` rounded too)."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x - hi)
+
+
+def tf32x3_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` as ``csrc/l2hmc_chain.cu`` forms it on tensor cores (3xTF32):
+    ``hi@hi + (lo@hi + hi@lo)``, each product of two TF32 values exact in
+    float32 and the sums float32; the dropped ``lo@lo`` is ~2^-22 of a
+    term."""
+    ah, al = tf32_split(a)
+    bh, bl = tf32_split(b)
+    return ah @ bh + (al @ bh + ah @ bl)
+
+
+def tf32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in one TF32 pass (operands rounded once): the yardstick a
+    single tensor-core pass would give."""
+    return tf32_round(a) @ tf32_round(b)
+
+
+# weight arrays of the chain kernel, per net then the masks: the packed
+# matmul chunks and the float32 vectors, padded to the hidden width hp
+MMA_NET_NAMES = ("mm", "t", "b", "hb", "headb0", "headb1", "cs0", "cs1",
+                 "ct0", "ct1")
+MMA_WEIGHT_NAMES = tuple(n + k for n in ("x", "v") for k in MMA_NET_NAMES) + (
+    "mask0", "mask1")
+CHUNK_TILES, TILE_BYTES = 32, 512       # 16 KB weight chunks of 8 warps x 4
+CHUNK_BYTES = CHUNK_TILES * TILE_BYTES
+KERNEL_WARPS = 8                        # warps that run the products
+BLOCK_WARPS = 16                        # warps of a block
+MAX_STAGES = 8
+CHAINS_PER_BLOCK = (8, 4, 2)
+H100_SMEM_OPTIN = 232448
+
+
+def _round_up(x, m):
+    return -(-x // m) * m
+
+
+def mma_geometry(d: int, h: int, precision: str = "f32") -> SimpleNamespace:
+    """Layout of ``csrc/l2hmc_chain.cu``'s products at ``d`` sites, hidden
+    width ``h``.  A tile is one warp's A operand of one mma (16 rows x
+    ``ks`` = 8 TF32 or 16 bf16 columns, 512 bytes); a chunk 8 warps x 4
+    tiles.  ``hp``: the hidden width padded (zero units, exact) to 32, 64 or
+    128 (bf16: 64 or 128), so that ``mt = hp/16`` tile rows share the 8 warps
+    of the in-projection and trunk (``8/mt`` k-groups each) and a head tile
+    row spans whole chunks.  ``n_in``, ``n_tr``, ``n_hd``: chunks of the
+    in-projection (K = 6d padded to ``kp_in``), the trunk (``kp_tr``) and the
+    head (M = 6d padded to ``mp_hd``, ``kq`` chunks per group of 8 tile
+    rows); ``bs``, ``hs``: shared row strides of the features and the hidden
+    activations (= 4 mod 32 words, so the B-operand reads of the 8 chains
+    fall in distinct banks)."""
+    bf16 = precision == "bf16"
+    ks = 16 if bf16 else 8
+    widths = (64, 128) if bf16 else (32, 64, 128)
+    hp = next((w for w in widths if h <= w), None)
+    if hp is None:
+        raise ValueError(f"hidden={h}: the chain kernel takes at most "
+                         f"{widths[-1]} hidden units")
+    mt = hp // 16
+    kc = 4 * (KERNEL_WARPS // mt)          # k-steps per narrow chunk
+    kp_in = _round_up(6 * d, ks * kc)
+    kp_tr = _round_up(hp, ks * kc)
+    mp_hd = _round_up(6 * d, 16 * KERNEL_WARPS)
+    kq = hp // (4 * ks)
+    return SimpleNamespace(
+        ks=ks, hp=hp, mt=mt, kp_in=kp_in, kp_tr=kp_tr, mp_hd=mp_hd, kq=kq,
+        n_in=kp_in // (ks * kc), n_tr=kp_tr // (ks * kc),
+        n_hd=mp_hd // (16 * KERNEL_WARPS) * kq,
+        bs=_round_up(max(kp_in, mp_hd), 32) + 4,
+        hs=_round_up(max(hp, kp_tr), 32) + 4)
+
+
+def chain_smem_bytes(c: int, d: int, geo, stages: int) -> int:
+    """Shared memory of one block of ``csrc/l2hmc_chain.cu`` (its
+    ``l2hmc_chain_smem_bytes``): the weight ring and its barriers, 6 fields
+    of ``c`` chains (the accepted state lives in device memory), the
+    features, two hidden rows, the narrow products' partials and the
+    reductions."""
+    floats = (stages * CHUNK_BYTES // 4 + 4 * MAX_STAGES + 6 * c * d
+              + c * geo.bs + 2 * c * geo.hs + KERNEL_WARPS * 128
+              + BLOCK_WARPS * 4 * c + 10 * c)
+    return 4 * floats
+
+
+def chains_per_block(lt: int, lx: int, h: int, precision: str = "f32",
+                     smem_limit: int = H100_SMEM_OPTIN,
+                     max_chains: int = CHAINS_PER_BLOCK[0]):
+    """``(chains per block, ring stages)`` of ``csrc/l2hmc_chain.cu`` for a
+    ``lt x lx`` lattice: the most chains (8, 4 or 2, at most
+    ``max_chains``) whose block fits ``smem_limit`` bytes with a ring of at
+    least 2 weight chunks, and as many stages (up to 8) as then fit.
+    Raises ``ValueError`` (naming the shared memory) when 2 chains do not
+    fit."""
+    d = lt * lx
+    geo = mma_geometry(d, h, precision)
+    for c in CHAINS_PER_BLOCK:
+        if c > max_chains:
+            continue
+        base = chain_smem_bytes(c, d, geo, 0)
+        stages = min(MAX_STAGES, (smem_limit - base) // CHUNK_BYTES)
+        if stages >= 2:
+            return c, stages
+    raise ValueError(
+        f"l2hmc_chain: {lt}x{lx} h={h} needs "
+        f"{chain_smem_bytes(2, d, geo, 2)} B of shared memory per block (2 "
+        f"chains, 2 weight chunks), the device allows {smem_limit} B")
+
+
+def _frag_index(ks: int):
+    """(rows, cols), each (32 lanes, elements), of one lane's A fragment of
+    mma.sync m16n8k8 (TF32: a0..a3) or m16n8k16 (bf16: a0..a3 as pairs)."""
+    lane = np.arange(32)
+    g, t = lane >> 2, lane & 3
+    if ks == 8:
+        rows, cols = [g, g + 8, g, g + 8], [t, t, t + 4, t + 4]
+    else:
+        rows = [g, g, g + 8, g + 8, g, g, g + 8, g + 8]
+        cols = [2 * t, 2 * t + 1, 2 * t, 2 * t + 1, 2 * t + 8, 2 * t + 9,
+                2 * t + 8, 2 * t + 9]
+    return (torch.as_tensor(np.stack(rows, 1)),
+            torch.as_tensor(np.stack(cols, 1)))
+
+
+def _tiles(a: torch.Tensor, ks: int) -> torch.Tensor:
+    """(M, K) -> (M/16, K/ks, 32 * elements): each tile's fragments in lane
+    order."""
+    m, k = a.shape
+    t = a.reshape(m // 16, 16, k // ks, ks).permute(0, 2, 1, 3)
+    rows, cols = _frag_index(ks)
+    return t[:, :, rows, cols].reshape(m // 16, k // ks, -1)
+
+
+def _pad2(a, rows, cols):
+    return F.pad(a, (0, cols - a.shape[1], 0, rows - a.shape[0]))
+
+
+def mma_pack(xin, hw, head, d, precision="f32") -> torch.Tensor:
+    """One net's three matmul operands in the chunk order the kernel reads:
+    the in-projection ``xin (6d, h)``, the trunk ``hw (h, h)`` and the merged
+    heads ``head (h, 6d)``, each transposed (weights as the M operand),
+    zero-padded to :func:`mma_geometry`'s shape and cut into tiles.
+    In-projection and trunk chunk ``q``: warp ``w`` holds tile row ``w %
+    mt``, k-steps ``(q * 8/mt + w // mt) * 4 + s``; head chunk ``(group,
+    kq)``: warp ``w`` holds tile row ``group * 8 + w``, k-steps ``kq * 4 +
+    s``; ``s = 0..3`` the warp's four tiles.  Flat, float32 or bfloat16."""
+    geo = mma_geometry(d, hw.shape[0], precision)
+    ks, mt = geo.ks, geo.mt
+    w_ = torch.arange(KERNEL_WARPS)[None, :, None]
+    s_ = torch.arange(4)[None, None, :]
+
+    def narrow(a, kp):
+        tiles = _tiles(_pad2(a.float(), geo.hp, kp), ks)
+        nch = tiles.shape[1] // (4 * (KERNEL_WARPS // mt))
+        q = torch.arange(nch)[:, None, None]
+        kidx = (q * (KERNEL_WARPS // mt) + w_ // mt) * 4 + s_
+        return tiles[(w_ % mt).expand_as(kidx), kidx]
+
+    def heads(a):
+        tiles = _tiles(_pad2(a.float(), geo.mp_hd, geo.hp), ks)
+        grp = torch.arange(geo.mp_hd // (16 * KERNEL_WARPS))[:, None, None,
+                                                              None]
+        kq = torch.arange(geo.kq)[None, :, None, None]
+        rows = (grp * KERNEL_WARPS + w_[None]).expand(-1, geo.kq, -1, 4)
+        return tiles[rows, (kq * 4 + s_[None]).expand_as(rows)]
+
+    flat = torch.cat([narrow(xin.t(), geo.kp_in).reshape(-1),
+                      narrow(hw.t(), geo.kp_tr).reshape(-1),
+                      heads(head.t()).reshape(-1)])
+    dtype = torch.bfloat16 if precision == "bf16" else torch.float32
+    return flat.to(dtype).contiguous()
+
+
+def mma_weights(weights, d, precision="f32") -> Tuple[torch.Tensor, ...]:
+    """:func:`pack_weights` tensors -> the chain kernel's arrays in
+    :data:`MMA_WEIGHT_NAMES` order: per net the :func:`mma_pack` chunks,
+    the time rows ``(2, hp)``, biases ``(hp,)`` (zero for padded units),
+    the head biases and the coefficients; then the masks."""
+    w = dict(zip(WEIGHT_NAMES, weights))
+    hp = mma_geometry(d, w["xh_w"].shape[0], precision).hp
+    out = []
+    for n in ("x", "v"):
+        h = w[n + "h_w"].shape[0]
+
+        def vec(a):
+            return F.pad(a.float().reshape(-1, h),
+                         (0, hp - h)).reshape(-1).contiguous()
+
+        out += [mma_pack(w[n + "in"], w[n + "h_w"], w[n + "head"], d,
+                         precision),
+                vec(w[n + "t"]), vec(w[n + "b"]), vec(w[n + "h_b"])]
+        out += [w[n + k].float().reshape(-1).contiguous()
+                for k in ("headb0", "headb1", "cs0", "cs1", "ct0", "ct1")]
+    return tuple(out) + (w["mask0"], w["mask1"])
+
+
 def l2hmc_chain(links, params, generator, eps, beta, num_leapfrog,
                 num_transitions, bounded_q=True, hop=False, rand_arrays=None,
                 precision="f32", ablate_nets=False):
@@ -538,27 +753,28 @@ def l2hmc_chain(links, params, generator, eps, beta, num_leapfrog,
     if links.dtype != torch.float32:
         raise ValueError(f"links: expected float32, got {links.dtype}")
     dev = links.device
-    weights = pack_weights(params, 2 * d, precision)
+    packed = pack_weights(params, 2 * d, precision)
     bf16 = precision == "bf16"
-    h = weights[0].shape[1]
-    for name, w in zip(WEIGHT_NAMES, weights):
-        check_cuda_input(name, w, dtype=torch.bfloat16 if (
-            bf16 and name in MATMUL_WEIGHTS) else torch.float32)
-    K = weights[-1].shape[0]
+    h = packed[0].shape[1]
+    K = packed[-1].shape[0]
     if K != num_leapfrog:
         raise ValueError(f"masks hold {K} steps, num_leapfrog={num_leapfrog}")
 
     lib = _cuda.library()
-    smem = lib.l2hmc_chain_smem_bytes(lt, lx, h)
-    limit = lib.smem_optin_bytes(dev.index or 0)
-    if smem > limit:
-        raise ValueError(
-            f"l2hmc_chain: {lt}x{lx} h={h} needs {smem} B of shared memory "
-            f"per block (2 chains), the device allows {limit} B")
+    c, stages = chains_per_block(lt, lx, h, precision,
+                                 lib.smem_optin_bytes(dev.index or 0),
+                                 lib.l2hmc_chain_max_chains())
+    geo = mma_geometry(d, h, precision)
+    weights = mma_weights(packed, d, precision)
+    for name, w in zip(MMA_WEIGHT_NAMES, weights):
+        check_cuda_input(name, w, dtype=torch.bfloat16 if (
+            bf16 and name[1:] == "mm") else torch.float32)
 
     x0, x1 = _split_links(links)
     rand, seed = _kernel_randomness(rand_arrays, generator, n, b, d)
     wptrs = (ctypes.c_void_p * len(weights))(*[w.data_ptr() for w in weights])
+    # the accepted state's sin P and cos P (kernel scratch)
+    spcp = torch.empty((2, b, d), dtype=torch.float32, device=dev)
     plaq = torch.empty((n, b), dtype=torch.float32, device=dev)
     chg = torch.empty_like(plaq)
     prob = torch.empty_like(plaq)
@@ -566,12 +782,15 @@ def l2hmc_chain(links, params, generator, eps, beta, num_leapfrog,
     l2hmc_chain.bf16_launches += int(bf16)
     l2hmc_chain.ablate_launches += int(ablate_nets)
     _cuda.check(lib.l2hmc_chain_launch(
-        x0.data_ptr(), x1.data_ptr(), ctypes.cast(wptrs, ctypes.c_void_p),
+        x0.data_ptr(), x1.data_ptr(), spcp.data_ptr(),
+        ctypes.cast(wptrs, ctypes.c_void_p),
         *[_cuda.ptr(r) for r in rand],
         plaq.data_ptr(), chg.data_ptr(), prob.data_ptr(),
         b, lt, lx, num_leapfrog, n, h, float(eps), float(beta),
         int(bounded_q), int(hop), int(bf16), int(ablate_nets), seed,
-        dev.index or 0, _cuda.stream_handle(dev)), "l2hmc_chain_launch")
+        c, geo.hp, geo.mt, geo.n_in, geo.n_tr, geo.n_hd, geo.kq, geo.bs,
+        geo.hs, stages, dev.index or 0, _cuda.stream_handle(dev)),
+        "l2hmc_chain_launch")
     return _join_links(x0, x1, lt, lx), plaq, torch.round(chg), prob
 
 
@@ -579,10 +798,65 @@ l2hmc_chain.launches = 0
 l2hmc_chain.bf16_launches = 0
 l2hmc_chain.ablate_launches = 0
 
-# what csrc/l2hmc_local_chain.cu takes: 1 or 2 stencil layers of at most
-# LOCAL_MAX_CHANNELS channels over the 6 u1 input channels
-LOCAL_MAX_CHANNELS = 8
+# what csrc/l2hmc_local_chain.cu takes: 1 or 2 stencil layers of
+# LOCAL_KERNEL_CHANNELS channels (a narrower net is padded) over the 6 u1
+# input channels
+LOCAL_KERNEL_CHANNELS = (4, 8)
+LOCAL_MAX_CHANNELS = LOCAL_KERNEL_CHANNELS[-1]
 LOCAL_IN_CHANNELS = 6
+
+
+def local_kernel_channels(c: int) -> int:
+    """The channel count the local kernel runs a ``c``-channel net at: the
+    least of :data:`LOCAL_KERNEL_CHANNELS` that holds it."""
+    for k in LOCAL_KERNEL_CHANNELS:
+        if c <= k:
+            return k
+    raise ValueError(f"channels={c}: the kernel takes at most "
+                     f"{LOCAL_MAX_CHANNELS}")
+
+
+def pad_local_params(params, channels: int):
+    """A copy of ``make_local_flat_net`` ``DynamicsParams`` with each net
+    widened to ``channels`` stencil channels.  The new channels have zero
+    stencil weights (in and out), zero time rows, zero biases and zero head
+    rows: their outputs are exactly 0 after the ReLU, and they add exact
+    zeros to the next layer and the head, so the padded net computes the
+    same S, T and Q as the original, bit for bit."""
+    out = copy.deepcopy(params)
+    with torch.no_grad():
+        for net in (out.xnet, out.vnet):
+            st = net.stencils()
+            pad = channels - st[0].w.shape[2]
+            if pad < 0:
+                raise ValueError(f"cannot pad {st[0].w.shape[2]} channels "
+                                 f"to {channels}")
+            st[0].w = nn.Parameter(F.pad(st[0].w, (0, pad)))
+            st[0].wt = nn.Parameter(F.pad(st[0].wt, (0, pad)))
+            st[0].b = nn.Parameter(F.pad(st[0].b, (0, pad)))
+            for layer in st[1:]:
+                layer.w = nn.Parameter(F.pad(layer.w, (0, pad, 0, pad)))
+                layer.b = nn.Parameter(F.pad(layer.b, (0, pad)))
+            net.head.w = nn.Parameter(F.pad(net.head.w, (0, 0, 0, pad)))
+            net.spec = dataclasses.replace(net.spec, channels=channels)
+    return out
+
+
+def local_kernel_weights(weights, num_layers: int) -> torch.Tensor:
+    """Both nets' :func:`pack_local_weights` tensors (masks excluded) as the
+    one flat array ``csrc/l2hmc_local_chain.cu`` reads: per net ``s0w, s0t,
+    s0b, [s1w, s1b], hw`` transposed to ``(6, c)``, ``hb, cs, ct``, each
+    net padded with zeros to a multiple of 4 floats (so every channel row is
+    16-byte aligned for float4 reads)."""
+    per_net = len(weights[:-2]) // 2
+    flat = []
+    for net in (weights[:per_net], weights[per_net:2 * per_net]):
+        parts = [w.reshape(-1) for w in net]
+        hw = 3 + 2 * (num_layers - 1)            # index of hw in the net
+        parts[hw] = net[hw].t().contiguous().reshape(-1)
+        one = torch.cat(parts)
+        flat.append(F.pad(one, (0, -one.numel() % 4)))
+    return torch.cat(flat).contiguous()
 
 
 def l2hmc_local_chain(links, params, generator, eps, beta, num_leapfrog,
@@ -601,11 +875,12 @@ def l2hmc_local_chain(links, params, generator, eps, beta, num_leapfrog,
     ``rand_arrays=(v0s, v1s, ds, us[, nus, uhs])`` is given.  A CUDA tensor
     launches the kernel of ``csrc/l2hmc_local_chain.cu`` — with the injected
     arrays, or with in-kernel Philox randomness seeded from ``generator`` —
-    or raises.  Each block runs one chain with its fields in shared memory;
-    a lattice, depth or width whose chain does not fit raises a
-    ``ValueError`` naming the bytes it needs.  ``ablate_nets=True`` skips
-    the conditioner (S = T = Q = 0); such a launch also adds one to
-    ``l2hmc_local_chain.ablate_launches``.
+    or raises.  The kernel runs 4 or 8 channels; a net of fewer is padded
+    (:func:`pad_local_params`, exact).  Each block runs one chain with its
+    fields in shared memory; a lattice, depth or width whose chain does not
+    fit raises a ``ValueError`` naming the bytes it needs.
+    ``ablate_nets=True`` skips the conditioner (S = T = Q = 0); such a
+    launch also adds one to ``l2hmc_local_chain.ablate_launches``.
     """
     check_links(links)
     if num_layers < 1:
@@ -630,18 +905,16 @@ def l2hmc_local_chain(links, params, generator, eps, beta, num_leapfrog,
         raise ValueError(f"num_layers={num_layers}: the kernel runs 1 or 2 "
                          "stencil layers")
     dev = links.device
-    names = local_weight_names(num_layers)
-    weights = pack_local_weights(params, 2 * d, num_layers)
-    for name, w in zip(names, weights):
-        check_cuda_input(name, w)
-    s0w = weights[0]
-    c = s0w.shape[2]
+    s0w = params.xnet.stencils()[0].w
     if tuple(s0w.shape[:2]) != (5, LOCAL_IN_CHANNELS):
         raise ValueError(f"xs0w: expected (5, {LOCAL_IN_CHANNELS}, c), got "
                          f"{tuple(s0w.shape)} (u1 position features)")
-    if c > LOCAL_MAX_CHANNELS:
-        raise ValueError(f"channels={c}: the kernel takes at most "
-                         f"{LOCAL_MAX_CHANNELS}")
+    c = local_kernel_channels(s0w.shape[2])
+    names = local_weight_names(num_layers)
+    weights = pack_local_weights(pad_local_params(params, c), 2 * d,
+                                 num_layers)
+    for name, w in zip(names, weights):
+        check_cuda_input(name, w)
     mask0, mask1 = weights[-2:]
     K = mask0.shape[0]
     if K != num_leapfrog or num_leapfrog < 1:
@@ -661,16 +934,17 @@ def l2hmc_local_chain(links, params, generator, eps, beta, num_leapfrog,
 
     x0, x1 = _split_links(links)
     rand, seed = _kernel_randomness(rand_arrays, generator, n, b, d)
-    # net weights of both nets, flattened in local_weight_names order
-    flat = torch.cat([w.reshape(-1) for w in weights[:-2]])
+    flat = local_kernel_weights(weights, num_layers)
+    # the accepted state's sin P and cos P, per chain (kernel scratch)
+    spcp = torch.empty((b, 2, d), dtype=torch.float32, device=dev)
     plaq = torch.empty((n, b), dtype=torch.float32, device=dev)
     chg = torch.empty_like(plaq)
     prob = torch.empty_like(plaq)
     l2hmc_local_chain.launches += 1
     l2hmc_local_chain.ablate_launches += int(ablate_nets)
     _cuda.check(lib.l2hmc_local_chain_launch(
-        x0.data_ptr(), x1.data_ptr(), flat.data_ptr(), mask0.data_ptr(),
-        mask1.data_ptr(), *[_cuda.ptr(r) for r in rand],
+        x0.data_ptr(), x1.data_ptr(), spcp.data_ptr(), flat.data_ptr(),
+        mask0.data_ptr(), mask1.data_ptr(), *[_cuda.ptr(r) for r in rand],
         plaq.data_ptr(), chg.data_ptr(), prob.data_ptr(),
         b, lt, lx, K, n, c, num_layers, float(eps), float(beta),
         int(bounded_q), int(hop), int(ablate_nets), seed, dev.index or 0,

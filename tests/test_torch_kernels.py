@@ -188,6 +188,70 @@ def test_torch_local_chain_kernel_c8_matches_plain(cuda_device, lt, lx, b,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("hop", [False, True])
+@pytest.mark.parametrize("lt,lx,chains", [(16, 16, 8), (24, 24, 4),
+                                          (32, 32, 2)])
+def test_torch_l2hmc_chain_kernel_at_each_chains_per_block(cuda_device, lt,
+                                                           lx, chains, hop):
+    """The champion's width (h=64) at the lattices where the wrapper picks
+    8, 4 and 2 chains per block, on a ragged batch of 13 chains."""
+    b, n, K = 13, 2, 3
+    assert tl2.chains_per_block(lt, lx, 64)[0] == chains
+    params = _params(lt, lx, K, 64, cuda_device)
+    links = torch.tensor(typical_links(np.random.default_rng(21), b, lt, lx,
+                                       sigma=0.3), device=cuda_device)
+    rand = _rand(22, n, b, lt * lx, hop, True, cuda_device)
+    # eps 0.02: at 32x32 these nets accept 0.05 at eps 0.05, 0.28 at 0.02
+    want = tl2.l2hmc_chain_reference(links, params, *rand[:4], 0.02, 3.0, K,
+                                     hop_arrays=rand[4:] if hop else None)
+    before = tl2.l2hmc_chain.launches
+    got = tl2.l2hmc_chain(links, params, None, 0.02, 3.0, K, n, hop=hop,
+                          rand_arrays=rand)
+    assert tl2.l2hmc_chain.launches == before + 1
+    torch.cuda.synchronize()
+    _assert_matches(got, want)
+    assert 0.05 < float(want[3].mean()) <= 1.0
+
+
+@pytest.mark.cuda
+def test_torch_chain_kernel_layouts_agree_with_the_library(cuda_device):
+    """The wrapper's shared-memory formula is the kernel's, and the
+    committed build runs up to 8 chains per block."""
+    lib = _cuda.library()
+    assert lib.l2hmc_chain_max_chains() == tl2.CHAINS_PER_BLOCK[0]
+    for lt, lx, h, prec in ((16, 16, 64, "f32"), (24, 24, 64, "f32"),
+                            (32, 32, 64, "bf16"), (4, 6, 32, "f32")):
+        d = lt * lx
+        c, stages = tl2.chains_per_block(lt, lx, h, prec)
+        geo = tl2.mma_geometry(d, h, prec)
+        assert lib.l2hmc_chain_smem_bytes(c, d, geo.bs, geo.hs, stages) == \
+            tl2.chain_smem_bytes(c, d, geo, stages)
+    assert lib.smem_optin_bytes(0) == tl2.H100_SMEM_OPTIN
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layers", [1, 2])
+@pytest.mark.parametrize("channels", [1, 3, 4, 5, 8])
+def test_torch_local_chain_kernel_pads_channels(cuda_device, channels,
+                                                layers):
+    """Nets of 1-8 channels run at the kernel's 4 or 8 (padded with zero
+    weights): each against the plain version of the unpadded net."""
+    b, n, K, lt, lx = 5, 3, 4, 8, 8
+    params = _local_params(lt, lx, K, channels, layers, cuda_device,
+                           seed=30 + channels)
+    links = torch.tensor(typical_links(np.random.default_rng(31), b, lt, lx,
+                                       sigma=0.27), device=cuda_device)
+    rand = _rand(32, n, b, lt * lx, False, True, cuda_device)
+    want = tl2.l2hmc_chain_reference(links, params, *rand, 0.01, 4.0, K,
+                                     local_layers=layers)
+    got = tl2.l2hmc_local_chain(links, params, None, 0.01, 4.0, K, n, layers,
+                                rand_arrays=rand)
+    torch.cuda.synchronize()
+    _assert_matches(got, want)
+    assert 0.02 < float(want[3].mean()) <= 1.0
+
+
+@pytest.mark.cuda
 def test_torch_local_chain_kernel_rejects_what_it_cannot_run(cuda_device):
     links = torch.zeros((1, 64, 64, 2), device=cuda_device)
     gen = torch.Generator().manual_seed(0)
@@ -258,7 +322,8 @@ def test_torch_kernel_wrappers_reject_bad_input(cuda_device):
     with pytest.raises(ValueError, match="shared memory"):
         tlf.hmc_chain(torch.zeros((1, 128, 128, 2), device=cuda_device),
                       torch.Generator().manual_seed(0), 0.1, 2.0, 2, 1)
-    # two 48x48 chains need 16 * 2 * 2304 floats (295 KB) per block
+    # two 48x48 chains need 261 KB per block (6 fields and the features of
+    # each, two weight chunks)
     big = _params(48, 48, 3, 16, cuda_device)
     with pytest.raises(ValueError, match="shared memory"):
         tl2.l2hmc_chain(torch.zeros((1, 48, 48, 2), device=cuda_device), big,
@@ -458,6 +523,45 @@ def test_torch_bf16_kernel_matches_plain(cuda_device):
                         2 * np.pi) - np.pi
     assert float(d.abs().max()) <= 2e-2
     assert torch.equal(got[2][:, keep], want[2][:, keep])
+
+
+@pytest.mark.cuda
+def test_torch_l2hmc_chain_modes_at_8_chains_per_block(cuda_device):
+    """bf16 and ablated at 16x16 (8 chains per block), ragged batch of 13:
+    bf16 against its plain version as test_torch_bf16_kernel_matches_plain
+    holds it; ablated equal to the kernel on zeroed nets bit for bit and
+    to its plain version at ATOL."""
+    b, n, K, lt, lx = 13, 2, 3, 16, 16
+    params = _params(lt, lx, K, 64, cuda_device)
+    links = torch.tensor(typical_links(np.random.default_rng(41), b, lt, lx),
+                         device=cuda_device)
+    rand = _rand(42, n, b, lt * lx, False, True, cuda_device)
+    got = tl2.l2hmc_chain(links, params, None, 0.12, 3.0, K, n,
+                          rand_arrays=rand, precision="bf16")
+    want = tl2.l2hmc_chain_reference(links, params, *rand, 0.12, 3.0, K,
+                                     precision="bf16")
+    torch.cuda.synchronize()
+    us = rand[3]
+    keep = ~((us < got[3]) != (us < want[3])).any(dim=0)
+    assert int((~keep).sum()) <= 1
+    dprob = (got[3][:, keep] - want[3][:, keep]).abs()
+    assert float(dprob.median()) <= ATOL
+    assert float(dprob.max()) <= 2e-2
+    zero = copy.deepcopy(params)
+    with torch.no_grad():
+        for net in (zero.xnet, zero.vnet):
+            for p in net.parameters():
+                p.zero_()
+    abl = tl2.l2hmc_chain(links, params, None, 0.12, 3.0, K, n,
+                          rand_arrays=rand, ablate_nets=True)
+    ref = tl2.l2hmc_chain(links, zero, None, 0.12, 3.0, K, n,
+                          rand_arrays=rand)
+    plain = tl2.l2hmc_chain_reference(links, params, *rand, 0.12, 3.0, K,
+                                      ablate_nets=True)
+    torch.cuda.synchronize()
+    for g, r in zip(abl, ref):
+        assert torch.equal(g, r)
+    _assert_matches(abl, plain)
 
 
 def test_torch_kernel_build_needs_nvcc():

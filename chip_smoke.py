@@ -14,12 +14,15 @@ Phases (any failure raises and the script exits non-zero):
 3. Each kernel against its plain PyTorch version on the card, with the same
    injected randomness (numpy, seeded), ``hop`` off and on:
    ``hmc_chain`` (K=5, eps=0.08) and ``l2hmc_chain`` with the shipped
-   champion's weights at 16x16, 2048 chains, 8 transitions; and at 64x64,
-   512 chains, 4 transitions: ``hmc_chain`` at local64's K=8, eps=0.04552,
-   and ``l2hmc_local_chain`` at c=4 with stencil depth L=1 and 2 and at
-   c=8 L=1, the two variants phase 9 times (K=4, eps=0.01, where these
-   weights accept ~0.3-0.6), weights from the port's init perturbed by a
-   seeded N(0, 0.05^2).  A
+   champion's weights at 16x16, 2048 chains, 8 transitions, and
+   ``l2hmc_chain`` at hidden width 256 (seeded init weights, f32 and bf16);
+   at 64x64, 512 chains, 4 transitions: ``hmc_chain`` at local64's K=8,
+   eps=0.04552, and ``l2hmc_local_chain`` at c=4 with stencil depth L=1, 2
+   and 3 and at c=8 L=1 and 2 (c4L3 and c8L2 on the kernel's deep route),
+   the variants phase 9 times (K=4, eps=0.01, where these weights accept
+   ~0.3-0.6), weights from the port's init perturbed by a seeded N(0,
+   0.05^2); and ``hmc_chain`` at 128x128 (64 chains, 4 transitions, its
+   global route).  A
    chain whose accept decision is a near-tie (|u - prob| < 1e-4) may flip
    on rounding; it is reported and excluded, at most 1 in 64.
 4. Main path "champion" (16x16): load the champion, thermalize 2048 chains
@@ -265,10 +268,87 @@ def live_local_params(layers, channels, seed, device):
     return params.to(device)
 
 
+# hmc_chain at 128x128 (its global route), kernel against plain
+H128_SIDE, H128_CHAINS, H128_N = 128, 64, 4
+# l2hmc_chain at hidden width 256 (two tile rows per product warp)
+WIDE_HIDDEN, WIDE_CHAINS, WIDE_N, WIDE_TIME_N = 256, 128, 2, 20
+# these h256 weights accept ~0.06 at the champion's eps 0.125, ~0.3 at 0.05
+WIDE_EPS = 0.05
+
+
+def wide_check(K_c, device):
+    """Phase 3: ``l2hmc_chain`` at h=256 from seeded init weights (16x16,
+    f32 and bf16) against its plain version, and its time at the main
+    path's batch.  Returns the f32 error."""
+    from l2hmc_tpu_torch.lattice.u1 import typical_links
+    from l2hmc_tpu_torch.ops.l2hmc_kernel import (l2hmc_chain,
+                                                  l2hmc_chain_reference)
+
+    params = live_mlp_params(K_c, device, hidden=WIDE_HIDDEN)
+    rng = np.random.default_rng(2561)
+    b, n, d = WIDE_CHAINS, WIDE_N, SIDE * SIDE
+    links = torch.tensor(typical_links(rng, b, SIDE, SIDE, sigma=0.3),
+                         device=device)
+    rand = injected(rng, n, b, d, device)[:4]
+    err = 0.0
+    for precision in ("f32", "bf16"):
+        out_k = l2hmc_chain(links, params, None, WIDE_EPS, BETA, K_c, n,
+                            rand_arrays=rand, precision=precision)
+        out_p = l2hmc_chain_reference(links, params, *rand, WIDE_EPS, BETA,
+                                      K_c, precision=precision)
+        torch.cuda.synchronize()
+        name = f"l2hmc_chain({precision}) h{WIDE_HIDDEN} {SIDE}x{SIDE}"
+        if precision == "f32":
+            err = check_kernel(name, out_k, out_p, rand[3])
+        else:
+            check_bf16(name, out_k, out_p, rand[3])
+    # its time at the main path's batch, from the same near-equilibrium links
+    from l2hmc_tpu_torch.benchmarks import best_ms
+
+    big = links.repeat(MAIN_CHAINS // b, 1, 1, 1)
+    gen = torch.Generator(device=device).manual_seed(2562)
+    for precision in ("f32", "bf16"):
+        ms = best_ms(lambda: l2hmc_chain(big, params, gen, WIDE_EPS, BETA,
+                                         K_c, WIDE_TIME_N,
+                                         precision=precision), 2) / WIDE_TIME_N
+        log(f"[check] l2hmc_chain({precision}) h{WIDE_HIDDEN} {SIDE}x{SIDE}: "
+            f"{1e3 * ms:.1f} us/transition at {MAIN_CHAINS} chains (best of "
+            f"2 calls of {WIDE_TIME_N} transitions, CUDA events)")
+    return err
+
+
+def hmc128_check(device):
+    """Phase 3: ``hmc_chain`` at 128x128 against its plain version, hop off
+    and on.  Returns the largest error."""
+    from l2hmc_tpu_torch.lattice.u1 import typical_links
+    from l2hmc_tpu_torch.ops.leapfrog import (hmc_chain, hmc_chain_plan,
+                                              hmc_chain_reference)
+
+    rng = np.random.default_rng(1281)
+    b, n, d = H128_CHAINS, H128_N, H128_SIDE * H128_SIDE
+    links = torch.tensor(typical_links(rng, b, H128_SIDE, H128_SIDE,
+                                       sigma=0.27), device=device)
+    v0s, v1s, _, us, nus, uhs = injected(rng, n, b, d, device)
+    err = 0.0
+    plan = hmc_chain_plan(H128_SIDE, H128_SIDE)
+    for hop in (False, True):
+        rand = (v0s, v1s, us) + ((nus, uhs) if hop else ())
+        out_k = hmc_chain(links, None, L64_HMC_EPS, BETA, L64_HMC_K, n,
+                          hop=hop, rand_arrays=rand)
+        out_p = hmc_chain_reference(links, v0s, v1s, us, L64_HMC_EPS, BETA,
+                                    L64_HMC_K,
+                                    hop_arrays=(nus, uhs) if hop else None)
+        torch.cuda.synchronize()
+        err = max(err, check_kernel(
+            f"hmc_chain hop={hop} {H128_SIDE}x{H128_SIDE} K={L64_HMC_K} "
+            f"({plan.route} route)", out_k, out_p, us))
+    return err
+
+
 def local_check_phase(device):
     """Phase 3, 64x64: ``hmc_chain`` at local64's K and eps, and the
-    local-stencil kernel at c4L1, c4L2 and c8L1, against their plain
-    versions, hop off and on.  Returns ``{kernel: max error}``."""
+    local-stencil kernel at c4L1, c4L2, c4L3, c8L1 and c8L2, against their
+    plain versions, hop off and on.  Returns ``{kernel: max error}``."""
     from l2hmc_tpu_torch.lattice.u1 import typical_links
     from l2hmc_tpu_torch.ops.l2hmc_kernel import (l2hmc_chain_reference,
                                                   l2hmc_local_chain)
@@ -293,7 +373,8 @@ def local_check_phase(device):
             f"hmc_chain hop={hop} {L64_SIDE}x{L64_SIDE} K={L64_HMC_K}",
             out_k, out_p, us))
     for layers, channels, seed in ((1, L64_CHANNELS, 61),
-                                   (2, L64_CHANNELS, 62), (1, 8, 69)):
+                                   (2, L64_CHANNELS, 62), (1, 8, 69),
+                                   (3, L64_CHANNELS, 63), (2, 8, 68)):
         params = live_local_params(layers, channels, seed, device)
         for hop in (False, True):
             hop_arrays = (nus, uhs) if hop else None
@@ -1187,7 +1268,7 @@ PROBE_ATOL = 1e-5
 CHEAP_RATE_BAND = (0.5, 1.05)   # x F32_FLOP_PER_S
 DECOMP_NT, DECOMP_REPS = 200, 2
 LOCAL_NT, LOCAL_REPS = 40, 2
-LOCAL_VARIANTS = "c4L1,c8L1"    # c8L2 at 64x64 exceeds the shared memory
+LOCAL_VARIANTS = "c4L1,c8L1,c8L2,c4L3"
 # ablated kernel vs the same kernel on zeroed nets: S = T = Q = 0 either way
 # and the rest is the same code, so the two agree bit for bit (the JAX
 # package's own gate is 1e-6)
@@ -1249,14 +1330,16 @@ def check_bf16(name, kernel_out, plain_out, us):
     return max(float(dprob.max()), err_links, err_plaq)
 
 
-def live_mlp_params(K, device):
-    """MLP/u1 params of the champion's shape (16x16, h64) from the port's
-    seeded init, every array perturbed by a seeded N(0, 0.01^2) so that S, T
-    and Q depend on the inputs (~0.06; the chain accepts ~0.4)."""
+def live_mlp_params(K, device, hidden=64):
+    """MLP/u1 params of the champion's shape (16x16, h64 unless ``hidden``)
+    from the port's seeded init, every array perturbed by a seeded N(0,
+    0.01^2) so that S, T and Q depend on the inputs (~0.06; the chain
+    accepts ~0.4)."""
     from l2hmc_tpu_torch.train.gauge import GaugeConfig, init_params
 
     cfg = GaugeConfig(time_size=SIDE, space_size=SIDE, num_steps=K,
-                      network_arch="mlp", num_hidden=64, merge_v_halves=True,
+                      network_arch="mlp", num_hidden=hidden,
+                      merge_v_halves=True,
                       eps_init=0.125, eps_trainable=False)
     gen = torch.Generator().manual_seed(939)
     params = init_params(cfg, gen, device="cpu")
@@ -1601,8 +1684,11 @@ def main():
     log(f"[check] champion {cfg.time_size}x{cfg.space_size} h{cfg.hidden} "
         f"K={cfg.num_steps} eps={eps_c}")
     errs = check_phase(params, eps_c, cfg.num_steps, device)
+    errs["l2hmc_chain"] = max(errs["l2hmc_chain"],
+                              wide_check(cfg.num_steps, device))
     errs64 = local_check_phase(device)
-    errs["hmc_chain"] = max(errs["hmc_chain"], errs64["hmc_chain"])
+    errs["hmc_chain"] = max(errs["hmc_chain"], errs64["hmc_chain"],
+                            hmc128_check(device))
     errs["l2hmc_local_chain"] = errs64["l2hmc_local_chain"]
     results, plain, launches = main_phase(cfg, params, eps_c, device)
     r64, p64, l64 = local64_phase(device)

@@ -12,7 +12,13 @@ so that a drift of the card's clock falls on both sides alike.  Kernels
 - ``local``: ``l2hmc_local_chain`` (``csrc/l2hmc_local_chain.cu``) at the
   local64 config of chip_smoke.py (64x64, ``local_flat`` c=4 L=1 from the
   port's seeded init, K=4, eps 0.10014, beta 4), 512 chains from a hot
-  start, calls of 50 transitions.
+  start, calls of 50 transitions;
+- ``hmc16``: ``hmc_chain`` (``csrc/hmc_chain.cu``) at the champion path's
+  HMC (16x16, 2048 chains, K=5, eps 0.08, beta 4), thermalized by 200
+  transitions from a cold start, calls of 500 transitions;
+- ``hmc64``: ``hmc_chain`` at local64's HMC (64x64, 512 chains, K=8, eps
+  0.04552, beta 4) after a Metropolis warm start (300 checkerboard sweeps),
+  calls of 100 transitions.
 
 Each process reports the median of 9 calls (CUDA events) after a warm-up
 call;
@@ -25,7 +31,7 @@ Usage (on the card; each tree a checkout of the repository, e.g. the parent
 unpacked with ``git archive`` into an ignored directory)::
 
     python3 l2hmc_tpu_torch/benchmarks/ab_time.py build/parent . \
-        [--kernel champion|local] [--pairs 10]
+        [--kernel champion|local|hmc16|hmc64] [--pairs 10]
 
 Run it as a file, not with ``-m``: each process imports the package from
 the tree it times.
@@ -43,7 +49,9 @@ from pathlib import Path
 REPS = 9
 KERNELS = {"champion": ("l2hmc_chain f32, champion 16x16, 2048 chains", 200),
            "local": ("l2hmc_local_chain c4L1, local64 64x64, 512 chains",
-                     50)}
+                     50),
+           "hmc16": ("hmc_chain K=5, 16x16, 2048 chains", 500),
+           "hmc64": ("hmc_chain K=8, 64x64, 512 chains", 100)}
 
 
 def _champion(torch, dev, gen):
@@ -79,6 +87,28 @@ def _local(torch, dev, gen):
                                                   0.10014, 4.0, 4, nt, 1)
 
 
+def _hmc16(torch, dev, gen):
+    from l2hmc_tpu_torch.ops.leapfrog import hmc_chain
+
+    links = torch.zeros((2048, 16, 16, 2), device=dev)
+    links = hmc_chain(links, gen, 0.08, 4.0, 5, 200)[0]
+    nt = KERNELS["hmc16"][1]
+    return lambda: hmc_chain(links, gen, 0.08, 4.0, 5, nt)
+
+
+def _hmc64(torch, dev, gen):
+    from l2hmc_tpu_torch.lattice import u1
+    from l2hmc_tpu_torch.lattice.metropolis import thermalize
+    from l2hmc_tpu_torch.ops.leapfrog import hmc_chain
+
+    shape = u1.LatticeShape(64, 64)
+    x = thermalize(gen, u1.random_links(gen, 512, shape, device=dev), shape,
+                   4.0, 300)
+    links = u1.to_links(x, shape).contiguous()
+    nt = KERNELS["hmc64"][1]
+    return lambda: hmc_chain(links, gen, 0.04552, 4.0, 8, nt)
+
+
 def time_tree(tree, kernel):
     """us per transition of ``REPS`` calls of ``kernel``, the package
     imported from ``tree``."""
@@ -91,7 +121,8 @@ def time_tree(tree, kernel):
         raise RuntimeError(f"imported {l2hmc_kernel.__file__}, not {tree}")
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(1)
-    run = {"champion": _champion, "local": _local}[kernel](torch, dev, gen)
+    run = {"champion": _champion, "local": _local, "hmc16": _hmc16,
+           "hmc64": _hmc64}[kernel](torch, dev, gen)
     nt = KERNELS[kernel][1]
 
     def once():

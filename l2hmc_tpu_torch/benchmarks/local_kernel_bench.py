@@ -1,7 +1,7 @@
 """The in-kernel 5-point-stencil conditioner at volume: cost decomposition.
 
 Port of ``benchmarks/local_kernel_bench.py``.  On the card, for each
-stencil variant ``cNL{1,2}`` (c channels, L layers) of
+stencil variant ``cNL<depth>`` (c channels, L layers) of
 ``csrc/l2hmc_local_chain.cu``:
 
 - us/transition of the kernel with the conditioner, and of the same kernel
@@ -12,9 +12,10 @@ stencil variant ``cNL{1,2}`` (c channels, L layers) of
 - with ``--xla``, the eager PyTorch baselines of the JAX script's XLA ones:
   ``make_eval_chunk`` of ``local_flat`` c8L2 and of the zero-net HMC.
 
-A variant whose chain does not fit the kernel's shared memory (c8L2 at
-64x64) is recorded with the wrapper's ``ValueError``; any other failure
-raises.  Weights are the port's seeded init: kernel time does not depend on
+A variant whose chain does not fit the kernel's shared memory (a lattice
+above ~75x75) is recorded with the wrapper's ``ValueError``; any other
+failure raises.  Deeper nets and c8L2 at 64x64 run the kernel's deep route
+(hidden outputs in device memory).  Weights are the port's seeded init: kernel time does not depend on
 their values.  Times are the least of ``--reps`` calls of ``--nt``
 transitions after a warm-up call, by CUDA events.
 
@@ -106,7 +107,7 @@ def main(argv=None):
     p.add_argument("--hmc_k", type=int, default=8)
     p.add_argument("--hmc_eps", type=float, default=0.04552)
     p.add_argument("--variants", default="c4L1,c8L1,c8L2",
-                   help="comma list of stencil variants cNL{1,2}")
+                   help="comma list of stencil variants cNL<depth>")
     p.add_argument("--hop", action="store_true",
                    help="also time the hop-fused variants")
     p.add_argument("--xla", action="store_true",

@@ -51,16 +51,18 @@ _U64 = ctypes.c_ulonglong
 # name -> (restype, argtypes); the C prototypes are in csrc/*.cu
 _SIGNATURES = {
     "smem_optin_bytes": (_I, [_I]),
-    "hmc_chain_smem_bytes": (ctypes.c_size_t, [_I, _I]),
+    "hmc_chain_smem_bytes": (ctypes.c_size_t, [_I, _I, _I, _I, _I]),
     "hmc_chain_launch": (_I, [
         _P, _P,                      # x0, x1 (B, d), updated in place
+        _P,                          # scratch (B, fields, d) or null
         _P, _P, _P, _P, _P,          # v0s, v1s, us, nus, uhs (or null)
         _P, _P, _P,                  # plaq, chg, prob traces (N, B)
         _I, _I, _I, _I, _I,          # B, lt, lx, K, N
         _F, _F, _I, _U64,            # eps, beta, hop, seed
+        _I, _I, _I, _I,              # route, sites per thread, threads, nb_dev
         _I, _P,                      # device, stream
     ]),
-    "l2hmc_chain_smem_bytes": (ctypes.c_size_t, [_I, _I, _I, _I, _I]),
+    "l2hmc_chain_smem_bytes": (ctypes.c_size_t, [_I, _I, _I, _I, _I, _I]),
     "l2hmc_chain_max_chains": (_I, []),
     "l2hmc_chain_launch": (_I, [
         _P, _P,                      # x0, x1 (B, d), updated in place
@@ -75,16 +77,17 @@ _SIGNATURES = {
         _I, _I, _I, _I, _I,          # n_hd, kq, bs, hs, stages
         _I, _P,                      # device, stream
     ]),
-    "l2hmc_local_chain_smem_bytes": (ctypes.c_size_t, [_I, _I, _I, _I]),
+    "l2hmc_local_chain_smem_bytes": (ctypes.c_size_t, [_I, _I, _I, _I, _I]),
     "l2hmc_local_chain_launch": (_I, [
         _P, _P,                      # x0, x1 (B, d), updated in place
         _P,                          # scratch (B, 2, d): accepted sin/cos P
+        _P,                          # deep route: (B, 2, c, d) layer outputs
         _P, _P, _P,                  # flat net weights, mask0, mask1 (K, d)
         _P, _P, _P, _P, _P, _P,      # v0s, v1s, ds, us, nus, uhs (or null)
         _P, _P, _P,                  # plaq, chg, prob traces (N, B)
         _I, _I, _I, _I, _I, _I, _I,  # B, lt, lx, K, N, channels, layers
         _F, _F, _I, _I,              # eps, beta, bounded_q, hop
-        _I, _U64,                    # ablate, seed
+        _I, _I, _U64,                # ablate, deep, seed
         _I, _P,                      # device, stream
     ]),
     "issue_rates_launch": (_I, [

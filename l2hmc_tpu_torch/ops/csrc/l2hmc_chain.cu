@@ -29,6 +29,11 @@
 //   memory in the order the wrapper packs them, with no descriptor or
 //   swizzle; wgmma's 64-row warpgroup tiles would need all 4 warps of a
 //   group on one weight tile per step.
+// - The hidden width hp in {32, 64, 128, 256} (padded with zero units) sets
+//   mt = hp / 16 tile rows.  Up to hp = 128 the 8 product warps share a tile
+//   row in 8 / mt k-groups; at hp = 256 each warp covers two tile rows over
+//   all k-steps (template RPW = 2: two accumulator sets), so a chunk holds 2
+//   k-steps of the warp's two rows instead of 4 of one.
 //   * float32 (WT = float): 3xTF32.  Each operand x is split into
 //     hi = rna_tf32(x) and lo = rna_tf32(x - hi) (cvt.rna.tf32.f32's
 //     rounding, done with integer operations) and
@@ -143,12 +148,18 @@ struct Smem {
   float *Y0, *Y1, *W0, *W1, *SP1, *CP1;  // (C, d) each: proposal, momenta
   float* BUF;            // (C, bs): features in, head outputs out
   float *HID1, *HID2;    // (C, hs)
-  float* RED;            // (8 warps, 128): partial sums of the narrow products
+  float* RED;            // (max(8, mt), 128): the narrow products' partials
   float *scratch, *red;  // block reductions
   float *SC, *TAU;
 };
 
-template <int C>
+// Partial-sum slots of a narrow product: one per warp up to mt = 8, one per
+// tile row at mt = 16.
+__host__ __device__ __forceinline__ int red_rows(int mt) {
+  return mt > kMmaWarps ? mt : kMmaWarps;
+}
+
+template <int C, int RPW>
 __device__ __forceinline__ Smem carve(float* smem, const Geo& g) {
   Smem s;
   s.ring = smem;
@@ -167,7 +178,7 @@ __device__ __forceinline__ Smem carve(float* smem, const Geo& g) {
   s.HID1 = s.BUF + (size_t)C * g.bs;
   s.HID2 = s.HID1 + C * g.hs;
   s.RED = s.HID2 + C * g.hs;
-  s.scratch = s.RED + kMmaWarps * 128;
+  s.scratch = s.RED + kMmaWarps * RPW * 128;
   s.red = s.scratch + kWarps * 4 * C;
   s.SC = s.red + 4 * C;
   s.TAU = s.SC + 4 * C;
@@ -372,7 +383,7 @@ struct Stream {
 // starting at chunk `j0` of the stream; B rows in `bsrc` (stride `bst`).
 // Product warps only.  Warp w's four tiles of a chunk lie in tile row
 // w % g.mt and k-group w / g.mt (ops/l2hmc_kernel.py mma_pack); leaves the
-// per-warp partials in RED (8 warps x 16 rows x 8 chains).
+// per-warp partials in RED (8 warps x 16 rows x 8 chains).  hp <= 128.
 template <class WT, int C>
 __device__ __forceinline__ void narrow(const Stream& str, const Smem& s,
                                        const Geo& g, int j0, int nch,
@@ -401,10 +412,47 @@ __device__ __forceinline__ void narrow(const Stream& str, const Smem& s,
   mma_warps_sync();
 }
 
+// narrow() at hp = 256 (mt = 16): warp w covers tile rows w and w + 8 over
+// all k-steps, tiles q = 0, 1 of a chunk in row w and 2, 3 in row w + 8,
+// k-steps 2 j + q % 2; the partials of tile row m in RED slot m.  A second
+// function: one narrow() for both widths ran the hp <= 128 kernel 1.9%
+// slower (PERF.md).
+template <class WT, int C>
+__device__ __forceinline__ void narrow_wide(const Stream& str, const Smem& s,
+                                            const Geo& g, int j0, int nch,
+                                            const float* bsrc, int bst) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  Acc<WT> acc[2];
+  acc[0].zero();
+  acc[1].zero();
+  for (int j = 0; j < nch; ++j) {
+    const float* chunk = str.next(s, g, j0 + j);
+    const float4* tiles =
+        reinterpret_cast<const float4*>(chunk) + (warp * 4) * 32 + lane;
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      tile_mma<WT, C>(tiles[q * 32], bsrc, bst,
+                      (2 * j + (q & 1)) * kKstep<WT>, acc[q >> 1], q & 1);
+    str.release(s, g, j0 + j);
+  }
+  const int gq = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float* r = s.RED + (size_t)(warp + kMmaWarps * h) * 128;
+    r[gq * 8 + 2 * tq] = acc[h].sum(0);
+    r[gq * 8 + 2 * tq + 1] = acc[h].sum(1);
+    r[(gq + 8) * 8 + 2 * tq] = acc[h].sum(2);
+    r[(gq + 8) * 8 + 2 * tq + 1] = acc[h].sum(3);
+  }
+  mma_warps_sync();
+}
+
 // Sum of the narrow product's partials for hidden unit j, chain c.
+template <int RPW>
 __device__ __forceinline__ float narrow_sum(const Smem& s, const Geo& g,
                                             int j, int c) {
-  const int mtile = j >> 4, row = j & 15, wp = kMmaWarps / g.mt;
+  const int mtile = j >> 4, row = j & 15;
+  const int wp = RPW == 1 ? kMmaWarps / g.mt : 1;  // k-groups
   float acc = 0.0f;
   for (int kg = 0; kg < wp; ++kg)
     acc += s.RED[(size_t)(kg * g.mt + mtile) * 128 + row * 8 + c];
@@ -421,7 +469,7 @@ __device__ __forceinline__ int prefetch_chunks(const Geo& g, int nch) {
 // columns.  The producer streams the chunks the caller did not prefetch;
 // the 8 product warps run the products and their epilogues; every thread
 // meets at the end.
-template <class WT, int C>
+template <class WT, int C, int RPW>
 __device__ void mlp(const NetW<WT>& w, const Stream& str, const Smem& s,
                     const Geo& g) {
   const int tid = threadIdx.x, D6 = 6 * g.d, D3 = 3 * g.d;
@@ -431,21 +479,27 @@ __device__ void mlp(const NetW<WT>& w, const Stream& str, const Smem& s,
     __syncwarp();
   } else if (warp < kMmaWarps) {
     // in-projection (hp x 6d) . feat^T
-    narrow<WT, C>(str, s, g, 0, g.n_in, s.BUF, g.bs);
+    if constexpr (RPW == 1)
+      narrow<WT, C>(str, s, g, 0, g.n_in, s.BUF, g.bs);
+    else
+      narrow_wide<WT, C>(str, s, g, 0, g.n_in, s.BUF, g.bs);
     for (int o = tid; o < C * g.hp; o += nt) {
       const int c = o / g.hp, j = o - c * g.hp;
       const float tt =
           s.TAU[2 * c] * w.t[j] + s.TAU[2 * c + 1] * w.t[g.hp + j];
       s.HID1[c * g.hs + j] =
-          act<WT>(fmaxf(narrow_sum(s, g, j, c) + tt + w.b[j], 0.0f));
+          act<WT>(fmaxf(narrow_sum<RPW>(s, g, j, c) + tt + w.b[j], 0.0f));
     }
     mma_warps_sync();
     // trunk (hp x hp) . hid1^T
-    narrow<WT, C>(str, s, g, g.n_in, g.n_tr, s.HID1, g.hs);
+    if constexpr (RPW == 1)
+      narrow<WT, C>(str, s, g, g.n_in, g.n_tr, s.HID1, g.hs);
+    else
+      narrow_wide<WT, C>(str, s, g, g.n_in, g.n_tr, s.HID1, g.hs);
     for (int o = tid; o < C * g.hp; o += nt) {
       const int c = o / g.hp, j = o - c * g.hp;
       s.HID2[c * g.hs + j] =
-          act<WT>(fmaxf(narrow_sum(s, g, j, c) + w.hb[j], 0.0f));
+          act<WT>(fmaxf(narrow_sum<RPW>(s, g, j, c) + w.hb[j], 0.0f));
     }
     mma_warps_sync();
     // merged heads of both directions (6d x hp) . hid2^T: each warp owns
@@ -512,7 +566,7 @@ __device__ __forceinline__ void time_enc(float idx, int K, float* tau) {
 // beta * grad(SP1), SP1 being the sine field of the current proposal.
 // Every elementwise loop runs over (chain, site) pairs, so all warps work
 // on all chains at once.
-template <class WT, bool ABLATE, int C>
+template <class WT, bool ABLATE, int C, int RPW>
 __device__ void kick(const Weights<WT>& W, const Smem& s, const Geo& g,
                      int nc, unsigned& pos, float factor, float t_fwd,
                      float t_bwd, float (&ldp)[C]) {
@@ -537,7 +591,7 @@ __device__ void kick(const Weights<WT>& W, const Smem& s, const Geo& g,
     if (tid < nc)
       time_enc(s.SC[tid * 4] > 0.0f ? t_fwd : t_bwd, g.K, s.TAU + 2 * tid);
     __syncthreads();
-    mlp<WT, C>(W.v, str, s, g);
+    mlp<WT, C, RPW>(W.v, str, s, g);
     pos += str.nch;
   }
 
@@ -580,7 +634,7 @@ __device__ void kick(const Weights<WT>& W, const Smem& s, const Geo& g,
 // One masked position half-update on the torus (update_x, u1 branch).
 // hold = (fwd ? mask[step] : 1 - mask[K-1-step]), inverted for the second
 // half-update of the step.
-template <class WT, bool ABLATE, int C>
+template <class WT, bool ABLATE, int C, int RPW>
 __device__ void xhalf(const Weights<WT>& W, const Smem& s, const Geo& g,
                       int nc, unsigned& pos, int step, bool second,
                       float (&ldp)[C]) {
@@ -616,7 +670,7 @@ __device__ void xhalf(const Weights<WT>& W, const Smem& s, const Geo& g,
       time_enc(s.SC[tid * 4] > 0.0f ? (float)step : (float)(K - 1 - step), K,
                s.TAU + 2 * tid);
     __syncthreads();
-    mlp<WT, C>(W.x, str, s, g);
+    mlp<WT, C, RPW>(W.x, str, s, g);
     pos += str.nch;
   }
 
@@ -694,7 +748,7 @@ __device__ void plaq_fields(const float* y0, const float* y1, float* sp,
   }
 }
 
-template <class WT, bool ABLATE, int C>
+template <class WT, bool ABLATE, int C, int RPW>
 __global__ void __launch_bounds__(kThreads, 1)  // one block per SM
 l2hmc_chain_kernel(float* __restrict__ x0g, float* __restrict__ x1g,
                    float* __restrict__ spcp, Weights<WT> W, L2Rand rnd, float* __restrict__ plaq_tr,
@@ -705,7 +759,7 @@ l2hmc_chain_kernel(float* __restrict__ x0g, float* __restrict__ x1g,
   const int tid = threadIdx.x, nt = blockDim.x;
   const int b0 = blockIdx.x * C;
   const int nc = min(C, B - b0);
-  const Smem s = carve<C>(smem, g);
+  const Smem s = carve<C, RPW>(smem, g);
   const bool injected = rnd.v0s != nullptr;
   unsigned pos = 0;  // ring position of the next chunk
 
@@ -786,16 +840,17 @@ l2hmc_chain_kernel(float* __restrict__ x0g, float* __restrict__ x1g,
 #pragma unroll 1
     for (int step = 0; step < K; ++step) {
       const bool first = step == 0;
-      kick<WT, ABLATE, C>(W, s, g, nc, pos, first ? 0.5f : 1.0f,
+      kick<WT, ABLATE, C, RPW>(W, s, g, nc, pos, first ? 0.5f : 1.0f,
                                first ? 0.0f : step - 0.5f,
                                first ? (float)(K - 1) : K - 0.5f - step, ldp);
 #pragma unroll 1
       for (int half = 0; half < 2; ++half)
-        xhalf<WT, ABLATE, C>(W, s, g, nc, pos, step, half == 1, ldp);
+        xhalf<WT, ABLATE, C, RPW>(W, s, g, nc, pos, step, half == 1,
+                                  ldp);
       plaq_fields<C>(s.Y0, s.Y1, s.SP1, s.CP1, s, g, nc, pot1, chg1);
     }
     // closing half kick at trajectory time K-1 (fwd) / 0 (bwd)
-    kick<WT, ABLATE, C>(W, s, g, nc, pos, 0.5f, (float)(K - 1), 0.0f,
+    kick<WT, ABLATE, C, RPW>(W, s, g, nc, pos, 0.5f, (float)(K - 1), 0.0f,
                              ldp);
 
     // energy change from per-site differences (no float32 cancellation of
@@ -901,11 +956,11 @@ l2hmc_chain_kernel(float* __restrict__ x0g, float* __restrict__ x1g,
 
 // Shared memory of one block (the carve above).
 extern "C" size_t l2hmc_chain_smem_bytes(int c, int d, int bs, int hs,
-                                         int stages) {
+                                         int stages, int mt) {
   return sizeof(float) *
          ((size_t)stages * kChunkFloats + 4 * kMaxStages +
           6 * (size_t)c * d + (size_t)c * bs + 2 * (size_t)c * hs +
-          kMmaWarps * 128 + kWarps * 4 * (size_t)c + 4 * c + 4 * c +
+          red_rows(mt) * 128 + kWarps * 4 * (size_t)c + 4 * c + 4 * c +
           2 * c);
 }
 
@@ -914,7 +969,7 @@ extern "C" int l2hmc_chain_max_chains() { return L2HMC_CHAIN_MAX_C; }
 
 namespace {
 
-template <class WT, bool ABLATE, int C>
+template <class WT, bool ABLATE, int C, int RPW>
 int launch(const void* const* p, float* x0, float* x1, float* spcp,
            const L2Rand& rnd, float* plaq, float* chg, float* prob,
            const Geo& g, cudaStream_t stream) {
@@ -932,8 +987,9 @@ int launch(const void* const* p, float* x0, float* x1, float* spcp,
   };
   const Weights<WT> W{net(0), net(10), static_cast<const float*>(p[20]),
                       static_cast<const float*>(p[21])};
-  const size_t smem = l2hmc_chain_smem_bytes(C, g.d, g.bs, g.hs, g.stages);
-  auto kernel = l2hmc_chain_kernel<WT, ABLATE, C>;
+  const size_t smem =
+      l2hmc_chain_smem_bytes(C, g.d, g.bs, g.hs, g.stages, g.mt);
+  auto kernel = l2hmc_chain_kernel<WT, ABLATE, C, RPW>;
   const cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -947,12 +1003,19 @@ int launch_c(const void* const* p, float* x0, float* x1, float* spcp,
              const L2Rand& rnd,
              float* plaq, float* chg, float* prob, const Geo& g, int bf16,
              int ablate, cudaStream_t st) {
+  // the ablated kernel runs no products: one instantiation for every hp
   if (ablate)
-    return launch<float, true, C>(p, x0, x1, spcp, rnd, plaq, chg, prob, g, st);
-  return bf16 ? launch<__nv_bfloat16, false, C>(p, x0, x1, spcp, rnd, plaq,
-                                                     chg, prob, g, st)
-              : launch<float, false, C>(p, x0, x1, spcp, rnd, plaq, chg, prob,
-                                             g, st);
+    return launch<float, true, C, 1>(p, x0, x1, spcp, rnd, plaq, chg, prob,
+                                     g, st);
+  if (g.mt > kMmaWarps)
+    return bf16 ? launch<__nv_bfloat16, false, C, 2>(p, x0, x1, spcp, rnd,
+                                                     plaq, chg, prob, g, st)
+                : launch<float, false, C, 2>(p, x0, x1, spcp, rnd, plaq, chg,
+                                             prob, g, st);
+  return bf16 ? launch<__nv_bfloat16, false, C, 1>(p, x0, x1, spcp, rnd, plaq,
+                                                   chg, prob, g, st)
+              : launch<float, false, C, 1>(p, x0, x1, spcp, rnd, plaq, chg,
+                                           prob, g, st);
 }
 
 }  // namespace
@@ -974,8 +1037,8 @@ extern "C" int l2hmc_chain_launch(
   DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return (int)guard.err;
   if (B <= 0 || N <= 0) return 0;
-  if (stages < 2 || stages > kMaxStages || mt < 1 || kWarps % mt != 0 ||
-      c > L2HMC_CHAIN_MAX_C)
+  if (stages < 2 || stages > kMaxStages || mt < 2 || mt > 2 * kMmaWarps ||
+      kWarps % mt != 0 || c > L2HMC_CHAIN_MAX_C)
     return (int)cudaErrorInvalidValue;
   const void* const* p = static_cast<const void* const*>(wptrs);
   const L2Rand rnd{v0s, v1s, ds, us, nus, uhs};

@@ -10,11 +10,12 @@
 // exact instanton hop from the carried plaquette fields.  Only the final
 // links and three (N, B) traces reach device memory.
 //
-// The conditioner: 1 or 2 periodic 5-point stencil layers (ReLU) of C
+// The conditioner: L >= 1 periodic 5-point stencil layers (ReLU) of C
 // channels over 6 per-direction input channels, the time encoding as a
 // per-chain bias of layer 0, and a 1x1 head to [S0 S1 T0 T1 Q0 Q1].  It is
 // weight-shared, so its few hundred weights sit in shared memory and every
-// read of one is a broadcast.
+// read of one is a broadcast.  Layers 1 .. L-1 have the same (5, C, C)
+// weights, so one loop over them serves every depth.
 //
 // What bounds it on an H100: instruction issue inside one block per SM
 // (512 threads, d / 512 sites each; at 64x64 the ten 16 KB fields per chain
@@ -47,7 +48,14 @@
 // at sites its mask moves and stages (and the stencil reads) them only at
 // sites it holds; the kick writes only momenta, which the VNet does not read.
 // Each phase (kick, position half-update, force) has one call site in the
-// transition loop, so one inlined copy; the depth L is a template parameter.
+// transition loop, so one inlined copy.  Depth routes, template parameter L:
+// - L = 1, 2: the layer-0 outputs of a two-layer net (C fields) in shared
+//   memory, beside the ten fields, where they fit (not c8L2 at 64x64);
+// - L = kDeep (the wrapper's "deep" route, any depth >= 2, runtime g.L): the
+//   hidden layers' outputs go to device memory, two (C, d) buffers per
+//   chain in turn (a (B, 2, C, d) scratch the wrapper allocates), written
+//   once per site and layer and read by the next layer's stencil through L1;
+//   the last hidden layer is computed per site with the head, as for L = 2.
 //
 // The carried sin/cos plaquette fields are rotated, not recomputed, after
 // an accepted hop (hop_rotate in chain_common.cuh rounds as the plain
@@ -72,25 +80,31 @@ constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kCin = 6;    // layer-0 input channels (u1)
 constexpr int kOff = 5;    // stencil points
+constexpr int kDeep = 0;   // depth route: hidden outputs in device memory
 constexpr double kPiD = 3.141592653589793;
 
+// Floats of one hidden layer l >= 1: w (5, c, c), b (c).
+__host__ __device__ inline int mid_stride(int c) { return kOff * c * c + c; }
+
 // Floats of one net's weights in the kernel's order (ops/l2hmc_kernel.py
-// local_kernel_weights): s0w (5, 6, c), s0t (2, c), s0b (c), [s1w (5, c, c),
-// s1b (c)], hw (6, c) (the head transposed), hb (6), cs (2), ct (2); each
-// net padded to a multiple of 4 floats, so every (c)-row is 16-byte aligned
-// for c in {4, 8}.
+// local_kernel_weights): s0w (5, 6, c), s0t (2, c), s0b (c), L - 1 times
+// [s{l}w (5, c, c), s{l}b (c)], hw (6, c) (the head transposed), hb (6), cs
+// (2), ct (2); each net padded to a multiple of 4 floats, so every (c)-row
+// is 16-byte aligned for c in {4, 8}.
 __host__ __device__ inline int net_stride(int c, int L) {
-  const int n = kOff * kCin * c + 2 * c + c + (L >= 2 ? kOff * c * c + c : 0) +
+  const int n = kOff * kCin * c + 2 * c + c + (L - 1) * mid_stride(c) +
                 6 * c + 6 + 2 + 2;
   return (n + 3) & ~3;
 }
 
+// s1w: the first hidden layer's weights; layer l's at s1w + (l - 1)
+// mid_stride(C), its bias kOff C C floats after them.
 struct NetW {
-  const float *s0w, *s0t, *s0b, *s1w, *s1b, *hw, *hb, *cs, *ct;
+  const float *s0w, *s0t, *s0b, *s1w, *hw, *hb, *cs, *ct;
 };
 
-template <int C, int L>
-__device__ __forceinline__ NetW net_at(const float* p) {
+template <int C>
+__device__ __forceinline__ NetW net_at(const float* p, int L) {
   NetW w;
   w.s0w = p;
   p += kOff * kCin * C;
@@ -99,8 +113,7 @@ __device__ __forceinline__ NetW net_at(const float* p) {
   w.s0b = p;
   p += C;
   w.s1w = p;
-  w.s1b = p + kOff * C * C;
-  if (L >= 2) p += kOff * C * C + C;
+  p += (L - 1) * mid_stride(C);
   w.hw = p;
   p += 6 * C;
   w.hb = p;
@@ -115,7 +128,7 @@ struct LRand {
 };
 
 struct Geo {
-  int B, lt, lx, d, K, N, bounded_q, hop;
+  int B, lt, lx, d, K, N, L, bounded_q, hop;
   float eps, beta;
   float ablated_stq;  // S = T = Q of the ablated kernel: 0, not a constant
   unsigned long long seed;
@@ -127,13 +140,12 @@ struct Smem {
   float *scratch, *red, *SC;  // block sums, per-chain scalars
   float *Y0, *Y1, *W0, *W1, *SP1, *CP1;  // proposal, momenta, its sin/cos P
   float *T0, *T1, *T2, *T3;   // staged trigonometric input channels
-  float* H;                   // (C, d) layer-0 outputs, two layers only
+  float* H;                   // (C, d) layer-0 outputs, L = 2 only
 };
 
-template <int C, int L>
-__device__ __forceinline__ Smem carve(float* smem, int d) {
+// ns: net_stride of the net's depth
+__device__ __forceinline__ Smem carve(float* smem, int d, int ns) {
   Smem s;
-  const int ns = net_stride(C, L);
   s.WX = smem;
   s.WV = s.WX + ns;
   s.scratch = s.WV + ns;
@@ -301,13 +313,15 @@ __device__ __forceinline__ void layer0(const NetW& w, const float (&bias)[C],
   for (int j = 0; j < C; ++j) acc[j] = fmaxf(acc[j], 0.0f);
 }
 
-// Layer 1 at (t, s) from the layer-0 output fields H (C, d).
+// Hidden layer l >= 1 at (t, s), weights lw (its bias after them), from
+// the previous layer's output fields H (C, d).
 template <int C>
-__device__ __forceinline__ void layer1(const NetW& w, int t, int s, int lt,
-                                       int lx, const float* H, int d,
-                                       float (&acc)[C]) {
+__device__ __forceinline__ void layer_mid(const float* lw, int t, int s,
+                                          int lt, int lx, const float* H,
+                                          int d, float (&acc)[C]) {
+  const float* lb = lw + kOff * C * C;
 #pragma unroll
-  for (int j = 0; j < C; ++j) acc[j] = w.s1b[j];
+  for (int j = 0; j < C; ++j) acc[j] = lb[j];
 #pragma unroll
   for (int o = 0; o < kOff; ++o) {
     int to, so;
@@ -315,7 +329,7 @@ __device__ __forceinline__ void layer1(const NetW& w, int t, int s, int lt,
     const int jn = to * lx + so;
 #pragma unroll
     for (int ci = 0; ci < C; ++ci)
-      fma_row<C>(w.s1w + (o * C + ci) * C, H[ci * d + jn], acc);
+      fma_row<C>(lw + (o * C + ci) * C, H[ci * d + jn], acc);
   }
 #pragma unroll
   for (int j = 0; j < C; ++j) acc[j] = fmaxf(acc[j], 0.0f);
@@ -357,34 +371,82 @@ __device__ __forceinline__ void time_enc(float idx, int K, float* t0,
   *t1 = sinf(ang);
 }
 
-// Layer-0 outputs of every site into H (two-layer nets, first phase).
+// Layer-0 outputs of every site into H (C, d) (nets of two layers or
+// more, first phase).
 template <int C, class In>
-__device__ __forceinline__ void fill_h(const NetW& w, const Smem& s,
-                                       const Geo& g, const float (&bias)[C],
-                                       const In& in) {
+__device__ __forceinline__ void fill_h(const NetW& w, float* H, const Geo& g,
+                                       const float (&bias)[C], const In& in) {
   for (int i = threadIdx.x; i < g.d; i += blockDim.x) {
     const int t = i / g.lx, sx = i - t * g.lx;
     float acc[C];
     layer0<C>(w, bias, t, sx, g.lt, g.lx, in, acc);
 #pragma unroll
-    for (int j = 0; j < C; ++j) s.H[j * g.d + i] = acc[j];
+    for (int j = 0; j < C; ++j) H[j * g.d + i] = acc[j];
   }
   __syncthreads();
 }
 
-// S, T, Q at site i = (t, sx): the last hidden layer, then the head.
+// The deep route's hidden layers but the last: layer 0 into hbuf's first
+// (C, d) buffer, then layers 1 .. L-2, each from one buffer into the other.
+// Returns the buffer the last hidden layer reads.
+template <int C, class In>
+__device__ __forceinline__ const float* deep_hidden(const NetW& w,
+                                                    float* hbuf,
+                                                    const Geo& g,
+                                                    const float (&bias)[C],
+                                                    const In& in) {
+  float* src = hbuf;
+  float* dst = hbuf + (size_t)C * g.d;
+  fill_h<C>(w, src, g, bias, in);
+  for (int l = 1; l + 1 < g.L; ++l) {
+    const float* lw = w.s1w + (size_t)(l - 1) * mid_stride(C);
+    for (int i = threadIdx.x; i < g.d; i += blockDim.x) {
+      const int t = i / g.lx, sx = i - t * g.lx;
+      float acc[C];
+      layer_mid<C>(lw, t, sx, g.lt, g.lx, src, g.d, acc);
+#pragma unroll
+      for (int j = 0; j < C; ++j) dst[j * g.d + i] = acc[j];
+    }
+    __syncthreads();
+    float* tmp = src;
+    src = dst;
+    dst = tmp;
+  }
+  return src;
+}
+
+// S, T, Q at site i = (t, sx): the last hidden layer (from hl, the output
+// of the layer before it, for L >= 2), then the head.
 template <int L, int C, class In>
 __device__ __forceinline__ void conditioner_at(
-    const NetW& w, const Smem& s, const Geo& g, int i,
-    const float (&bias)[C], const In& in, float (&S)[2], float (&T)[2],
-    float (&Q)[2]) {
+    const NetW& w, const Geo& g, int i, const float (&bias)[C], const In& in,
+    const float* hl, float (&S)[2], float (&T)[2], float (&Q)[2]) {
   const int t = i / g.lx, sx = i - t * g.lx;
   float y[C];
-  if constexpr (L >= 2)
-    layer1<C>(w, t, sx, g.lt, g.lx, s.H, g.d, y);
-  else
+  if constexpr (L == 1)
     layer0<C>(w, bias, t, sx, g.lt, g.lx, in, y);
+  else if constexpr (L == 2)
+    layer_mid<C>(w.s1w, t, sx, g.lt, g.lx, hl, g.d, y);
+  else
+    layer_mid<C>(w.s1w + (size_t)(g.L - 2) * mid_stride(C), t, sx, g.lt,
+                 g.lx, hl, g.d, y);
   head<C>(w, g.bounded_q, y, S, T, Q);
+}
+
+// The hidden layers of one call before the per-site pass: none (L = 1),
+// layer 0 into shared memory (L = 2) or all but the last into hbuf (deep).
+template <int L, int C, class In>
+__device__ __forceinline__ const float* hidden(const NetW& w, const Smem& s,
+                                               float* hbuf, const Geo& g,
+                                               const float (&bias)[C],
+                                               const In& in) {
+  if constexpr (L == 2) {
+    fill_h<C>(w, s.H, g, bias, in);
+    return s.H;
+  } else if constexpr (L == kDeep) {
+    return deep_hidden<C>(w, hbuf, g, bias, in);
+  }
+  return nullptr;
 }
 
 // Merged momentum kick (update_v), direction-fused, from the proposal's
@@ -392,24 +454,25 @@ __device__ __forceinline__ void conditioner_at(
 // Returns this thread's log-det terms.
 template <int L, int C, bool ABLATE>
 __device__ __forceinline__ float kick(const NetW& w, const Smem& s,
-                                      const Geo& g, float factor, float t_fwd,
-                                      float t_bwd) {
+                                      float* hbuf, const Geo& g, float factor,
+                                      float t_fwd, float t_bwd) {
   float ld = 0.0f;
   const float dsg = s.SC[0];
   float bias[C];
   const VnetIn in{s.T0, s.T1, s.T2, s.T3, s.SP1, g.lt, g.lx, g.beta};
+  const float* hl = nullptr;
   if constexpr (!ABLATE) {
     float tau0, tau1;
     time_enc(dsg > 0.0f ? t_fwd : t_bwd, g.K, &tau0, &tau1);
     layer0_bias<C>(w, tau0, tau1, bias);
     stage_v(s, g.d);
-    if constexpr (L >= 2) fill_h<C>(w, s, g, bias, in);
+    hl = hidden<L, C>(w, s, hbuf, g, bias, in);
   }
   const float fe = factor * g.eps;
   for (int i = threadIdx.x; i < g.d; i += blockDim.x) {
     const float z = g.ablated_stq;
     float S[2] = {z, z}, T[2] = {z, z}, Q[2] = {z, z};
-    if constexpr (!ABLATE) conditioner_at<L, C>(w, s, g, i, bias, in, S, T, Q);
+    if constexpr (!ABLATE) conditioner_at<L, C>(w, g, i, bias, in, hl, S, T, Q);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const float gg = g.beta * (r ? grad1(s.SP1, i, g.lt, g.lx)
@@ -433,8 +496,8 @@ __device__ __forceinline__ float kick(const NetW& w, const Smem& s,
 template <int L, int C, bool ABLATE>
 __device__ __forceinline__ float xhalf(const float* mask0, const float* mask1,
                                        const NetW& w, const Smem& s,
-                                       const Geo& g, int step, bool second,
-                                       float& poison) {
+                                       float* hbuf, const Geo& g, int step,
+                                       bool second, float& poison) {
   float ld = 0.0f;
   const float dsg = s.SC[0];
   const bool fwd = dsg > 0.0f;
@@ -444,17 +507,18 @@ __device__ __forceinline__ float xhalf(const float* mask0, const float* mask1,
   const Hold h1{mask1 + (size_t)row * g.d, flip};
   float bias[C];
   const XnetIn in{s.W0, s.W1, s.T0, s.T1, s.T2, s.T3, g.lx};
+  const float* hl = nullptr;
   if constexpr (!ABLATE) {
     float tau0, tau1;
     time_enc(fwd ? (float)step : (float)(g.K - 1 - step), g.K, &tau0, &tau1);
     layer0_bias<C>(w, tau0, tau1, bias);
     stage_x(s, g.d, h0, h1, !second);
-    if constexpr (L >= 2) fill_h<C>(w, s, g, bias, in);
+    hl = hidden<L, C>(w, s, hbuf, g, bias, in);
   }
   for (int i = threadIdx.x; i < g.d; i += blockDim.x) {
     const float z = g.ablated_stq;
     float S[2] = {z, z}, T[2] = {z, z}, Q[2] = {z, z};
-    if constexpr (!ABLATE) conditioner_at<L, C>(w, s, g, i, bias, in, S, T, Q);
+    if constexpr (!ABLATE) conditioner_at<L, C>(w, g, i, bias, in, hl, S, T, Q);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const float hold = r ? h1(i) : h0(i);
@@ -505,11 +569,12 @@ __device__ __forceinline__ void plaq_fields(const float* y0, const float* y1,
 }
 
 // x0g/x1g (B, d): the chain's links in, its accepted links throughout and
-// out; spcp (B, 2, d): the accepted state's sin P and cos P.
+// out; spcp (B, 2, d): the accepted state's sin P and cos P; hbufg (B, 2, C,
+// d): the deep route's hidden outputs (unused otherwise).
 template <int L, int C, bool ABLATE>
 __global__ void __launch_bounds__(kThreads, 1)  // one block per SM
 l2hmc_local_chain_kernel(float* __restrict__ x0g, float* __restrict__ x1g,
-                         float* __restrict__ spcp,
+                         float* __restrict__ spcp, float* __restrict__ hbufg,
                          const float* __restrict__ wflat,
                          const float* __restrict__ mask0,
                          const float* __restrict__ mask1, LRand rnd,
@@ -520,7 +585,9 @@ l2hmc_local_chain_kernel(float* __restrict__ x0g, float* __restrict__ x1g,
   const int d = g.d;
   const int tid = threadIdx.x, nt = blockDim.x;
   const int b = blockIdx.x;
-  const Smem s = carve<C, L>(smem, d);
+  const int ns = net_stride(C, L == kDeep ? g.L : L);
+  const Smem s = carve(smem, d, ns);
+  float* hbuf = L == kDeep ? hbufg + (size_t)b * 2 * C * d : nullptr;
   const bool injected = rnd.v0s != nullptr;
   // the accepted state, in device memory: each thread reads and writes only
   // its own sites i = tid (mod nt) of it
@@ -538,7 +605,7 @@ l2hmc_local_chain_kernel(float* __restrict__ x0g, float* __restrict__ x1g,
   const float seam = (float)(-(2.0 * kPiD / dd) * g.lt);
 
   if constexpr (!ABLATE) {
-    const int nwf = 2 * net_stride(C, L);
+    const int nwf = 2 * ns;
     for (int k = tid; k < nwf; k += nt) s.WX[k] = wflat[k];
   }
   for (int i = tid; i < d; i += nt) {
@@ -546,8 +613,8 @@ l2hmc_local_chain_kernel(float* __restrict__ x0g, float* __restrict__ x1g,
     s.Y1[i] = X1[i];
   }
   __syncthreads();
-  const NetW wx = net_at<C, L>(s.WX);
-  const NetW wv = net_at<C, L>(s.WV);
+  const NetW wx = net_at<C>(s.WX, L == kDeep ? g.L : L);
+  const NetW wv = net_at<C>(s.WV, L == kDeep ? g.L : L);
 
   float pot, chg;
   plaq_fields(s.Y0, s.Y1, SP, CP, s, g, &pot, &chg);
@@ -595,12 +662,13 @@ l2hmc_local_chain_kernel(float* __restrict__ x0g, float* __restrict__ x1g,
                           : step == g.K ? (float)(g.K - 1) : step - 0.5f;
       const float t_bwd = step == 0 ? (float)(g.K - 1)
                           : step == g.K ? 0.0f : g.K - 0.5f - step;
-      ld += kick<L, C, ABLATE>(wv, s, g, edge ? 0.5f : 1.0f, t_fwd, t_bwd);
+      ld += kick<L, C, ABLATE>(wv, s, hbuf, g, edge ? 0.5f : 1.0f, t_fwd,
+                               t_bwd);
       if (step == g.K) break;
 #pragma unroll 1
       for (int half = 0; half < 2; ++half)
-        ld += xhalf<L, C, ABLATE>(mask0, mask1, wx, s, g, step, half == 1,
-                                  poison);
+        ld += xhalf<L, C, ABLATE>(mask0, mask1, wx, s, hbuf, g, step,
+                                  half == 1, poison);
       plaq_fields(s.Y0, s.Y1, s.SP1, s.CP1, s, g, &pot1, &chg1);
     }
 
@@ -668,7 +736,7 @@ l2hmc_local_chain_kernel(float* __restrict__ x0g, float* __restrict__ x1g,
 }
 
 template <int L, int C, bool ABLATE>
-int launch(float* x0, float* x1, float* spcp, const float* wflat,
+int launch(float* x0, float* x1, float* spcp, float* hbuf, const float* wflat,
            const float* mask0, const float* mask1, const LRand& rnd,
            float* plaq, float* chg, float* prob, const Geo& g, size_t smem,
            cudaStream_t stream) {
@@ -680,28 +748,42 @@ int launch(float* x0, float* x1, float* spcp, const float* wflat,
   }
   int nt = ((g.d + 31) / 32) * 32;
   if (nt > kThreads) nt = kThreads;
-  kernel<<<g.B, nt, smem, stream>>>(x0, x1, spcp, wflat, mask0, mask1, rnd,
-                                    plaq, chg, prob, g);
+  kernel<<<g.B, nt, smem, stream>>>(x0, x1, spcp, hbuf, wflat, mask0, mask1,
+                                    rnd, plaq, chg, prob, g);
   return (int)cudaGetLastError();
 }
 
-template <int C, bool ABLATE>
-int launch_l(int L, float* x0, float* x1, float* spcp, const float* wflat,
-             const float* mask0, const float* mask1, const LRand& rnd,
-             float* plaq, float* chg, float* prob, const Geo& g, size_t smem,
-             cudaStream_t st) {
-  return L == 1 ? launch<1, C, ABLATE>(x0, x1, spcp, wflat, mask0, mask1, rnd,
-                                       plaq, chg, prob, g, smem, st)
-                : launch<2, C, ABLATE>(x0, x1, spcp, wflat, mask0, mask1, rnd,
-                                       plaq, chg, prob, g, smem, st);
+// The instantiation of a launch: L = 1, 2 in shared memory, or the deep
+// route (the ablated kernel computes no layer, so it runs as L = 1 there).
+template <int C>
+int launch_c(int L, bool ablate, bool deep, float* x0, float* x1,
+             float* spcp, float* hbuf, const float* wflat, const float* mask0,
+             const float* mask1, const LRand& rnd, float* plaq, float* chg,
+             float* prob, const Geo& g, size_t smem, cudaStream_t st) {
+  if (ablate)
+    return L == 2 && !deep
+               ? launch<2, C, true>(x0, x1, spcp, hbuf, wflat, mask0, mask1,
+                                    rnd, plaq, chg, prob, g, smem, st)
+               : launch<1, C, true>(x0, x1, spcp, hbuf, wflat, mask0, mask1,
+                                    rnd, plaq, chg, prob, g, smem, st);
+  if (deep)
+    return launch<kDeep, C, false>(x0, x1, spcp, hbuf, wflat, mask0, mask1,
+                                   rnd, plaq, chg, prob, g, smem, st);
+  return L == 1 ? launch<1, C, false>(x0, x1, spcp, hbuf, wflat, mask0, mask1,
+                                      rnd, plaq, chg, prob, g, smem, st)
+                : launch<2, C, false>(x0, x1, spcp, hbuf, wflat, mask0, mask1,
+                                      rnd, plaq, chg, prob, g, smem, st);
 }
 
 }  // namespace
 
-// c: the kernel's channel count (4 or 8, the net padded to it)
-extern "C" size_t l2hmc_local_chain_smem_bytes(int lt, int lx, int c, int L) {
+// c: the kernel's channel count (4 or 8, the net padded to it).  deep: the
+// deep route (hidden outputs in device memory, no H field); the ablated
+// kernel runs its L = 1 instantiation there, within these bytes.
+extern "C" size_t l2hmc_local_chain_smem_bytes(int lt, int lx, int c, int L,
+                                               int deep) {
   const size_t d = (size_t)lt * lx;
-  const size_t fields = 10 * d + (L >= 2 ? (size_t)c * d : 0);
+  const size_t fields = 10 * d + (L == 2 && !deep ? (size_t)c * d : 0);
   return sizeof(float) *
          (2 * (size_t)net_stride(c, L) + kWarps * 4 + 4 + 4 + fields);
 }
@@ -710,29 +792,27 @@ extern "C" size_t l2hmc_local_chain_smem_bytes(int lt, int lx, int c, int L) {
 // ops/l2hmc_kernel.py local_kernel_weights, padded to c channels and to a
 // multiple of 4 floats; mask0/mask1 (K, d) binary; spcp (B, 2, d) scratch.
 extern "C" int l2hmc_local_chain_launch(
-    float* x0, float* x1, float* spcp, const float* wflat, const float* mask0,
+    float* x0, float* x1, float* spcp, float* hbuf, const float* wflat,
+    const float* mask0,
     const float* mask1, const float* v0s, const float* v1s, const float* ds,
     const float* us, const float* nus, const float* uhs, float* plaq,
     float* chg, float* prob, int B, int lt, int lx, int K, int N, int c,
     int L, float eps, float beta, int bounded_q, int hop, int ablate,
-    unsigned long long seed, int device, void* stream) {
+    int deep, unsigned long long seed, int device, void* stream) {
   DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return (int)guard.err;
   if (B <= 0 || N <= 0) return 0;
-  if ((c != 4 && c != 8) || L < 1 || L > 2 || K < 1)
+  if ((c != 4 && c != 8) || L < 1 || K < 1 || (L > 2 && !deep) ||
+      (deep && (L < 2 || (!ablate && hbuf == nullptr))))
     return (int)cudaErrorInvalidValue;
   const LRand rnd{v0s, v1s, ds, us, nus, uhs};
-  const Geo g{B, lt, lx, lt * lx, K, N, bounded_q, hop, eps, beta, 0.0f,
+  const Geo g{B, lt, lx, lt * lx, K, N, L, bounded_q, hop, eps, beta, 0.0f,
               seed};
-  const size_t smem = l2hmc_local_chain_smem_bytes(lt, lx, c, L);
+  const size_t smem = l2hmc_local_chain_smem_bytes(lt, lx, c, L, deep);
   const cudaStream_t st = (cudaStream_t)stream;
   if (c == 4)
-    return ablate ? launch_l<4, true>(L, x0, x1, spcp, wflat, mask0, mask1,
-                                      rnd, plaq, chg, prob, g, smem, st)
-                  : launch_l<4, false>(L, x0, x1, spcp, wflat, mask0, mask1,
-                                       rnd, plaq, chg, prob, g, smem, st);
-  return ablate ? launch_l<8, true>(L, x0, x1, spcp, wflat, mask0, mask1, rnd,
-                                    plaq, chg, prob, g, smem, st)
-                : launch_l<8, false>(L, x0, x1, spcp, wflat, mask0, mask1,
-                                     rnd, plaq, chg, prob, g, smem, st);
+    return launch_c<4>(L, ablate, deep, x0, x1, spcp, hbuf, wflat, mask0,
+                       mask1, rnd, plaq, chg, prob, g, smem, st);
+  return launch_c<8>(L, ablate, deep, x0, x1, spcp, hbuf, wflat, mask0, mask1,
+                     rnd, plaq, chg, prob, g, smem, st);
 }

@@ -44,6 +44,7 @@ from torch import nn
 from l2hmc_tpu_torch.networks.nets import matmul, stencil_head, stencil_layer
 from l2hmc_tpu_torch.ops import _cuda
 from l2hmc_tpu_torch.ops.leapfrog import (
+    H100_SMEM_OPTIN,
     _energy_change,
     _grad_flat,
     _hop_math,
@@ -549,7 +550,6 @@ KERNEL_WARPS = 8                        # warps that run the products
 BLOCK_WARPS = 16                        # warps of a block
 MAX_STAGES = 8
 CHAINS_PER_BLOCK = (8, 4, 2)
-H100_SMEM_OPTIN = 232448
 
 
 def _round_up(x, m):
@@ -560,10 +560,11 @@ def mma_geometry(d: int, h: int, precision: str = "f32") -> SimpleNamespace:
     """Layout of ``csrc/l2hmc_chain.cu``'s products at ``d`` sites, hidden
     width ``h``.  A tile is one warp's A operand of one mma (16 rows x
     ``ks`` = 8 TF32 or 16 bf16 columns, 512 bytes); a chunk 8 warps x 4
-    tiles.  ``hp``: the hidden width padded (zero units, exact) to 32, 64 or
-    128 (bf16: 64 or 128), so that ``mt = hp/16`` tile rows share the 8 warps
-    of the in-projection and trunk (``8/mt`` k-groups each) and a head tile
-    row spans whole chunks.  ``n_in``, ``n_tr``, ``n_hd``: chunks of the
+    tiles.  ``hp``: the hidden width padded (zero units, exact) to 32, 64,
+    128 or 256 (bf16: 64, 128 or 256), so that ``mt = hp/16`` tile rows share
+    the 8 warps of the in-projection and trunk (``wp = 8/mt`` k-groups each
+    up to hp = 128; at 256 each warp covers ``rpw = 2`` tile rows) and a head
+    tile row spans whole chunks.  ``n_in``, ``n_tr``, ``n_hd``: chunks of the
     in-projection (K = 6d padded to ``kp_in``), the trunk (``kp_tr``) and the
     head (M = 6d padded to ``mp_hd``, ``kq`` chunks per group of 8 tile
     rows); ``bs``, ``hs``: shared row strides of the features and the hidden
@@ -571,19 +572,22 @@ def mma_geometry(d: int, h: int, precision: str = "f32") -> SimpleNamespace:
     fall in distinct banks)."""
     bf16 = precision == "bf16"
     ks = 16 if bf16 else 8
-    widths = (64, 128) if bf16 else (32, 64, 128)
+    widths = (64, 128, 256) if bf16 else (32, 64, 128, 256)
     hp = next((w for w in widths if h <= w), None)
     if hp is None:
         raise ValueError(f"hidden={h}: the chain kernel takes at most "
                          f"{widths[-1]} hidden units")
     mt = hp // 16
-    kc = 4 * (KERNEL_WARPS // mt)          # k-steps per narrow chunk
+    rpw = max(1, mt // KERNEL_WARPS)       # tile rows per product warp
+    wp = max(1, KERNEL_WARPS // mt)        # k-groups per tile row
+    kc = (4 // rpw) * wp                   # k-steps per narrow chunk
     kp_in = _round_up(6 * d, ks * kc)
     kp_tr = _round_up(hp, ks * kc)
     mp_hd = _round_up(6 * d, 16 * KERNEL_WARPS)
     kq = hp // (4 * ks)
     return SimpleNamespace(
-        ks=ks, hp=hp, mt=mt, kp_in=kp_in, kp_tr=kp_tr, mp_hd=mp_hd, kq=kq,
+        ks=ks, hp=hp, mt=mt, rpw=rpw, wp=wp, kp_in=kp_in, kp_tr=kp_tr,
+        mp_hd=mp_hd, kq=kq,
         n_in=kp_in // (ks * kc), n_tr=kp_tr // (ks * kc),
         n_hd=mp_hd // (16 * KERNEL_WARPS) * kq,
         bs=_round_up(max(kp_in, mp_hd), 32) + 4,
@@ -594,10 +598,10 @@ def chain_smem_bytes(c: int, d: int, geo, stages: int) -> int:
     """Shared memory of one block of ``csrc/l2hmc_chain.cu`` (its
     ``l2hmc_chain_smem_bytes``): the weight ring and its barriers, 6 fields
     of ``c`` chains (the accepted state lives in device memory), the
-    features, two hidden rows, the narrow products' partials and the
-    reductions."""
+    features, two hidden rows, the narrow products' partials (one slot per
+    k-group and tile row) and the reductions."""
     floats = (stages * CHUNK_BYTES // 4 + 4 * MAX_STAGES + 6 * c * d
-              + c * geo.bs + 2 * c * geo.hs + KERNEL_WARPS * 128
+              + c * geo.bs + 2 * c * geo.hs + max(KERNEL_WARPS, geo.mt) * 128
               + BLOCK_WARPS * 4 * c + 10 * c)
     return 4 * floats
 
@@ -659,21 +663,25 @@ def mma_pack(xin, hw, head, d, precision="f32") -> torch.Tensor:
     the in-projection ``xin (6d, h)``, the trunk ``hw (h, h)`` and the merged
     heads ``head (h, 6d)``, each transposed (weights as the M operand),
     zero-padded to :func:`mma_geometry`'s shape and cut into tiles.
-    In-projection and trunk chunk ``q``: warp ``w`` holds tile row ``w %
-    mt``, k-steps ``(q * 8/mt + w // mt) * 4 + s``; head chunk ``(group,
-    kq)``: warp ``w`` holds tile row ``group * 8 + w``, k-steps ``kq * 4 +
-    s``; ``s = 0..3`` the warp's four tiles.  Flat, float32 or bfloat16."""
+    In-projection and trunk chunk ``q``: warp ``w``'s tile ``s`` (``s =
+    0..3``) holds tile row ``w % mt + 8 (s // kpc)``, k-step ``(q * wp + w
+    // mt) * kpc + s % kpc`` (``kpc = 4 / rpw``: up to hp = 128 one row and 4
+    k-steps, at 256 two rows and 2); head chunk ``(group, kq)``: warp ``w``
+    holds tile row ``group * 8 + w``, k-steps ``kq * 4 + s``.  Flat, float32
+    or bfloat16."""
     geo = mma_geometry(d, hw.shape[0], precision)
-    ks, mt = geo.ks, geo.mt
+    ks, mt, wp = geo.ks, geo.mt, geo.wp
+    kpc = 4 // geo.rpw
     w_ = torch.arange(KERNEL_WARPS)[None, :, None]
     s_ = torch.arange(4)[None, None, :]
 
     def narrow(a, kp):
         tiles = _tiles(_pad2(a.float(), geo.hp, kp), ks)
-        nch = tiles.shape[1] // (4 * (KERNEL_WARPS // mt))
+        nch = tiles.shape[1] // (kpc * wp)
         q = torch.arange(nch)[:, None, None]
-        kidx = (q * (KERNEL_WARPS // mt) + w_ // mt) * 4 + s_
-        return tiles[(w_ % mt).expand_as(kidx), kidx]
+        kidx = (q * wp + w_ // mt) * kpc + s_ % kpc
+        rows = w_ % mt + KERNEL_WARPS * (s_ // kpc)
+        return tiles[rows.expand_as(kidx), kidx]
 
     def heads(a):
         tiles = _tiles(_pad2(a.float(), geo.mp_hd, geo.hp), ks)
@@ -729,9 +737,11 @@ def l2hmc_chain(links, params, generator, eps, beta, num_leapfrog,
     from ``generator`` unless ``rand_arrays=(v0s, v1s, ds, us[, nus, uhs])``
     is given.  A CUDA tensor launches the kernel of ``csrc/l2hmc_chain.cu``
     — with the injected arrays, or with in-kernel Philox randomness seeded
-    from ``generator`` — or raises.  Each block of the kernel runs two
-    chains, so that each read of the weights feeds both; a lattice whose
-    two chains do not fit in one block's shared memory raises.  Every
+    from ``generator`` — or raises.  Each block of the kernel runs 2, 4 or
+    8 chains (:func:`chains_per_block`), so that each read of the weights
+    feeds all of them; hidden widths up to 256 run (:func:`mma_geometry`); a
+    lattice whose two chains do not fit in one block's shared memory
+    raises.  Every
     launch adds one to ``l2hmc_chain.launches``, and to
     ``l2hmc_chain.bf16_launches`` / ``l2hmc_chain.ablate_launches`` in
     those modes.
@@ -798,12 +808,58 @@ l2hmc_chain.launches = 0
 l2hmc_chain.bf16_launches = 0
 l2hmc_chain.ablate_launches = 0
 
-# what csrc/l2hmc_local_chain.cu takes: 1 or 2 stencil layers of
+# what csrc/l2hmc_local_chain.cu takes: stencil layers of
 # LOCAL_KERNEL_CHANNELS channels (a narrower net is padded) over the 6 u1
-# input channels
+# input channels, any depth
 LOCAL_KERNEL_CHANNELS = (4, 8)
 LOCAL_MAX_CHANNELS = LOCAL_KERNEL_CHANNELS[-1]
 LOCAL_IN_CHANNELS = 6
+LOCAL_WARPS = 16
+
+
+def local_net_stride(c: int, num_layers: int) -> int:
+    """Floats of one net's weights in the kernel's flat array (each net
+    padded to a multiple of 4): ``s0w (5, 6, c)``, ``s0t (2, c)``, ``s0b``,
+    ``num_layers - 1`` hidden layers of ``(5, c, c)`` and ``c``, ``hw (6,
+    c)``, ``hb (6)``, ``cs``, ``ct (2)``."""
+    n = (5 * LOCAL_IN_CHANNELS * c + 3 * c + (num_layers - 1) * (5 * c * c + c)
+         + 6 * c + 10)
+    return -(-n // 4) * 4
+
+
+def local_chain_smem_bytes(lt: int, lx: int, c: int, num_layers: int,
+                           deep: bool) -> int:
+    """Shared memory of one block of ``csrc/l2hmc_local_chain.cu`` (its
+    ``l2hmc_local_chain_smem_bytes``): both nets' weights, the reductions,
+    ten (d,) fields and, for a two-layer net off the deep route, the (c, d)
+    layer-0 outputs."""
+    d = lt * lx
+    fields = 10 * d + (c * d if num_layers == 2 and not deep else 0)
+    return 4 * (2 * local_net_stride(c, num_layers) + LOCAL_WARPS * 4 + 8
+                + fields)
+
+
+def local_chain_route(lt: int, lx: int, c: int, num_layers: int,
+                      smem_limit: int = H100_SMEM_OPTIN):
+    """``(deep, shared-memory bytes)`` of the local kernel for a ``lt x lx``
+    lattice and a ``c``-channel net of ``num_layers`` layers: one or two
+    layers run with every field in shared memory where the block fits
+    ``smem_limit``; deeper nets, and a two-layer net that does not fit (c=8
+    at 64x64), run the deep route, whose hidden-layer outputs live in
+    device memory.  Raises ``ValueError`` (naming the bytes) when even the
+    deep route's block does not fit."""
+    if num_layers <= 2:
+        smem = local_chain_smem_bytes(lt, lx, c, num_layers, False)
+        if smem <= smem_limit:
+            return False, smem
+    deep = num_layers >= 2
+    smem = local_chain_smem_bytes(lt, lx, c, num_layers, deep)
+    if smem > smem_limit:
+        raise ValueError(
+            f"l2hmc_local_chain: {lt}x{lx} c={c} L={num_layers} needs {smem} "
+            f"B of shared memory per block (1 chain), the device allows "
+            f"{smem_limit} B")
+    return deep, smem
 
 
 def local_kernel_channels(c: int) -> int:
@@ -877,8 +933,10 @@ def l2hmc_local_chain(links, params, generator, eps, beta, num_leapfrog,
     arrays, or with in-kernel Philox randomness seeded from ``generator`` —
     or raises.  The kernel runs 4 or 8 channels; a net of fewer is padded
     (:func:`pad_local_params`, exact).  Each block runs one chain with its
-    fields in shared memory; a lattice, depth or width whose chain does not
-    fit raises a ``ValueError`` naming the bytes it needs.
+    fields in shared memory; nets deeper than two layers, or whose layer-0
+    outputs do not fit beside the fields, keep their hidden-layer outputs in
+    device memory (:func:`local_chain_route`); a lattice whose fields alone
+    do not fit raises a ``ValueError`` naming the bytes it needs.
     ``ablate_nets=True`` skips the conditioner (S = T = Q = 0); such a
     launch also adds one to ``l2hmc_local_chain.ablate_launches``.
     """
@@ -901,9 +959,6 @@ def l2hmc_local_chain(links, params, generator, eps, beta, num_leapfrog,
 
     if links.dtype != torch.float32:
         raise ValueError(f"links: expected float32, got {links.dtype}")
-    if num_layers > 2:
-        raise ValueError(f"num_layers={num_layers}: the kernel runs 1 or 2 "
-                         "stencil layers")
     dev = links.device
     s0w = params.xnet.stencils()[0].w
     if tuple(s0w.shape[:2]) != (5, LOCAL_IN_CHANNELS):
@@ -924,31 +979,30 @@ def l2hmc_local_chain(links, params, generator, eps, beta, num_leapfrog,
         raise ValueError("masks: the kernel takes binary hold masks")
 
     lib = _cuda.library()
-    smem = lib.l2hmc_local_chain_smem_bytes(lt, lx, c, num_layers)
-    limit = lib.smem_optin_bytes(dev.index or 0)
-    if smem > limit:
-        raise ValueError(
-            f"l2hmc_local_chain: {lt}x{lx} c={c} L={num_layers} needs {smem} "
-            f"B of shared memory per block (1 chain), the device allows "
-            f"{limit} B")
+    deep, _ = local_chain_route(lt, lx, c, num_layers,
+                                lib.smem_optin_bytes(dev.index or 0))
 
     x0, x1 = _split_links(links)
     rand, seed = _kernel_randomness(rand_arrays, generator, n, b, d)
     flat = local_kernel_weights(weights, num_layers)
     # the accepted state's sin P and cos P, per chain (kernel scratch)
     spcp = torch.empty((b, 2, d), dtype=torch.float32, device=dev)
+    # the deep route's hidden-layer outputs, two (c, d) buffers per chain
+    hbuf = (torch.empty((b, 2, c, d), dtype=torch.float32, device=dev)
+            if deep and not ablate_nets else None)
     plaq = torch.empty((n, b), dtype=torch.float32, device=dev)
     chg = torch.empty_like(plaq)
     prob = torch.empty_like(plaq)
     l2hmc_local_chain.launches += 1
     l2hmc_local_chain.ablate_launches += int(ablate_nets)
     _cuda.check(lib.l2hmc_local_chain_launch(
-        x0.data_ptr(), x1.data_ptr(), spcp.data_ptr(), flat.data_ptr(),
+        x0.data_ptr(), x1.data_ptr(), spcp.data_ptr(), _cuda.ptr(hbuf),
+        flat.data_ptr(),
         mask0.data_ptr(), mask1.data_ptr(), *[_cuda.ptr(r) for r in rand],
         plaq.data_ptr(), chg.data_ptr(), prob.data_ptr(),
         b, lt, lx, K, n, c, num_layers, float(eps), float(beta),
-        int(bounded_q), int(hop), int(ablate_nets), seed, dev.index or 0,
-        _cuda.stream_handle(dev)), "l2hmc_local_chain_launch")
+        int(bounded_q), int(hop), int(ablate_nets), int(deep), seed,
+        dev.index or 0, _cuda.stream_handle(dev)), "l2hmc_local_chain_launch")
     return _join_links(x0, x1, lt, lx), plaq, torch.round(chg), prob
 
 

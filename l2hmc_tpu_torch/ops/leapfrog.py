@@ -16,6 +16,8 @@ runs it for CPU tensors and launches ``csrc/hmc_chain.cu`` for CUDA tensors.
 
 from __future__ import annotations
 
+from types import SimpleNamespace
+
 import numpy as np
 import torch
 
@@ -244,6 +246,75 @@ def check_cuda_input(name, t, shape=None, dtype=torch.float32):
                          f"got {tuple(t.shape)}")
 
 
+H100_SMEM_OPTIN = 232448        # bytes of shared memory a block may opt in to
+HMC_ROUTES = ("warp", "block", "global")
+HMC_WARP_CHAINS = 4             # warp route: chains per block
+HMC_CHAIN_WARPS = 2             # warp route: warps per chain
+HMC_WARP_SITES = 4              # warp route: sites per lane
+HMC_BLOCK_THREADS = 512         # block and global routes: most threads
+HMC_BLOCK_SITES = (8, 16)       # block route: sites per thread
+HMC_RED_BYTES = 2 * 32 * 4 * 4  # block reductions: 2 buffers x 32 warps x 4
+# the JAX kernel's on-chip budget (l2hmc_tpu/ops/leapfrog.py
+# hmc_chain_pallas): lattices it refuses, the port's wrapper refuses too
+REFERENCE_VMEM_LIMIT = 14 << 20
+
+
+def hmc_chain_plan(lt: int, lx: int,
+                   smem_limit: int = H100_SMEM_OPTIN) -> SimpleNamespace:
+    """How ``csrc/hmc_chain.cu`` runs a ``lt x lx`` lattice (its host-side
+    plan; the kernel takes the same numbers and checks them).
+
+    ``route``: ``'warp'`` (d <= 256: one chain per pair of warps, 4 chains
+    per block, everything but the neighbour-read fields in registers),
+    ``'block'`` (d <= 8192: one chain per block of up to 512 threads, 8 or
+    16 sites each, the accepted state in device memory) or ``'global'`` (one
+    chain per block of 512 threads, every owned field in device memory, the
+    neighbour-read fields Y0, Y1, SP1 in shared memory while they fit).
+    Also ``chains`` per block, ``threads`` per block, ``cluster`` (1: no
+    route uses a thread-block cluster), ``spt`` sites per thread, ``smem``
+    bytes per block, ``nb_dev`` (Y0, Y1, SP1 in device memory) and
+    ``scratch_fields``: floats per site and chain of the device scratch."""
+    d = lt * lx
+    if lx < 2 or lt < 1 or d * lx >= 2 ** 32:
+        raise ValueError(f"hmc_chain: a {lt}x{lx} lattice is outside the "
+                         "kernel's site indexing (lx >= 2, lt * lx^2 < 2^32)")
+    nb = 3 * d * 4                       # Y0, Y1, SP1 of one chain
+    lanes = 32 * HMC_CHAIN_WARPS
+    if d <= lanes * HMC_WARP_SITES:
+        # per chain: its fields and 2 x warps x 4 reduction slots
+        return SimpleNamespace(
+            route="warp", chains=HMC_WARP_CHAINS,
+            threads=lanes * HMC_WARP_CHAINS, cluster=1, spt=HMC_WARP_SITES,
+            smem=HMC_WARP_CHAINS * (nb + 32 * HMC_CHAIN_WARPS),
+            nb_dev=False, scratch_fields=0)
+    for spt in HMC_BLOCK_SITES:
+        if d <= HMC_BLOCK_THREADS * spt:
+            return SimpleNamespace(
+                route="block", chains=1, threads=32 * -(-d // (32 * spt)),
+                cluster=1, spt=spt, smem=HMC_RED_BYTES + nb, nb_dev=False,
+                scratch_fields=2)
+    nb_dev = HMC_RED_BYTES + nb > smem_limit
+    return SimpleNamespace(
+        route="global", chains=1, threads=HMC_BLOCK_THREADS, cluster=1,
+        spt=-(-d // HMC_BLOCK_THREADS),
+        smem=HMC_RED_BYTES + (0 if nb_dev else nb), nb_dev=nb_dev,
+        scratch_fields=9 if nb_dev else 6)
+
+
+def reference_vmem_bytes(b: int, d: int, n: int, hop: bool) -> int:
+    """The JAX kernel's estimate of its on-chip memory for ``b`` chains of
+    ``d`` sites and ``n`` transitions per call, with the chain tile it picks
+    (``hmc_chain_pallas``'s arithmetic, unchanged)."""
+    rows = 20 if hop else 17
+    per_row = 4 * (rows * d + (8 if hop else 6) * n)
+    tile_b = max(8, min(b, (8 << 20) // per_row))
+    if tile_b < b:
+        tile_b = (tile_b // 128) * 128 if tile_b >= 128 else (tile_b // 8) * 8
+    while b % tile_b != 0 and tile_b > 1:
+        tile_b -= 1
+    return tile_b * per_row
+
+
 def hmc_chain(links, generator, eps, beta, num_leapfrog, num_transitions,
               hop=False, rand_arrays=None):
     """Run ``num_transitions`` fused U(1) HMC transitions.
@@ -254,9 +325,11 @@ def hmc_chain(links, generator, eps, beta, num_leapfrog, num_transitions,
 
     A CPU tensor runs :func:`hmc_chain_reference`, with randomness drawn from
     ``generator`` unless ``rand_arrays=(v0s, v1s, us[, nus, uhs])`` is given.
-    A CUDA tensor launches the kernel of ``csrc/hmc_chain.cu`` — with the
-    injected arrays, or with in-kernel Philox randomness seeded from
-    ``generator`` — or raises; it never falls back.
+    A CUDA tensor launches the kernel of ``csrc/hmc_chain.cu`` on the route
+    of :func:`hmc_chain_plan` — with the injected arrays, or with in-kernel
+    Philox randomness seeded from ``generator`` — or raises; it never falls
+    back.  It raises a ``ValueError`` naming the bytes where the JAX
+    kernel's own estimate (:func:`reference_vmem_bytes`) refuses the call.
     """
     check_links(links)
     b, lt, lx, _ = links.shape
@@ -277,14 +350,21 @@ def hmc_chain(links, generator, eps, beta, num_leapfrog, num_transitions,
         raise ValueError(f"links: expected float32, got {links.dtype}")
     if num_leapfrog < 1:
         raise ValueError(f"num_leapfrog={num_leapfrog}: the kernel needs >= 1")
+    est = reference_vmem_bytes(b, d, n, hop)
+    if est > REFERENCE_VMEM_LIMIT:
+        raise ValueError(
+            f"hmc_chain: {b} chains of {lt}x{lx}, {n} transitions per call: "
+            f"the reference kernel's estimate is {est} B of on-chip memory, "
+            f"over its {REFERENCE_VMEM_LIMIT} B; make fewer transitions per "
+            "call")
     lib = _cuda.library()
     dev = links.device
-    smem = lib.hmc_chain_smem_bytes(lt, lx)
-    limit = lib.smem_optin_bytes(dev.index or 0)
-    if smem > limit:
-        raise ValueError(f"hmc_chain: {lt}x{lx} needs {smem} B of shared "
-                         f"memory per block, the device allows {limit} B")
+    plan = hmc_chain_plan(lt, lx, lib.smem_optin_bytes(dev.index or 0))
     x0, x1 = _split_links(links)
+    scratch = None
+    if plan.scratch_fields:
+        scratch = torch.empty((b, plan.scratch_fields, d),
+                              dtype=torch.float32, device=dev)
     rand = [None] * 5
     seed = 0
     if rand_arrays is not None:
@@ -300,10 +380,13 @@ def hmc_chain(links, generator, eps, beta, num_leapfrog, num_transitions,
     prob = torch.empty_like(plaq)
     hmc_chain.launches += 1
     _cuda.check(lib.hmc_chain_launch(
-        x0.data_ptr(), x1.data_ptr(), *[_cuda.ptr(r) for r in rand],
+        x0.data_ptr(), x1.data_ptr(), _cuda.ptr(scratch),
+        *[_cuda.ptr(r) for r in rand],
         plaq.data_ptr(), chg.data_ptr(), prob.data_ptr(),
         b, lt, lx, num_leapfrog, n, float(eps), float(beta), int(hop), seed,
-        dev.index or 0, _cuda.stream_handle(dev)), "hmc_chain_launch")
+        HMC_ROUTES.index(plan.route), plan.spt, plan.threads,
+        int(plan.nb_dev), dev.index or 0, _cuda.stream_handle(dev)),
+        "hmc_chain_launch")
     return _join_links(x0, x1, lt, lx), plaq, torch.round(chg), prob
 
 

@@ -99,17 +99,24 @@ def _assert_matches(got, want, atol=ATOL):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("hop", [False, True])
-@pytest.mark.parametrize("lt,lx", [(4, 6), (16, 16), (64, 64)])
+@pytest.mark.parametrize("lt,lx", [(4, 6), (16, 16), (8, 24), (24, 24),
+                                   (64, 64), (96, 64), (96, 96),
+                                   (128, 128), (160, 160)])
 def test_torch_hmc_chain_kernel_matches_plain(cuda_device, lt, lx, hop):
-    b, n = 16, 4
+    """Every route of ops/leapfrog.py hmc_chain_plan: warp (4x6 to 8x24),
+    block with 8 (24x24, 64x64) and 16 sites per thread (96x64), global
+    with the neighbour-read fields in shared memory (96x96, 128x128) and in
+    device memory (160x160); 9 chains, so the warp route's last block runs
+    one chain."""
+    b, n, eps = 9, 4, 0.1
     links = torch.tensor(typical_links(np.random.default_rng(1), b, lt, lx),
                          device=cuda_device)
     rand = _rand(2, n, b, lt * lx, hop, False, cuda_device)
     before = tlf.hmc_chain.launches
-    got = tlf.hmc_chain(links, None, 0.1, 3.0, 4, n, hop=hop,
+    got = tlf.hmc_chain(links, None, eps, 3.0, 4, n, hop=hop,
                         rand_arrays=rand)
     assert tlf.hmc_chain.launches == before + 1
-    want = tlf.hmc_chain_reference(links, *rand[:3], 0.1, 3.0, 4,
+    want = tlf.hmc_chain_reference(links, *rand[:3], eps, 3.0, 4,
                                    hop_arrays=rand[3:] if hop else None)
     torch.cuda.synchronize()
     _assert_matches(got, want)
@@ -139,7 +146,7 @@ def test_torch_l2hmc_chain_kernel_matches_plain(cuda_device, lt, lx, hidden,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("hop", [False, True])
-@pytest.mark.parametrize("layers", [1, 2])
+@pytest.mark.parametrize("layers", [1, 2, 3])
 @pytest.mark.parametrize("lt,lx,b", [(4, 6, 5), (8, 8, 5), (64, 64, 4)])
 def test_torch_local_chain_kernel_matches_plain(cuda_device, lt, lx, b,
                                                 layers, hop):
@@ -163,11 +170,14 @@ def test_torch_local_chain_kernel_matches_plain(cuda_device, lt, lx, b,
 @pytest.mark.cuda
 @pytest.mark.parametrize("ablate", [False, True])
 @pytest.mark.parametrize("lt,lx,b,layers", [(8, 8, 5, 1), (8, 8, 5, 2),
-                                            (64, 64, 4, 1)])
+                                            (64, 64, 4, 1), (64, 64, 4, 2),
+                                            (8, 8, 5, 4)])
 def test_torch_local_chain_kernel_c8_matches_plain(cuda_device, lt, lx, b,
                                                    layers, ablate):
     """c=8, the most channels the kernel takes (local64's c8L1 among them),
-    full and ablated, against the plain version on the same draws.  Ablated
+    full and ablated, against the plain version on the same draws; c8L2 at
+    64x64 and L=4 run the deep route (hidden outputs in device memory).
+    Ablated
     at 64x64 the circle map is the identity computed in float32, an ulp per
     link and half-update, and the plain version alone lies 2.5e-4 from its
     float64 run there: 3e-4, as chip_smoke.py holds it."""
@@ -185,6 +195,41 @@ def test_torch_local_chain_kernel_c8_matches_plain(cuda_device, lt, lx, b,
     torch.cuda.synchronize()
     _assert_matches(got, want, 3e-4 if ablate and lt == 64 else ATOL)
     assert 0.02 < float(want[3].mean()) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("hop", [False, True])
+def test_torch_l2hmc_chain_kernel_at_hidden_256(cuda_device, hop, precision):
+    """h=256 (two tile rows per product warp) at the champion's 16x16, 8
+    chains per block, a ragged batch of 13: float32 against the plain
+    version at ATOL, bf16 as test_torch_bf16_kernel_matches_plain holds
+    it."""
+    b, n, K, lt, lx = 13, 2, 3, 16, 16
+    assert tl2.mma_geometry(lt * lx, 256, precision).rpw == 2
+    params = _params(lt, lx, K, 256, cuda_device)
+    links = torch.tensor(typical_links(np.random.default_rng(23), b, lt, lx,
+                                       sigma=0.3), device=cuda_device)
+    rand = _rand(24, n, b, lt * lx, hop, True, cuda_device)
+    # eps 0.02: these nets accept 0.05 at eps 0.05
+    want = tl2.l2hmc_chain_reference(links, params, *rand[:4], 0.02, 3.0, K,
+                                     hop_arrays=rand[4:] if hop else None,
+                                     precision=precision)
+    before = tl2.l2hmc_chain.launches
+    got = tl2.l2hmc_chain(links, params, None, 0.02, 3.0, K, n, hop=hop,
+                          rand_arrays=rand, precision=precision)
+    assert tl2.l2hmc_chain.launches == before + 1
+    torch.cuda.synchronize()
+    assert 0.05 < float(want[3].mean()) <= 1.0
+    if precision == "f32":
+        _assert_matches(got, want)
+        return
+    us = rand[3]
+    keep = ~((us < got[3]) != (us < want[3])).any(dim=0)
+    assert int((~keep).sum()) <= 1
+    dprob = (got[3][:, keep] - want[3][:, keep]).abs()
+    assert float(dprob.median()) <= ATOL
+    assert float(dprob.max()) <= 2e-2
 
 
 @pytest.mark.cuda
@@ -215,18 +260,31 @@ def test_torch_l2hmc_chain_kernel_at_each_chains_per_block(cuda_device, lt,
 
 @pytest.mark.cuda
 def test_torch_chain_kernel_layouts_agree_with_the_library(cuda_device):
-    """The wrapper's shared-memory formula is the kernel's, and the
+    """The wrappers' shared-memory formulas are the kernels', and the
     committed build runs up to 8 chains per block."""
     lib = _cuda.library()
     assert lib.l2hmc_chain_max_chains() == tl2.CHAINS_PER_BLOCK[0]
     for lt, lx, h, prec in ((16, 16, 64, "f32"), (24, 24, 64, "f32"),
-                            (32, 32, 64, "bf16"), (4, 6, 32, "f32")):
+                            (32, 32, 64, "bf16"), (4, 6, 32, "f32"),
+                            (16, 16, 256, "f32"), (16, 16, 256, "bf16")):
         d = lt * lx
         c, stages = tl2.chains_per_block(lt, lx, h, prec)
         geo = tl2.mma_geometry(d, h, prec)
-        assert lib.l2hmc_chain_smem_bytes(c, d, geo.bs, geo.hs, stages) == \
+        assert lib.l2hmc_chain_smem_bytes(c, d, geo.bs, geo.hs, stages,
+                                          geo.mt) == \
             tl2.chain_smem_bytes(c, d, geo, stages)
     assert lib.smem_optin_bytes(0) == tl2.H100_SMEM_OPTIN
+    for lt, lx in ((16, 16), (8, 24), (64, 64), (64, 96), (128, 128),
+                   (160, 160)):
+        plan = tlf.hmc_chain_plan(lt, lx)
+        assert lib.hmc_chain_smem_bytes(
+            tlf.HMC_ROUTES.index(plan.route), lt, lx, plan.chains,
+            int(plan.nb_dev)) == plan.smem
+    for lt, lx, c, layers in ((64, 64, 4, 1), (64, 64, 8, 2), (64, 64, 4, 3),
+                              (8, 8, 8, 2)):
+        deep, smem = tl2.local_chain_route(lt, lx, c, layers)
+        assert lib.l2hmc_local_chain_smem_bytes(lt, lx, c, layers,
+                                                int(deep)) == smem
 
 
 @pytest.mark.cuda
@@ -253,20 +311,21 @@ def test_torch_local_chain_kernel_pads_channels(cuda_device, channels,
 
 @pytest.mark.cuda
 def test_torch_local_chain_kernel_rejects_what_it_cannot_run(cuda_device):
-    links = torch.zeros((1, 64, 64, 2), device=cuda_device)
+    """A lattice whose ten fields per chain do not fit one block (96x96:
+    360 KB) and a net wider than 8 channels raise; c8L2 at 64x64 and deeper
+    nets run (the deep route)."""
     gen = torch.Generator().manual_seed(0)
-    # c=8, L=2 at 64x64: 18 fields of 16 KB per chain
-    big = _local_params(64, 64, 2, 8, 2, cuda_device)
+    big = _local_params(96, 96, 2, 4, 1, cuda_device)
     with pytest.raises(ValueError, match="shared memory"):
-        tl2.l2hmc_local_chain(links, big, gen, 0.1, 2.0, 2, 1, 2)
+        tl2.l2hmc_local_chain(torch.zeros((1, 96, 96, 2), device=cuda_device),
+                              big, gen, 0.1, 2.0, 2, 1, 1)
+    links = torch.zeros((1, 8, 8, 2), device=cuda_device)
     wide = _local_params(8, 8, 2, 9, 1, cuda_device)
     with pytest.raises(ValueError, match="channels"):
-        tl2.l2hmc_local_chain(links[:, :8, :8].contiguous(), wide, gen, 0.1,
-                              2.0, 2, 1, 1)
+        tl2.l2hmc_local_chain(links, wide, gen, 0.1, 2.0, 2, 1, 1)
     deep = _local_params(8, 8, 2, 4, 3, cuda_device)
-    with pytest.raises(ValueError, match="num_layers"):
-        tl2.l2hmc_local_chain(links[:, :8, :8].contiguous(), deep, gen, 0.1,
-                              2.0, 2, 1, 3)
+    out = tl2.l2hmc_local_chain(links, deep, gen, 0.1, 2.0, 2, 1, 3)
+    assert bool(torch.isfinite(out[3]).all())
 
 
 @pytest.mark.cuda
@@ -319,8 +378,9 @@ def test_torch_kernel_wrappers_reject_bad_input(cuda_device):
     with pytest.raises(ValueError, match="num_leapfrog"):
         tl2.l2hmc_chain(links, params, torch.Generator().manual_seed(0),
                         0.1, 2.0, 2, n)
-    with pytest.raises(ValueError, match="shared memory"):
-        tlf.hmc_chain(torch.zeros((1, 128, 128, 2), device=cuda_device),
+    # the JAX kernel's estimate refuses 8 chains of 256x256 (35.7 MB)
+    with pytest.raises(ValueError, match="on-chip memory"):
+        tlf.hmc_chain(torch.zeros((8, 256, 256, 2), device=cuda_device),
                       torch.Generator().manual_seed(0), 0.1, 2.0, 2, 1)
     # two 48x48 chains need 261 KB per block (6 fields and the features of
     # each, two weight chunks)
@@ -458,11 +518,12 @@ def test_torch_cheap_probe_rate_is_physical(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("layers", [0, 1, 2])
+@pytest.mark.parametrize("layers", [0, 1, 2, 3])
 def test_torch_ablated_kernels_equal_zero_nets(cuda_device, layers):
     """ablate_nets=True against the same kernel on zeroed nets (bit for
     bit, the JAX package's gate 1e-6) and against the ablated plain version
-    (ATOL); layers 0 is the MLP kernel, 1 and 2 the local kernel."""
+    (ATOL); layers 0 is the MLP kernel, 1 to 3 the local kernel (3: the
+    deep route)."""
     b, n, K, lt, lx = 5, 3, 3, 8, 8
     if layers:
         params = _local_params(lt, lx, K, 4, layers, cuda_device)

@@ -5,7 +5,8 @@ the port: the ``make_local_flat_net`` forward, ``pack_local_weights``, the
 plain chain ``l2hmc_chain_reference(local_layers=L)`` (hop off and on), the
 parameter round trip from a JAX ``DynamicsParams``, and the port's own
 ``make_dynamics`` transition with local nets against its chain reference.
-Small sizes: 4x6 lattices, c=4, L in {1, 2}, K <= 3, B <= 8, N <= 3.
+Small sizes: 4x6 lattices, c=4, L in {1, 2, 3} (and c=8 L=2), K <= 3,
+B <= 8, N <= 3.
 
 Tolerances: atol 1e-5 on one net forward (float32, different libm tanh/exp
 and summation order); atol 2e-4 on chain states and accept probabilities, as
@@ -41,19 +42,19 @@ LT, LX, C, K, B, N = 4, 6, 4, 3, 8, 3
 D = LT * LX
 
 
-def _gauge_cfg(num_layers, **kw):
+def _gauge_cfg(num_layers, channels=C, **kw):
     base = dict(time_size=LT, space_size=LX, num_steps=K,
-                network_arch="local_flat", num_filters=C,
+                network_arch="local_flat", num_filters=channels,
                 local_layers=num_layers, merge_v_halves=True, group="u1",
                 bounded_q=True, eps_init=0.12)
     base.update(kw)
     return tgauge.GaugeConfig(**base)
 
 
-def _jax_nets(num_layers):
+def _jax_nets(num_layers, channels=C):
     """(XNet, VNet) (init, apply) pairs of the reference's u1 local_flat
     build (train/gauge.py build_networks)."""
-    kw = dict(channels=C, num_layers=num_layers, bounded_q=True)
+    kw = dict(channels=channels, num_layers=num_layers, bounded_q=True)
     return (j_make_local(JLocalNetSpec(LT, LX, factor=2.0, x_channels=4,
                                        **kw)),
             j_make_local(JLocalNetSpec(LT, LX, factor=1.0, v_channels=4,
@@ -61,15 +62,15 @@ def _jax_nets(num_layers):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_params(num_layers):
+def _jax_params(num_layers, channels=C):
     """Reference ``DynamicsParams`` from the JAX init, with every net leaf
     perturbed by a seeded N(0, 0.05^2) (tests/test_local_kernel.py's bump)
     so that S, T and Q are not near zero."""
-    (xi, _), (vi, _) = _jax_nets(num_layers)
+    (xi, _), (vi, _) = _jax_nets(num_layers, channels)
     cfg = JDynamicsConfig(x_dim=2 * D, num_steps=K, group="u1",
                           merge_v_halves=True)
     params = init_dynamics_params(jax.random.PRNGKey(7), cfg, xi, vi, 0.12)
-    rng = np.random.default_rng(100 + num_layers)
+    rng = np.random.default_rng(100 + num_layers + 10 * (channels - C))
 
     def bump(tree):
         return jax.tree.map(lambda a: jnp.asarray(
@@ -79,9 +80,10 @@ def _jax_params(num_layers):
     return params._replace(xnet=bump(params.xnet), vnet=bump(params.vnet))
 
 
-def _port_params(num_layers):
-    return tck.params_from_numpy(_jax_params(num_layers),
-                                 _gauge_cfg(num_layers), device="cpu")
+def _port_params(num_layers, channels=C):
+    return tck.params_from_numpy(_jax_params(num_layers, channels),
+                                 _gauge_cfg(num_layers, channels),
+                                 device="cpu")
 
 
 def _rand(seed, hop, n=N, b=B, d=D):
@@ -159,7 +161,7 @@ def test_torch_local_flat_net_init_follows_jax():
         make_local_flat_net(LocalNetSpec(4, 4, kernel_size=5))
 
 
-@pytest.mark.parametrize("num_layers", [1, 2])
+@pytest.mark.parametrize("num_layers", [1, 2, 3])
 def test_torch_pack_local_weights_matches_jax(num_layers):
     jparams = _jax_params(num_layers)
     want = jl2.pack_local_weights(jparams, 2 * D, num_layers)
@@ -172,12 +174,22 @@ def test_torch_pack_local_weights_matches_jax(num_layers):
 
 
 @pytest.mark.parametrize("hop", [False, True])
-@pytest.mark.parametrize("num_layers", [1, 2])
+@pytest.mark.parametrize("num_layers", [1, 2, 3])
 def test_torch_local_chain_reference_matches_jax(num_layers, hop):
     """The port's plain local chain (through the CPU wrapper) against the
     JAX pure twin on the same injected randomness."""
-    jparams = _jax_params(num_layers)
-    params = _port_params(num_layers)
+    _check_chain_against_jax(num_layers, C, hop)
+
+
+@pytest.mark.parametrize("hop", [False, True])
+def test_torch_local_chain_reference_c8l2_matches_jax(hop):
+    """c=8, L=2: the net of the kernel's deep route at 64x64, here at 4x6."""
+    _check_chain_against_jax(2, 8, hop)
+
+
+def _check_chain_against_jax(num_layers, channels, hop):
+    jparams = _jax_params(num_layers, channels)
+    params = _port_params(num_layers, channels)
     links = typical_links(np.random.default_rng(5), B, LT, LX, sigma=0.3)
     rand = _rand(6, hop)
     eps, beta = 0.12, 3.0

@@ -135,9 +135,12 @@ def test_torch_tf32x3_products_match_float32_on_champion(net, product):
 
 def _emulate_chunks(mm, geo, feats, c):
     """The kernel's walk over one net's chunks (float64): warp w's tile q of
-    a narrow chunk j at tile row w % mt and k-step (j * 8/mt + w // mt) * 4
-    + q; head chunk (group, kq) at tile row group * 8 + w, k-step kq * 4 +
-    q.  Returns (in-projection, trunk of it, head of that), (c, .) each."""
+    a narrow chunk j at tile row w % mt + 8 (q // kpc) and k-step (j * wp +
+    w // mt) * kpc + q % kpc, with wp = 8/mt k-groups and kpc = 4 k-steps up
+    to mt = 8 (hp <= 128), wp = 1 and kpc = 2 at mt = 16 (hp = 256: two tile
+    rows per warp); head chunk (group, kq) at tile row group * 8 + w, k-step
+    kq * 4 + q.  Returns (in-projection, trunk of it, head of that), (c, .)
+    each."""
     ks = geo.ks
     e = 4 if ks == 8 else 8
     tiles = mm.double().numpy().reshape(-1, 8, 4, 32, e)
@@ -150,12 +153,13 @@ def _emulate_chunks(mm, geo, feats, c):
 
     def narrow(j0, nch, bmat):
         out = np.zeros((geo.hp, c))
-        wp = 8 // geo.mt
+        wp = max(1, 8 // geo.mt)
+        kpc = 4 if geo.mt <= 8 else 2
         for j in range(nch):
             for w in range(8):
-                m0 = 16 * (w % geo.mt)
                 for q in range(4):
-                    k0 = ((j * wp + w // geo.mt) * 4 + q) * ks
+                    m0 = 16 * (w % geo.mt + 8 * (q // kpc))
+                    k0 = ((j * wp + w // geo.mt) * kpc + q % kpc) * ks
                     out[m0:m0 + 16] += a_tile(j0 + j, w, q) @ bmat[k0:k0 + ks]
         return out
 
@@ -180,7 +184,11 @@ def _emulate_chunks(mm, geo, feats, c):
 @pytest.mark.parametrize("d,h,precision", [(24, 32, "f32"), (64, 64, "f32"),
                                            (64, 16, "f32"),
                                            (64, 64, "bf16"),
-                                           (24, 48, "bf16")])
+                                           (24, 48, "bf16"),
+                                           (24, 256, "f32"),
+                                           (16, 200, "f32"),
+                                           (24, 256, "bf16"),
+                                           (16, 150, "bf16")])
 def test_torch_mma_pack_layout_gives_the_products(d, h, precision):
     """Each net's three operands packed in chunk order: the kernel's walk
     over them (emulated) is W^T f, and each chunk is 16 KB."""
@@ -208,6 +216,29 @@ def test_torch_mma_pack_layout_gives_the_products(d, h, precision):
                                rtol=1e-12, atol=1e-9)
 
 
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("h", [129, 200, 256])
+def test_torch_mma_geometry_at_hidden_256(h, precision):
+    """Hidden widths above 128 pad to hp = 256: 16 tile rows, two per
+    product warp (one k-group), and the champion's 16x16 lattice still runs
+    8 chains per block with a ring of at least 2 chunks, its products'
+    partials (16 slots of 128 floats) counted in the shared memory."""
+    geo = tl2.mma_geometry(256, h, precision)
+    ks = 16 if precision == "bf16" else 8
+    assert (geo.hp, geo.mt, geo.rpw, geo.wp) == (256, 16, 2, 1)
+    assert geo.kq == 256 // (4 * ks)
+    assert geo.kp_tr == 256 and geo.hs == 260
+    assert geo.n_tr == 256 // (2 * ks)
+    c, stages = tl2.chains_per_block(16, 16, h, precision)
+    assert c == 8 and 2 <= stages <= tl2.MAX_STAGES
+    assert tl2.chain_smem_bytes(c, 256, geo, stages) <= tl2.H100_SMEM_OPTIN
+    assert tl2.chain_smem_bytes(c, 256, geo, stages + 1) > \
+        tl2.H100_SMEM_OPTIN or stages == tl2.MAX_STAGES
+    narrow = tl2.mma_geometry(256, 128, precision)
+    assert tl2.chain_smem_bytes(c, 256, geo, stages) - tl2.chain_smem_bytes(
+        c, 256, narrow, stages) == 4 * (8 * 128 + 2 * c * (260 - 132))
+
+
 def test_torch_chains_per_block_from_the_lattice():
     """The most chains per block (8, 4, 2) whose fields, operands and a ring
     of 2 weight chunks fit the H100's 227 KB; more ring stages where room
@@ -229,7 +260,7 @@ def test_torch_chains_per_block_from_the_lattice():
     with pytest.raises(ValueError, match="shared memory"):
         tl2.chains_per_block(48, 48, 16)
     with pytest.raises(ValueError, match="hidden"):
-        tl2.chains_per_block(16, 16, 200)
+        tl2.chains_per_block(16, 16, 300)
 
 
 # --- the local kernel's channel padding --------------------------------------
@@ -258,7 +289,7 @@ def _rand(seed, n=N, b=B, d=LT * LX):
     return [torch.tensor(a, dtype=torch.float32) for a in out]
 
 
-@pytest.mark.parametrize("layers", [1, 2])
+@pytest.mark.parametrize("layers", [1, 2, 3])
 @pytest.mark.parametrize("channels", [2, 3, 5])
 def test_torch_local_padding_is_exact(channels, layers):
     """(A 1-channel net is padded too, but the plain version's einsum over a
@@ -288,8 +319,31 @@ def test_torch_local_padding_is_exact(channels, layers):
     per_net = flat.numel() // 2
     assert per_net % 4 == 0
     hw = padded.xnet.head.w.detach()
-    at = 5 * 6 * kc + 3 * kc + (5 * kc * kc + kc if layers == 2 else 0)
+    at = 5 * 6 * kc + 3 * kc + (layers - 1) * (5 * kc * kc + kc)
     assert torch.equal(flat[at:at + 6 * kc], hw.t().reshape(-1))
+    assert per_net == tl2.local_net_stride(kc, layers)
+
+
+@pytest.mark.parametrize("lt,lx,c,layers,deep", [
+    (64, 64, 4, 1, False), (64, 64, 4, 2, False), (64, 64, 8, 1, False),
+    (64, 64, 8, 2, True), (64, 64, 4, 3, True), (64, 64, 8, 5, True),
+    (8, 8, 8, 2, False), (8, 8, 4, 3, True)])
+def test_torch_local_chain_route(lt, lx, c, layers, deep):
+    """One or two layers keep every field in shared memory where the block
+    fits the H100's 227 KB (not c8L2 at 64x64: 288 KB); deeper nets and
+    c8L2 at 64x64 run the deep route, whose hidden outputs live in device
+    memory and whose block holds the ten fields and the weights."""
+    got_deep, smem = tl2.local_chain_route(lt, lx, c, layers)
+    assert got_deep == deep
+    assert smem == tl2.local_chain_smem_bytes(lt, lx, c, layers, deep)
+    assert smem <= tl2.H100_SMEM_OPTIN
+    if deep and layers == 2:
+        assert tl2.local_chain_smem_bytes(lt, lx, c, 2, False) > \
+            tl2.H100_SMEM_OPTIN
+    d = lt * lx
+    assert smem >= 4 * (10 * d + 2 * tl2.local_net_stride(c, layers))
+    with pytest.raises(ValueError, match="shared memory"):
+        tl2.local_chain_route(96, 96, c, layers)
 
 
 @pytest.mark.parametrize("layers", [1, 2])

@@ -34,11 +34,17 @@ Phases (any failure raises and the script exits non-zero):
    512 chains warm-started by 1500 checkerboard Metropolis sweeps at beta=4,
    then 4 calls x 250 transitions each of the local sampler, the local
    sampler + hop, and HMC (K=8, eps=0.04552).
-6. The Wilson action kernels (``csrc/wilson.cu``: forward, backward and
-   the backward's backward) against their plain versions at (128, 16, 16,
-   2) and (512, 64, 64, 2), near-equilibrium and uniform links, g = beta;
-   each timed beside its plain version (CUDA events per call, and device
-   time by torch.profiler).
+6. The Wilson action kernels (``csrc/wilson.cu``: forward, action-only
+   forward, backward, fused force and the force's backward), on every
+   route that can hold the lattice, against their plain versions at (128,
+   16, 16, 2), (512, 64, 64, 2), (8, 128, 128, 2) and (1, 160, 160, 2) (the
+   global route alone), near-equilibrium and uniform links, g = beta; at
+   the first two shapes each timed beside its plain version (per-call host
+   time by CUDA events, device time by torch.profiler, the inputs cycled
+   through copies larger than twice the L2), beside the device time of an
+   empty kernel (the launch floor); at the training shape each kernel also
+   on both routes in turns (block, and global: one block per chain reading
+   device memory).
 7. One train step at the README quick-start config through the Wilson
    kernels against the same step on the plain potential: same state and
    injected draws; loss, metrics, every gradient, updated params, x.
@@ -542,7 +548,9 @@ def reset_launches():
                "l2hmc_local_chain[ablate]": (l2hmc_local_chain,
                                              "ablate_launches"),
                "wilson_forward": (W.wilson_forward, "launches"),
+               "wilson_action_only": (W.wilson_action_only, "launches"),
                "wilson_backward": (W.wilson_backward, "launches"),
+               "wilson_force": (W.wilson_force, "launches"),
                "wilson_double_backward": (W.wilson_double_backward,
                                           "launches"),
                "issue_rates": (probe_chain, "launches")}
@@ -816,72 +824,124 @@ def local_trig_per_transition(b, d, K):
 
 
 def wilson_bounds(b, lt, lx):
-    """``{kernel: (bound_ms, bound_by)}`` of the three Wilson kernels on a
-    (b, lt, lx, 2) batch: forward reads links and writes sin P and S (7
-    operations per site), backward reads sin P and g and writes the force
-    (4), double backward reads links, g and w and writes dlinks and dg (14,
-    the neighbours' recomputation not counted)."""
+    """``{kernel: (bound_ms, bound_by)}`` of the Wilson kernels on a (b, lt,
+    lx, 2) batch: forward reads links and writes sin P and S (7 operations
+    per site), the action-only forward reads links and writes S (6),
+    backward reads sin P and g and writes the force (4), the fused force
+    reads links and g and writes the force (8), double backward reads links,
+    g and w and writes dlinks and dg (14, the neighbours' recomputation not
+    counted)."""
     s = b * lt * lx
     return {"wilson_forward": bound(s * 8 + s * 4 + b * 4, 7 * s),
+            "wilson_action_only": bound(s * 8 + b * 4, 6 * s),
             "wilson_backward": bound(s * 4 + b * 4 + s * 8, 4 * s),
+            "wilson_force": bound(s * 8 + b * 4 + s * 8, 8 * s),
             "wilson_double_backward": bound(s * 8 * 3 + b * 8, 14 * s)}
-
-
-def device_profile(fn, reps):
-    """``(device ms per call, kernels per call, [(kernel, device ms per
-    call)] top five)`` of ``fn`` over ``reps`` calls from ``torch.profiler``
-    (CUDA activity); ``None`` when the profiler recorded no device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    rows = []
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0.0))
-        rows.append((e.key, us / 1e3 / reps, e.count / reps))
-    total = sum(r[1] for r in rows)
-    if total <= 0:
-        return None
-    rows.sort(key=lambda r: -r[1])
-    return (total, sum(r[2] for r in rows),
-            [(k[:60], ms) for k, ms, _ in rows[:5]])
 
 
 # ---------------------------------------------------------------------------
 # Phase 6: the Wilson kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-WILSON_SHAPES = ((128, 16, 16), (512, 64, 64))
+WILSON_SHAPES = ((128, 16, 16), (512, 64, 64), (8, 128, 128), (1, 160, 160))
+WILSON_TIMED = 2              # the first shapes are timed
 WILSON_REPS = 200
+WILSON_PROFILE_REPS = 20
 # Kernel and plain version compute P in the same order (identical angles);
 # sin and cos come from CUDA's libm against torch's (~1 ulp), the per-chain
 # sums in another order.  Tolerances: sin P 1e-6 absolute; S and dg 1e-5
 # relative to the sum of their terms' magnitudes (float32 sums of up to
-# 4096 terms, ~5e-7 rounding each); the force from the same sin P exactly
-# (same products and differences); dlinks 1e-5 of its largest entry.
+# 25600 terms, ~5e-7 rounding each); the backward from the same sin P
+# exactly (same products and differences); the fused force (its own sin P)
+# and dlinks 1e-5 of their largest entry.
 WILSON_RTOL = 1e-5
 SINP_ATOL = 1e-6
 
 
+def empty_kernel_us(device):
+    """Device time per launch of an empty kernel (128 blocks of 256
+    threads, the Wilson kernels' grid at the training shape), measured as
+    they are (torch.profiler); None when the profiler saw no device time."""
+    from l2hmc_tpu_torch.benchmarks.wilson_routes import device_us
+    from l2hmc_tpu_torch.ops import _cuda
+
+    lib, stream = _cuda.library(), _cuda.stream_handle(device)
+
+    def launch():
+        _cuda.check(lib.empty_launch(128, 256, device.index or 0, stream),
+                    "empty_launch")
+
+    us = device_us(launch, WILSON_PROFILE_REPS)
+    return None if np.isnan(us) else us
+
+
+def wilson_errors(W, links, g, w):
+    """``(max abs error per kernel, failures)`` of every Wilson kernel
+    against its plain version on one set of inputs."""
+    s_k, sinp_k = W.wilson_forward(links)
+    s_only = W.wilson_action_only(links)
+    s_p, sinp_p = W.wilson_forward_reference(links)
+    f_k = W.wilson_backward(sinp_p, g)
+    f_p = W.wilson_backward_reference(sinp_p, g)
+    force_k = W.wilson_force(links, g)
+    force_p = W.wilson_force_reference(links, g)
+    dl_k, dg_k = W.wilson_double_backward(links, g, w)
+    dl_p, dg_p = W.wilson_double_backward_reference(links, g, w)
+    torch.cuda.synchronize()
+    p = W._plaq_sums(links[..., 0], links[..., 1])
+    r = (w[..., 0] - torch.roll(w[..., 0], -1, -1) - w[..., 1]
+         + torch.roll(w[..., 1], -1, -2))
+    s_scale = torch.sum(1.0 - torch.cos(p), dim=(1, 2))
+    dg_scale = torch.sum(torch.abs(r * torch.sin(p)), dim=(1, 2))
+    errs = {
+        "wilson_forward": max(float((s_k - s_p).abs().max()),
+                              float((sinp_k - sinp_p).abs().max())),
+        "wilson_action_only": float((s_only - s_p).abs().max()),
+        "wilson_backward": float((f_k - f_p).abs().max()),
+        "wilson_force": float((force_k - force_p).abs().max()),
+        "wilson_double_backward": max(float((dl_k - dl_p).abs().max()),
+                                      float((dg_k - dg_p).abs().max())),
+    }
+    rel = {"S": float(((s_k - s_p).abs() / s_scale).max()),
+           "action-only S": float(((s_only - s_p).abs() / s_scale).max()),
+           "fused force": errs["wilson_force"] / float(force_p.abs().max()),
+           "dlinks": float((dl_k - dl_p).abs().max() / dl_p.abs().max()),
+           "dg": float(((dg_k - dg_p).abs() / dg_scale).max())}
+    fails = [k for k, v in rel.items() if not v <= WILSON_RTOL]
+    err_sin = float((sinp_k - sinp_p).abs().max())
+    if not err_sin <= SINP_ATOL:
+        fails.append("sin P")
+    if errs["wilson_backward"] != 0.0:
+        fails.append("backward")
+    txt = ", ".join(f"{k} rel {v:.3e}" for k, v in rel.items())
+    return errs, fails, (f"{txt}, max|d sinP| {err_sin:.3e}, backward "
+                         f"max|d| {errs['wilson_backward']:.3e}")
+
+
 def wilson_check_phase(device):
-    """Phase 6: forward, backward and double backward against their plain
-    versions at the training shape and at 64x64, near-equilibrium and
-    uniform links, g = beta, random w; each timed beside its plain
-    version.  Returns ``{kernel: {max_abs_err, ms, plain_ms, bound_ms,
-    bound_by}}`` at the main path's shape (the first)."""
+    """Phase 6: every Wilson kernel on every route that can hold the
+    lattice against its plain version at the training shape, at 64x64,
+    128x128 and 160x160 (the global route), near-equilibrium and uniform
+    links, g = beta, random w; at the first two shapes each timed on its
+    planned route beside its plain version and the empty-kernel floor, the
+    inputs cycled through copies larger than twice the L2.  Returns
+    ``{kernel: {max_abs_err (the largest over the routes), ms, plain_ms,
+    bound_ms, bound_by}}`` at the main path's shape (the first)."""
+    from l2hmc_tpu_torch.benchmarks import device_profile
+    from l2hmc_tpu_torch.benchmarks.wilson_routes import (
+        input_sets, on_route, rotated, routes_of, time_routes)
     from l2hmc_tpu_torch.lattice.u1 import typical_links
     from l2hmc_tpu_torch.ops import wilson as W
 
+    floor_us = empty_kernel_us(device)
+    floor_txt = "not measured" if floor_us is None else f"{floor_us:.2f} us"
+    log(f"[wilson] empty kernel (128 blocks of 256 threads): device time per "
+        f"launch {floor_txt} (torch.profiler, {WILSON_PROFILE_REPS} launches)")
     rng = np.random.default_rng(606)
     out = {}
-    for b, lt, lx in WILSON_SHAPES:
+    for shape_no, (b, lt, lx) in enumerate(WILSON_SHAPES):
+        plan = W.wilson_plan(b, lt, lx)
+        log(f"[wilson] ({b}, {lt}, {lx}, 2): plan {vars(plan)}")
         for kind in ("typical", "uniform"):
             a = (typical_links(rng, b, lt, lx, sigma=0.3) if kind == "typical"
                  else rng.uniform(-np.pi, np.pi, (b, lt, lx, 2)))
@@ -889,56 +949,44 @@ def wilson_check_phase(device):
             g = torch.full((b,), BETA, device=device)
             w = torch.tensor(rng.standard_normal((b, lt, lx, 2)),
                              dtype=torch.float32, device=device)
-            s_k, sinp_k = W.wilson_forward(links)
-            s_p, sinp_p = W.wilson_forward_reference(links)
-            f_k = W.wilson_backward(sinp_p, g)
-            f_p = W.wilson_backward_reference(sinp_p, g)
-            dl_k, dg_k = W.wilson_double_backward(links, g, w)
-            dl_p, dg_p = W.wilson_double_backward_reference(links, g, w)
-            torch.cuda.synchronize()
-            p = links[..., 0] - links[..., 1] - torch.roll(
-                links[..., 0], -1, -1) + torch.roll(links[..., 1], -1, -2)
-            r = (w[..., 0] - torch.roll(w[..., 0], -1, -1) - w[..., 1]
-                 + torch.roll(w[..., 1], -1, -2))
-            s_scale = torch.sum(1.0 - torch.cos(p), dim=(1, 2))
-            dg_scale = torch.sum(torch.abs(r * torch.sin(p)), dim=(1, 2))
-            errs = {
-                "wilson_forward": max(float((s_k - s_p).abs().max()),
-                                      float((sinp_k - sinp_p).abs().max())),
-                "wilson_backward": float((f_k - f_p).abs().max()),
-                "wilson_double_backward": max(
-                    float((dl_k - dl_p).abs().max()),
-                    float((dg_k - dg_p).abs().max())),
-            }
-            rel_s = float(((s_k - s_p).abs() / s_scale).max())
-            rel_dg = float(((dg_k - dg_p).abs() / dg_scale).max())
-            rel_dl = float((dl_k - dl_p).abs().max() / dl_p.abs().max())
-            err_sin = float((sinp_k - sinp_p).abs().max())
-            log(f"[wilson] ({b}, {lt}, {lx}, 2) {kind}: S rel {rel_s:.3e}, "
-                f"max|d sinP| {err_sin:.3e}, force max|d| "
-                f"{errs['wilson_backward']:.3e}, dlinks rel {rel_dl:.3e}, "
-                f"dg rel {rel_dg:.3e}; max abs {errs}")
-            if not (rel_s <= WILSON_RTOL and err_sin <= SINP_ATOL
-                    and errs["wilson_backward"] == 0.0
-                    and rel_dl <= WILSON_RTOL and rel_dg <= WILSON_RTOL):
-                raise AssertionError(
-                    f"wilson ({b}, {lt}, {lx}) {kind}: a kernel disagrees "
-                    f"with its plain version (rtol {WILSON_RTOL}, sin P atol "
-                    f"{SINP_ATOL}, force exact)")
-            if kind != "typical":
+            worst = {}
+            for route in routes_of(b, lt, lx):
+                with on_route(route):
+                    errs, fails, txt = wilson_errors(W, links, g, w)
+                log(f"[wilson] ({b}, {lt}, {lx}, 2) {kind}, {route} route: "
+                    f"{txt}; max abs {errs}")
+                if fails:
+                    raise AssertionError(
+                        f"wilson ({b}, {lt}, {lx}) {kind}, {route} route: "
+                        f"{fails} disagree with the plain versions (rtol "
+                        f"{WILSON_RTOL}, sin P atol {SINP_ATOL}, backward "
+                        f"exact)")
+                worst = {k: max(v, worst.get(k, 0.0))
+                         for k, v in errs.items()}
+            if kind != "typical" or shape_no >= WILSON_TIMED:
                 continue
+            sets = input_sets(b, lt, lx, device, seed=shape_no)
             runs = {
-                "wilson_forward": (lambda: W.wilson_forward(links),
-                                   lambda: W.wilson_forward_reference(links)),
+                "wilson_forward": (
+                    lambda l, g, w, s: W.wilson_forward(l),
+                    lambda l, g, w, s: W.wilson_forward_reference(l)),
+                "wilson_action_only": (
+                    lambda l, g, w, s: W.wilson_action_only(l),
+                    lambda l, g, w, s: W.wilson_forward_reference(l)[0]),
                 "wilson_backward": (
-                    lambda: W.wilson_backward(sinp_p, g),
-                    lambda: W.wilson_backward_reference(sinp_p, g)),
+                    lambda l, g, w, s: W.wilson_backward(s, g),
+                    lambda l, g, w, s: W.wilson_backward_reference(s, g)),
+                "wilson_force": (
+                    lambda l, g, w, s: W.wilson_force(l, g),
+                    lambda l, g, w, s: W.wilson_force_reference(l, g)),
                 "wilson_double_backward": (
-                    lambda: W.wilson_double_backward(links, g, w),
-                    lambda: W.wilson_double_backward_reference(links, g, w)),
+                    lambda l, g, w, s: W.wilson_double_backward(l, g, w),
+                    lambda l, g, w, s: W.wilson_double_backward_reference(
+                        l, g, w)),
             }
             bounds = wilson_bounds(b, lt, lx)
-            for name, (kern, plain) in runs.items():
+            for name, pair in runs.items():
+                kern, plain = (rotated(sets, f) for f in pair)
                 ms = {}
                 for tag, fn in (("plain", plain), ("kernel", kern),
                                 ("kernel2", kern), ("plain2", plain)):
@@ -947,31 +995,42 @@ def wilson_check_phase(device):
                     ms[tag] = t / WILSON_REPS
                 call_ms = (min(ms["kernel"], ms["kernel2"]),
                            min(ms["plain"], ms["plain2"]))
-                dev = [device_profile(fn, 20) for fn in (kern, plain)]
+                dev = [device_profile(fn, WILSON_PROFILE_REPS)
+                       for fn in (kern, plain)]
                 dev_txt = ", ".join(
                     f"{tag} {1e3 * d[0]:.2f} us in {d[1]:.0f} kernels"
                     if d else f"{tag} not measured (no device time)"
                     for tag, d in zip(("kernel", "plain"), dev))
                 # the kernel's time on the card is its device time; a call
                 # from Python costs more (the host enqueues slower than
-                # the card runs these), which the call time shows
+                # the card runs these), which the host time shows
                 use_dev = all(dev)
-                res = {"max_abs_err": errs[name],
+                res = {"max_abs_err": worst[name],
                        "ms": dev[0][0] if use_dev else call_ms[0],
                        "plain_ms": dev[1][0] if use_dev else call_ms[1],
                        "bound_ms": bounds[name][0],
                        "bound_by": bounds[name][1]}
-                log(f"[wilson] ({b}, {lt}, {lx}, 2) {name}: per call from "
-                    f"Python {1e3 * call_ms[0]:.2f} us (runs "
+                log(f"[wilson] ({b}, {lt}, {lx}, 2) {name}: per-call host "
+                    f"time {1e3 * call_ms[0]:.2f} us (runs "
                     f"{1e3 * ms['kernel']:.2f}, {1e3 * ms['kernel2']:.2f}), "
                     f"plain {1e3 * call_ms[1]:.2f} us ({WILSON_REPS} "
                     f"back-to-back calls, CUDA events, min of two runs); "
-                    f"device time per call (torch.profiler, 20 calls): "
-                    f"{dev_txt}; bound {1e3 * res['bound_ms']:.3f} us "
+                    f"device time per call (torch.profiler, "
+                    f"{WILSON_PROFILE_REPS} calls, inputs cycled through "
+                    f"{len(sets)} copies): {dev_txt}; empty kernel "
+                    f"{floor_txt}; bound {1e3 * res['bound_ms']:.3f} us "
                     f"({res['bound_by']}); reported: "
                     f"{'device' if use_dev else 'call'} times")
-                if (b, lt, lx) == WILSON_SHAPES[0]:
+                if shape_no == 0:
                     out[name] = res
+    # at the training shape, each kernel on every route, in turns
+    b, lt, lx = WILSON_SHAPES[0]
+    routes = time_routes(b, lt, lx, device)
+    for name, us in routes["us"].items():
+        log(f"[wilson] ({b}, {lt}, {lx}, 2) wilson_{name}: device us per "
+            f"call by route, in turns (wilson_routes.py): " + ", ".join(
+                f"{r}{' (planned)' if r == routes['planned'][name] else ''} "
+                f"{v:.3f}" for r, v in us.items()))
     return out
 
 
@@ -1016,11 +1075,14 @@ def train_cfg():
 
 def wilson_launches_per_step(K):
     """Wilson kernel launches of one train step (x and z chains).  Per
-    trajectory: K+1 forces (each a forward and a backward kernel) and the
-    two Hamiltonians' forwards; the loss's backward adds the final
-    Hamiltonian's backward and one double backward per force that depends
-    on the params (all but the first)."""
-    return {"wilson_forward": 2 * (K + 3), "wilson_backward": 2 * (K + 2),
+    trajectory: K+1 fused forces (the leapfrog's ``grad_potential``) and the
+    two Hamiltonians' forwards: the initial one's links carry no gradient
+    (the action-only kernel), the final one's do (the forward that writes
+    sin P); the loss's backward adds the final Hamiltonian's backward and
+    one double backward per force that depends on the params (all but the
+    first)."""
+    return {"wilson_forward": 2, "wilson_action_only": 2,
+            "wilson_backward": 2, "wilson_force": 2 * (K + 1),
             "wilson_double_backward": 2 * K}
 
 
@@ -1142,6 +1204,7 @@ def train_check_phase(device):
 def train_phase(device):
     """Phase 8: the training path at the quick-start config, then the
     trained params served through ``l2hmc_chain``."""
+    from l2hmc_tpu_torch.benchmarks import device_profile
     from l2hmc_tpu_torch.dynamics.hmc import hmc_chain_u1_fused
     from l2hmc_tpu_torch.dynamics.l2hmc import get_eps
     from l2hmc_tpu_torch.lattice.u1 import u1_plaq_exact
@@ -1177,9 +1240,8 @@ def train_phase(device):
         f"{float(metrics[-1]['beta'][-1]):.5f}; lr "
         f"{float(metrics[-1]['lr'][-1]):.3e}; net params moved up to "
         f"{moved:.3e}")
-    wilson_now = {k: launch_counts(kernels)[k] for k in
-                  ("wilson_forward", "wilson_backward",
-                   "wilson_double_backward")}
+    wilson_now = {k: launch_counts(kernels)[k]
+                  for k in wilson_launches_per_step(K)}
     want = {k: v * steps for k, v in wilson_launches_per_step(K).items()}
     log(f"[train] Wilson launches {wilson_now}, derived {want}")
     gates = {

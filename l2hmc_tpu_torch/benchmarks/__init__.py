@@ -46,3 +46,39 @@ def device_info() -> dict:
         capture_output=True, text=True, check=True).stdout.strip()
     return {"name": torch.cuda.get_device_name(0),
             "nvidia_smi_name_power_limit": smi}
+
+
+def device_profile(fn, reps: int, tries: int = 2):
+    """``(device ms per call, kernels per call, [(kernel, device ms per
+    call)] top five)`` of ``fn`` over ``reps`` calls from torch.profiler's
+    CUDA activity; ``None`` when the profiler recorded no device time in
+    ``tries`` windows (it occasionally drops a window's kernels)."""
+    for _ in range(tries):
+        prof = _device_profile_once(fn, reps)
+        if prof is not None:
+            return prof
+    return None
+
+
+def _device_profile_once(fn, reps):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        rows.append((e.key, us / 1e3 / reps, e.count / reps))
+    total = sum(r[1] for r in rows)
+    if total <= 0:
+        return None
+    rows.sort(key=lambda r: -r[1])
+    return (total, sum(r[2] for r in rows),
+            [(k[:60], ms) for k, ms, _ in rows[:5]])

@@ -23,6 +23,12 @@ class HMCOut(NamedTuple):
 
 
 def _grad(potential_fn, x, beta):
+    """d/dx [beta U(x)] without a graph: the potential's ``force`` where it
+    has one, else autograd."""
+    force = getattr(potential_fn, "force", None)
+    if force is not None:
+        with torch.no_grad():
+            return force(x, beta)
     with torch.enable_grad():
         xg = x.detach().requires_grad_(True)
         (g,) = torch.autograd.grad(torch.sum(beta * potential_fn(xg)), xg)

@@ -143,8 +143,15 @@ def make_dynamics(cfg: DynamicsConfig, potential_fn: PotentialFn):
     def hamiltonian(x, v, beta):
         return potential_energy(x, beta) + kinetic_energy(v)
 
+    force = getattr(potential_fn, "force", None)
+
     def grad_potential(x, beta):
-        """d/dx [beta U(x)]; keeps the graph when x is part of one."""
+        """d/dx [beta U(x)]; keeps the graph when x is part of one.  A
+        potential with a ``force`` (``ops/wilson.py make_potential_fn``)
+        gives it in one call; otherwise autograd differentiates U."""
+        if force is not None:
+            with torch.set_grad_enabled(x.requires_grad):
+                return force(x, beta)
         with torch.enable_grad():
             xg = x if x.requires_grad else x.detach().requires_grad_(True)
             e = torch.sum(potential_energy(xg, beta))

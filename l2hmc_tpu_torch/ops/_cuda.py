@@ -95,19 +95,27 @@ _SIGNATURES = {
         _I, _I,                      # probe id, chain length m
         _I, _P,                      # device, stream
     ]),
+    "wilson_smem_bytes": (ctypes.c_size_t, [_I, _I, _I, _I]),
     "wilson_fwd_launch": (_I, [
-        _P, _P, _P,                  # links (B, Lt, Lx, 2); action (B,), sinp
-        _I, _I, _I, _I, _P,          # B, lt, lx, device, stream
+        _P, _P, _P,                  # links (B, Lt, Lx, 2); action (B,),
+                                     # sinp (B, Lt, Lx) or null (action only)
+        _I, _I, _I, _I,              # B, lt, lx, route
+        _I, _P,                      # device, stream
+    ]),
+    "wilson_force_launch": (_I, [
+        _P, _P, _P,                  # links, g (B,); force (B, Lt, Lx, 2)
+        _I, _I, _I, _I, _I, _P,      # B, lt, lx, route, device, stream
     ]),
     "wilson_bwd_launch": (_I, [
         _P, _P, _P,                  # sinp (B, Lt, Lx), g (B,); force
-        _I, _I, _I, _I, _P,          # B, lt, lx, device, stream
+        _I, _I, _I, _I, _I, _P,      # B, lt, lx, route, device, stream
     ]),
     "wilson_bwd_bwd_launch": (_I, [
         _P, _P, _P,                  # links, g (B,), w (B, Lt, Lx, 2)
         _P, _P,                      # dlinks (B, Lt, Lx, 2), dg (B,)
-        _I, _I, _I, _I, _P,          # B, lt, lx, device, stream
+        _I, _I, _I, _I, _I, _P,      # B, lt, lx, route, device, stream
     ]),
+    "empty_launch": (_I, [_I, _I, _I, _P]),   # blocks, threads, device, stream
 }
 
 

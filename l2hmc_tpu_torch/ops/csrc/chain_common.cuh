@@ -1,5 +1,5 @@
-// Shared device code of the U(1) chain kernels (hmc_chain.cu, l2hmc_chain.cu,
-// l2hmc_local_chain.cu).
+// Shared device code of the U(1) kernels (hmc_chain.cu, l2hmc_chain.cu,
+// l2hmc_local_chain.cu, wilson.cu).
 //
 // Link state is two flat fields per chain, one per direction, site index
 // i = t*Lx + s.  Neighbour sites are computed directly:
@@ -156,6 +156,68 @@ __device__ __forceinline__ float2 initial_momenta(
 
 __device__ __forceinline__ float sign_from_uniform(float u) {
   return u > 0.5f ? 1.0f : -1.0f;
+}
+
+// ---------------------------------------------------------------------------
+// mbarriers and TMA bulk copies (l2hmc_chain.cu's weight ring, wilson.cu's
+// block route).  A bulk copy moves `bytes` (a multiple of 16, both addresses
+// 16-byte aligned) from device memory into shared memory and completes on
+// the mbarrier `bar`, whose expected transaction bytes the caller has set.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar, int n) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(n)
+               : "memory");
+}
+
+// Makes mbarrier inits visible to the async proxy (TMA); then a block
+// barrier, before any thread waits on them.
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(unsigned long long* bar,
+                                               unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  const unsigned a = smem_addr(bar);
+  unsigned done;
+  do {
+    asm volatile(
+        "{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], "
+        "%2; selp.u32 %0, 1, 0, p; }"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
 }
 
 // Host helper: makes `device` current for one launch entry and restores the

@@ -291,47 +291,9 @@ __device__ __forceinline__ void tile_mma(const float4& a, const float* bsrc,
 // slot once the 8 product warps have released it; the product warps wait
 // on `full` only, so they run ahead of
 // each other and of the copies by up to `stages` chunks, with no block-wide
-// barrier per chunk.
+// barrier per chunk.  The mbarrier and bulk-copy helpers are in
+// chain_common.cuh.
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(unsigned long long* bar, int n) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)),
-               "r"(n)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(unsigned long long* bar,
-                                               unsigned bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-          smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
-                                          unsigned parity) {
-  const unsigned a = smem_addr(bar);
-  unsigned done;
-  do {
-    asm volatile(
-        "{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], "
-        "%2; selp.u32 %0, 1, 0, p; }"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
-                   smem_addr(bar))
-               : "memory");
-}
 
 // The 8 product warps only (named barrier 1).
 __device__ __forceinline__ void mma_warps_sync() {
@@ -357,12 +319,8 @@ struct Stream {
       mbar_expect_tx(s.full + st, kChunkBytes);
       const char* gsrc =
           static_cast<const char*>(src) + (size_t)j * kChunkBytes;
-      asm volatile(
-          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-          " [%0], [%1], %2, [%3];" ::"r"(
-              smem_addr(s.ring + (size_t)st * kChunkFloats)),
-          "l"(gsrc), "r"(kChunkBytes), "r"(smem_addr(s.full + st))
-          : "memory");
+      bulk_load(s.ring + (size_t)st * kChunkFloats, gsrc, kChunkBytes,
+                s.full + st);
     }
   }
   // Product warps: wait for chunk j, then release it.
@@ -776,7 +734,7 @@ l2hmc_chain_kernel(float* __restrict__ x0g, float* __restrict__ x1g,
       mbar_init(s.full + st, 1);
       mbar_init(s.empty + st, kMmaWarps);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    mbar_init_fence();
   }
   // zero the product operands (pads and idle chain columns stay finite)
   for (int k = tid; k < C * g.bs; k += nt) s.BUF[k] = 0.0f;

@@ -14,7 +14,8 @@ and in CUDA's libm against torch's kernels; the energy change is summed per
 site on both sides, so accept probabilities agree to ~1e-5 at 16x16 and
 ~4e-5 at 64x64 (8192 links per chain).  The Wilson kernels: S and dg to
 1e-5 of the sum of their terms' magnitudes, sin P to 1e-6, the force from
-the same sin P exactly, dlinks to 1e-5 of its largest entry.  The issue-rate
+the same sin P exactly, the fused force and dlinks to 1e-5 of their largest
+entry.  The issue-rate
 probes to 1e-5, the ablated kernels to their zero-net runs to 1e-6, the
 bf16 kernel as its test states.
 """
@@ -401,33 +402,78 @@ def _wilson_inputs(seed, b, lt, lx, device):
             arr(rng.standard_normal((b, lt, lx, 2))))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("b,lt,lx", [(3, 2, 2), (5, 4, 6), (7, 16, 16),
-                                     (2, 64, 64), (1, 3, 37)])
-def test_torch_wilson_kernels_match_plain(cuda_device, b, lt, lx):
-    links, g, w = _wilson_inputs(b * lt + lx, b, lt, lx, cuda_device)
-    before = (tw.wilson_forward.launches, tw.wilson_backward.launches,
-              tw.wilson_double_backward.launches)
+def _wilson_kernels_match_plain(links, g, w):
+    """Every Wilson kernel against its plain version on the same inputs:
+    S (both forward variants) and dg to 1e-5 of the sum of their terms'
+    magnitudes, sin P to 1e-6, the backward from the same sin P exactly,
+    the fused force and dlinks to 1e-5 of their largest entry.  Each wrapper
+    counts one launch."""
+    kernels = (tw.wilson_forward, tw.wilson_action_only, tw.wilson_backward,
+               tw.wilson_force, tw.wilson_double_backward)
+    before = [k.launches for k in kernels]
     s_k, sinp_k = tw.wilson_forward(links)
+    s_only = tw.wilson_action_only(links)
     s_p, sinp_p = tw.wilson_forward_reference(links)
     f_k = tw.wilson_backward(sinp_p, g)
+    force_k = tw.wilson_force(links, g)
     dl_k, dg_k = tw.wilson_double_backward(links, g, w)
     dl_p, dg_p = tw.wilson_double_backward_reference(links, g, w)
     torch.cuda.synchronize()
-    assert (tw.wilson_forward.launches, tw.wilson_backward.launches,
-            tw.wilson_double_backward.launches) == tuple(
-                n + 1 for n in before)
+    assert [k.launches for k in kernels] == [n + 1 for n in before]
     p = tw._plaq_sums(links[..., 0], links[..., 1])
     r = (w[..., 0] - torch.roll(w[..., 0], -1, -1) - w[..., 1]
          + torch.roll(w[..., 1], -1, -2))
     s_scale = torch.sum(1.0 - torch.cos(p), dim=(1, 2))
     dg_scale = torch.sum(torch.abs(r * torch.sin(p)), dim=(1, 2))
     assert bool(((s_k - s_p).abs() <= 1e-5 * s_scale).all())
+    assert bool(((s_only - s_p).abs() <= 1e-5 * s_scale).all())
     assert float((sinp_k - sinp_p).abs().max()) <= 1e-6
     assert torch.equal(f_k, tw.wilson_backward_reference(sinp_p, g))
+    force_p = tw.wilson_force_reference(links, g)
+    assert float((force_k - force_p).abs().max()) <= 1e-5 * float(
+        force_p.abs().max())
     assert float((dl_k - dl_p).abs().max()) <= 1e-5 * float(
         dl_p.abs().max())
     assert bool(((dg_k - dg_p).abs() <= 1e-5 * dg_scale).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,lt,lx", [(3, 2, 2), (5, 4, 6), (7, 16, 16),
+                                     (3, 32, 32), (2, 64, 64),
+                                     (2, 128, 128), (1, 160, 160),
+                                     (1, 3, 37)])
+def test_torch_wilson_kernels_match_plain(cuda_device, b, lt, lx):
+    _wilson_kernels_match_plain(*_wilson_inputs(b * lt + lx, b, lt, lx,
+                                                cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,lt,lx,route", [
+    (3, 2, 2, "block"), (3, 2, 2, "global"), (1, 3, 37, "block"),
+    (1, 3, 37, "global"), (5, 16, 16, "block"), (5, 16, 16, "global"),
+    (128, 16, 16, "global"), (2, 64, 64, "global"), (3, 33, 35, "block"),
+    (3, 33, 35, "global")])
+def test_torch_wilson_kernels_on_each_route(cuda_device, b, lt, lx, route):
+    """Each route held against the plain versions where the plan would not
+    pick it (odd sizes: the block route's float2 and float load fallback),
+    and the plan's shared memory against the launcher's."""
+    from l2hmc_tpu_torch.benchmarks.wilson_routes import on_route
+
+    plan = tw.wilson_plan(b, lt, lx, route)
+    lib = _cuda.library()
+    for code, kind in enumerate(tw.WILSON_KINDS):
+        assert lib.wilson_smem_bytes(code, tw.WILSON_ROUTES.index(route),
+                                     lt, lx) == plan.smem[kind]
+    with on_route(route):
+        _wilson_kernels_match_plain(*_wilson_inputs(b + lt * lx, b, lt, lx,
+                                                    cuda_device))
+        # a misaligned view takes an aligned copy, and agrees
+        links, g, w = _wilson_inputs(b + lt, b, lt, lx, cuda_device)
+        flat = torch.cat([torch.zeros(1, device=cuda_device),
+                          links.reshape(-1)])[1:].view(links.shape)
+        assert flat.data_ptr() % 16 != 0
+        torch.testing.assert_close(tw.wilson_force(flat, g),
+                                   tw.wilson_force(links, g), rtol=0, atol=0)
 
 
 @pytest.mark.cuda
@@ -445,6 +491,32 @@ def test_torch_wilson_kernel_autograd_matches_plain(cuda_device):
                                                        (x, b)))
     for k, p in zip(*out):
         torch.testing.assert_close(k, p, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_torch_wilson_force_fn_autograd_matches_plain(cuda_device):
+    """The fused force's autograd Function (backward: the double-backward
+    kernel) and the kernel potential's ``force`` against autograd of the
+    plain force on the card, for the link and the per-chain ``g``
+    cotangents."""
+    from l2hmc_tpu_torch.lattice.u1 import LatticeShape
+
+    links, beta, c = _wilson_inputs(12, 4, 16, 16, cuda_device)
+    pot = tw.make_potential_fn(LatticeShape(16, 16))
+    runs = {"WilsonForceFn": tw.WilsonForceFn.apply,
+            "potential force": lambda x, b: pot.force(
+                x.reshape(4, -1), b).reshape(x.shape),
+            "plain": tw.wilson_force_reference}
+    out = {}
+    for name, fn in runs.items():
+        x = links.clone().requires_grad_(True)
+        b = beta.clone().requires_grad_(True)
+        f = fn(x, b)
+        out[name] = (f.detach(),) + torch.autograd.grad(torch.sum(c * f),
+                                                        (x, b))
+    for name in ("WilsonForceFn", "potential force"):
+        for k, p in zip(out[name], out["plain"]):
+            torch.testing.assert_close(k, p, atol=1e-4, rtol=1e-5)
 
 
 @pytest.mark.cuda
@@ -486,6 +558,10 @@ def test_torch_wilson_wrappers_reject_bad_input(cuda_device):
         tw.wilson_backward(sinp, g.cpu())
     with pytest.raises(ValueError, match="shape"):
         tw.wilson_backward(sinp, g[:1])
+    with pytest.raises(ValueError, match="float32"):
+        tw.wilson_force(links, g.double())
+    with pytest.raises(ValueError, match="CUDA"):
+        tw.wilson_force(links, g.cpu())
 
 
 @pytest.mark.cuda

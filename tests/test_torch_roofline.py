@@ -232,7 +232,8 @@ def test_torch_benchmarks_import_no_jax():
 import sys
 before = {m for m in sys.modules if m == "jax" or m.startswith("jax.")}
 from l2hmc_tpu_torch.benchmarks import (ab_time, kernel_decomposition,
-                                        local_kernel_bench, vpu_roofline)
+                                        local_kernel_bench, vpu_roofline,
+                                        wilson_routes, wilson_variants)
 a, h = vpu_roofline.transition_op_counts(2048, 16, 16, 3)
 assert a["exp"] == 5120 * 4096 + 2048 and h["exp"] == 2048, (a, h)
 jax_mods = {m for m in sys.modules if m == "jax" or m.startswith("jax.")}

@@ -45,9 +45,11 @@ Phases (any failure raises and the script exits non-zero):
    empty kernel (the launch floor); at the training shape each kernel also
    on both routes in turns (block, and global: one block per chain reading
    device memory).
-7. One train step at the README quick-start config through the Wilson
-   kernels against the same step on the plain potential: same state and
-   injected draws; loss, metrics, every gradient, updated params, x.
+7. One train step through the Wilson kernels against the same step on the
+   plain potential: same state and injected draws; loss, metrics, every
+   gradient, updated params, x; at the README quick-start config and at
+   the canonical 8x8 one (conv nets, split integrator, K=3, eps 0.35
+   trainable), remat on (each leapfrog step recomputed in the backward).
 8. Main path "train": the quick-start config (16x16, 128 chains, K=4, eps
    0.079 fixed, MLP h64, charge_reward, train_hops) from a seeded init on
    the card, 3 chunks of 100 train steps, every force through the Wilson
@@ -63,6 +65,19 @@ Phases (any failure raises and the script exits non-zero):
    counts and issue estimates, the champion's full / ablated / bf16 / HMC
    decomposition, local64 c4L1 and c8L1 with their ablated forms and HMC at
    K=4 and 8, and the champion served with bf16 weights (plaquette gate).
+10. Main path "cli": the README's commands through
+   ``l2hmc_tpu_torch.cli.train_gauge.main`` in a temporary log dir, cut in
+   length (``CLI_RUNS``): the canonical 8x8 command (200 train steps with
+   checkpoints, then ``--restore`` to 300 and 8000 eval transitions per
+   beta), the tuned-HMC baseline (16x16, K=4, eps 0.079, beta 5,
+   Metropolis warm start, 500 transitions) and the topological quick start
+   (16x16 MLP h64, 200 train steps, 500 eval transitions with a hop each
+   after 500 Metropolis sweeps).  Gates on the eval files the CLI wrote:
+   plaquette within 1e-3 of I1/I0 at beta_final and beta_final - 1 (its
+   jackknife error printed beside it), acceptance above 0.05, the
+   topological run's <Q^2> within 10% of exact; the restored run logs
+   step 200 and writes step 250 first; every command's Wilson launches
+   equal the count derived from its train steps and eval transitions.
 
 Each main path checks plaquettes against I1(4)/I0(4), the hop sampler's
 <Q^2> against the exact finite-volume value, and that its kernels were
@@ -1073,65 +1088,84 @@ def train_cfg():
         train_hops=True, beta_init=2.0, beta_final=5.0, train_steps=12000)
 
 
-def wilson_launches_per_step(K):
-    """Wilson kernel launches of one train step (x and z chains).  Per
-    trajectory: K+1 fused forces (the leapfrog's ``grad_potential``) and the
+def wilson_launches_per_step(K, remat=True):
+    """Wilson kernel launches of one train step (x and z chains), split or
+    merged integrator alike.  Per trajectory: K+1 fused forces (the
+    leapfrog's ``grad_potential``: the start's and one per step) and the
     two Hamiltonians' forwards: the initial one's links carry no gradient
     (the action-only kernel), the final one's do (the forward that writes
     sin P); the loss's backward adds the final Hamiltonian's backward and
     one double backward per force that depends on the params (all but the
-    first)."""
+    first).  With ``remat`` (the default) the backward recomputes each
+    checkpointed leapfrog step, its force included: K more forces."""
     return {"wilson_forward": 2, "wilson_action_only": 2,
-            "wilson_backward": 2, "wilson_force": 2 * (K + 1),
+            "wilson_backward": 2,
+            "wilson_force": 2 * (K + 1 + (K if remat else 0)),
             "wilson_double_backward": 2 * K}
 
 
-def clone_state(state):
-    import copy
-
-    from l2hmc_tpu_torch.dynamics.nuts import DualAveragingState
-
-    opt = state.opt_state
-    return state._replace(
-        params=copy.deepcopy(state.params),
-        opt_state=opt._replace(mu={k: v.clone() for k, v in opt.mu.items()},
-                               nu={k: v.clone() for k, v in opt.nu.items()}),
-        x=state.x.clone(), da=DualAveragingState(*[t.clone()
-                                                   for t in state.da]))
+def wilson_launches_per_transition(K):
+    """Wilson kernel launches of one sampling transition without gradients
+    (``make_eval_chunk``): K+1 forces and the two Hamiltonians' action-only
+    forwards."""
+    return {"wilson_forward": 0, "wilson_action_only": 2,
+            "wilson_backward": 0, "wilson_force": K + 1,
+            "wilson_double_backward": 0}
 
 
 def train_check_phase(device):
     """Phase 7: one train step through the Wilson kernels against the same
-    step on the plain potential, same state (nets perturbed, optimizer past
-    the lr warmup, near-equilibrium links) and the same injected draws."""
+    step on the plain potential, at the quick-start config and at the
+    canonical 8x8 one (conv nets, split integrator, trainable eps), both
+    with remat on; the largest relative error of the two."""
+    return max(train_check(train_cfg(), device, "16x16 mlp merged", 0.02),
+               train_check(canonical_cfg(), device, "8x8 conv split", 0.002))
+
+
+def canonical_cfg():
+    """The README's canonical 8x8 command (README.md, "Quick start"):
+    128 chains, K=3, eps 0.35 trainable, conv nets with hidden 2 x_dim =
+    256, split integrator, beta 2 -> 4 over 5000 steps."""
+    from l2hmc_tpu_torch.cli.train_gauge import build_parser, flags_to_config
+
+    return flags_to_config(build_parser().parse_args(
+        README_CANONICAL + ["--device", "cuda"]))
+
+
+def train_check(cfg, device, label, bump):
+    """One train step of ``cfg`` through the Wilson kernels against the same
+    step on the plain potential, same state (nets perturbed by N(0,
+    bump^2), optimizer past the lr warmup, near-equilibrium links) and the
+    same injected draws.  The conv nets' heads start ~0.003 wide, so they
+    take a smaller bump than the MLP's to keep the sampler accepting."""
     from l2hmc_tpu_torch.dynamics.topo import instanton_hop_with
     from l2hmc_tpu_torch.lattice import u1
     from l2hmc_tpu_torch.ops.wilson import make_plain_potential_fn
     from l2hmc_tpu_torch.train import gauge as tg
     from l2hmc_tpu_torch.train.schedules import beta_schedule
 
-    cfg = train_cfg()
     b, d = cfg.num_chains, cfg.x_dim
+    lt, lx = cfg.time_size, cfg.space_size
     gen = torch.Generator(device=device).manual_seed(707)
     state = tg.init_train_state(cfg, gen, device)
     rng = np.random.default_rng(707)
     with torch.no_grad():
         for net in (state.params.xnet, state.params.vnet):
             for p in net.parameters():
-                p.add_(torch.tensor(0.02 * rng.standard_normal(p.shape),
+                p.add_(torch.tensor(bump * rng.standard_normal(p.shape),
                                     dtype=torch.float32, device=device))
     count = cfg.lr_warmup_steps + 100
-    x = u1.to_flat(torch.tensor(u1.typical_links(rng, b, 16, 16, sigma=0.5),
+    x = u1.to_flat(torch.tensor(u1.typical_links(rng, b, lt, lx, sigma=0.5),
                                 device=device))
     state = state._replace(x=x, step=count,
                            opt_state=state.opt_state._replace(count=count))
-    draws = tg.draw_train_randomness(gen, b, d, True, device)
+    draws = tg.draw_train_randomness(gen, b, d, cfg.train_hops, device)
     beta = beta_schedule(count, cfg.train_steps, cfg.beta_init,
                          cfg.beta_final)
     res = {}
     for name, pot in (("kernel", None),
                       ("plain", make_plain_potential_fn(cfg.shape))):
-        st = clone_state(state)
+        st = tg.clone_train_state(state)
         _, dyn = tg.build_dynamics(cfg, pot)
         _, loss_with = tg.make_loss_fn(cfg, dyn)
         leaves = tg.named_leaves(st.params)
@@ -1142,15 +1176,16 @@ def train_check_phase(device):
         with torch.no_grad():
             tr = dyn["transition_with"](st.params, st.x, beta, draws.v_x,
                                         draws.d_x, draws.u_x)
-            hop = instanton_hop_with(u1.wrap(tr.x_out), beta, draws.nu,
-                                     draws.u_hop, cfg.shape)
+            hop_prob = (instanton_hop_with(
+                u1.wrap(tr.x_out), beta, draws.nu, draws.u_hop,
+                cfg.shape).accept_prob if cfg.train_hops else None)
         new, m = tg.make_train_step(cfg, pot)[1](st, draws)
         res[name] = dict(loss=float(loss.detach()), grads=grads, state=new,
-                         m=m,
-                         prob=tr.accept_prob, hop_prob=hop.accept_prob)
+                         m=m, prob=tr.accept_prob, hop_prob=hop_prob)
     k, p = res["kernel"], res["plain"]
-    tie = (((draws.u_x - p["prob"]).abs() < NEAR_TIE)
-           | ((draws.u_hop - p["hop_prob"]).abs() < NEAR_TIE))
+    tie = (draws.u_x - p["prob"]).abs() < NEAR_TIE
+    if cfg.train_hops:
+        tie = tie | ((draws.u_hop - p["hop_prob"]).abs() < NEAR_TIE)
     n_ex = int(tie.sum())
     if n_ex > b // 64:
         raise AssertionError(f"train step: {n_ex} chains hit a near-tie "
@@ -1171,7 +1206,7 @@ def train_check_phase(device):
             raise AssertionError(f"train step: gradient {n} changes sign "
                                  f"where it is not rounding-sized")
         flips += int(flip.sum())
-        dp = (pk[n] - pp[n]).abs()
+        dp = (pk[n] - pp[n]).detach().abs()
         param_all = max(param_all, float(dp.max()) / lr)
         big = (gp.abs() >= PARAM_G_REL * scale) & (gp.abs() >= PARAM_G_ABS)
         n_small += int((~big).sum())
@@ -1183,8 +1218,12 @@ def train_check_phase(device):
     if n_ex == 0:
         m_err.update({key: abs(float(k["m"][key]) - float(p["m"][key]))
                       for key in ("dq", "actions", "plaqs", "charges2")})
-    log(f"[train-check] kernel vs plain, one step at {b} chains 16x16 K="
-        f"{cfg.num_steps} h{cfg.hidden}: loss {k['loss']:.6f} vs "
+    # trainable eps: one Adam step of ~lr from gradients that agree to
+    # TRAIN_GRAD_RTOL, compared like the params
+    eps_gate = (m_err["eps"] <= TRAIN_PARAM_LR_TOL * lr if cfg.eps_trainable
+                else m_err["eps"] == 0.0)
+    log(f"[train-check] {label}: kernel vs plain, one step at {b} chains "
+        f"{lt}x{lx} K={cfg.num_steps} h{cfg.hidden}: loss {k['loss']:.6f} vs "
         f"{p['loss']:.6f} (rel {rel_loss:.3e}); grads max|d|/max|g| "
         f"{grad_rel:.3e}; params max|d| {param_err:.3e} lr where |g| is "
         f"not small ({param_all:.3e} lr over all, {n_small} small-|g| "
@@ -1194,10 +1233,10 @@ def train_check_phase(device):
         f"{float(p['prob'].mean()):.4f}")
     if not (rel_loss <= TRAIN_LOSS_RTOL and grad_rel <= TRAIN_GRAD_RTOL
             and param_err <= TRAIN_PARAM_LR_TOL and err_x <= ATOL
-            and m_err["accept_prob"] <= ATOL
-            and all(m_err[key] == 0.0 for key in ("eps", "beta", "lr"))):
-        raise AssertionError("train step: the Wilson kernels' step disagrees "
-                             "with the plain potential's")
+            and m_err["accept_prob"] <= ATOL and eps_gate
+            and all(m_err[key] == 0.0 for key in ("beta", "lr"))):
+        raise AssertionError(f"train step ({label}): the Wilson kernels' "
+                             f"step disagrees with the plain potential's")
     return max(rel_loss, grad_rel, err_x)
 
 
@@ -1289,10 +1328,10 @@ def train_phase(device):
     chunks = {"kernel": tg.make_train_chunk(cfg, PLAIN_TRAIN_STEPS),
               "plain": tg.make_train_chunk(
                   cfg, PLAIN_TRAIN_STEPS, make_plain_potential_fn(cfg.shape))}
-    chunks["plain"](clone_state(state), gen)
+    chunks["plain"](tg.clone_train_state(state), gen)
     turns = {"kernel": [], "plain": []}
     for tag in ("plain", "kernel", "kernel", "plain"):
-        st = clone_state(state)
+        st = tg.clone_train_state(state)
         _, t = timed(lambda: chunks[tag](st, gen))
         turns[tag].append(t / PLAIN_TRAIN_STEPS)
     kernel_ms = float(np.mean(ms[1:]))
@@ -1303,7 +1342,8 @@ def train_phase(device):
         f"{[round(t, 3) for t in turns['kernel']]}, plain potential "
         f"{[round(t, 3) for t in turns['plain']]}")
     step_fn = tg.make_train_step(cfg)[0]
-    prof = device_profile(lambda: step_fn(clone_state(state), gen), 3)
+    prof = device_profile(
+        lambda: step_fn(tg.clone_train_state(state), gen), 3)
     if prof is None:
         log("[train] device time per step: not measured (the profiler "
             "recorded no device time)")
@@ -1313,6 +1353,172 @@ def train_phase(device):
             f"{prof[0] / kernel_ms:.1%} of the {kernel_ms:.3f} ms step; "
             f"top kernels (ms/step): {prof[2]}")
     return launches, kernel_ms, plain_ms
+
+# ---------------------------------------------------------------------------
+# Phase 10: the README quick start through the port's CLI
+# ---------------------------------------------------------------------------
+
+# the README's commands (README.md, "Quick start" and "The topological
+# sampler"), as python -m l2hmc_tpu_torch.cli.train_gauge takes them
+README_CANONICAL = ["--space_size", "8", "--time_size", "8",
+                    "--num_samples", "128", "--num_steps", "3", "--eps",
+                    "0.35", "--beta_init", "2", "--beta_final", "4",
+                    "--train_steps", "5000"]
+README_HMC = ["--hmc", "--eps", "0.2921", "--space_size", "16",
+              "--time_size", "16"]
+README_TOPO = ["--time_size", "16", "--space_size", "16", "--num_samples",
+               "128", "--num_steps", "4", "--eps", "0.079", "--eps_fixed",
+               "--network_arch", "mlp", "--num_hidden", "64",
+               "--merge_v_halves", "--charge_reward", "--train_hops",
+               "--beta_final", "5.0"]
+README_HMC_BASELINE = ["--time_size", "16", "--space_size", "16",
+                       "--num_samples", "128", "--num_steps", "4", "--eps",
+                       "0.079", "--eps_fixed", "--hmc", "--beta_init", "5.0",
+                       "--beta_final", "5.0", "--train_steps", "0",
+                       "--eval_init", "metropolis"]
+# Each command cut in length.  The canonical one trains 200 steps with
+# checkpoints and no eval, then resumes to 300 and evaluates 8000
+# transitions per beta, so that the plaquette's jackknife error comes near
+# 2e-4 (the 1e-3 gate at ~5 sigma): at 128 chains of 8x8 it was 4.2-6.2e-4
+# after 500 transitions, 1.9e-4 (beta=4) / 2.3e-4 (beta=3) after 4000 and
+# 2.2e-4 / 1.6e-4 after 8000 (NVIDIA H100 80GB HBM3, 700.00 W): 300 train
+# steps leave a slowly mixing sampler (acceptance ~0.35 at beta=4), whose
+# error no affordable length takes reliably below 2e-4.  The HMC line is the
+# README's tuned baseline (K=4, eps 0.079 fixed, beta 5, Metropolis warm
+# start): its plain-HMC line (README_HMC, eps 0.2921 trainable) accepts
+# ~0.01 at beta=4 on 16x16 and ESJD training raises eps further.  The
+# topological one runs without --retrain_acc (its detector would retrain a
+# 200-step training up to 3 times).
+CLI_RUNS = {
+    "canonical": README_CANONICAL + ["--train_steps", "200", "--save_steps",
+                                     "100", "--run_steps", "0"],
+    "canonical-restore": README_CANONICAL + [
+        "--restore", "--train_steps", "300", "--save_steps", "100",
+        "--run_steps", "8000"],
+    "hmc": README_HMC_BASELINE + ["--run_steps", "500",
+                                  "--eval_therm_sweeps", "500"],
+    "topo": README_TOPO + ["--train_steps", "200", "--eval_hops", "1",
+                           "--run_steps", "500", "--eval_init", "metropolis",
+                           "--eval_therm_sweeps", "500"],
+}
+
+
+class _Tee:
+    """A stdout that also keeps what is written (the CLI's log lines)."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+    def text(self):
+        return "".join(self.parts)
+
+
+def cli_run(name, argv, log_dir, kernels, device):
+    """One CLI command in-process on the card; ``(run dir, log text, Wilson
+    launches)``."""
+    import contextlib
+
+    from l2hmc_tpu_torch.cli import train_gauge
+
+    reset_launches()
+    tee = _Tee(sys.stdout)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        rc = train_gauge.main(argv + ["--log_dir", str(log_dir),
+                                      "--device", str(device)])
+    secs = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"cli {name}: exit code {rc}")
+    wilson = {k: v for k, v in launch_counts(kernels).items()
+              if k.startswith("wilson_")}
+    runs = sorted(log_dir.glob("run_*"), key=lambda p: int(p.name[4:]))
+    log(f"[cli] {name}: {secs:.1f} s; Wilson launches {wilson}")
+    return runs[-1], tee.text(), wilson, secs
+
+
+def cli_phase(device):
+    """Phase 10: the README's three commands through
+    ``l2hmc_tpu_torch.cli.train_gauge.main``, cut in length, the canonical
+    one resumed by ``--restore``; gates on the eval files the CLI wrote."""
+    import re
+    import tempfile
+    from pathlib import Path
+
+    from l2hmc_tpu_torch.analysis import stats
+    from l2hmc_tpu_torch.cli.train_gauge import build_parser, flags_to_config
+
+    kernels = reset_launches()
+    out = {}
+    failed = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        for name, argv in CLI_RUNS.items():
+            log_dir = Path(tmp) / name.split("-")[0]
+            run_dir, text, wilson, secs = cli_run(name, argv, log_dir,
+                                                  kernels, device)
+            args = build_parser().parse_args(argv)
+            cfg = flags_to_config(args)
+            mfile = run_dir / "metrics.jsonl"
+            recs = ([json.loads(line) for line in
+                     mfile.read_text().splitlines()] if mfile.exists()
+                    else [])
+            start = 0
+            if "--restore" in argv:
+                m = re.search(r"restored step (\d+)", text)
+                start = int(m.group(1)) if m else -1
+                if start != 200 or recs[0]["step"] != 250:
+                    failed.append(f"{name}: restored step {start}, first "
+                                  f"record step {recs[0]['step']}")
+            steps = cfg.train_steps - start
+            n_eval = max(min(args.run_steps, 1000), 1)
+            n_tr = 2 * n_eval * -(-args.run_steps // n_eval)
+            per_step = wilson_launches_per_step(cfg.num_steps)
+            per_tr = wilson_launches_per_transition(cfg.num_steps)
+            want = {k: steps * per_step[k] + n_tr * per_tr[k]
+                    for k in per_step}
+            if wilson != want:
+                failed.append(f"{name}: Wilson launches {wilson}, derived "
+                              f"{want}")
+            ms_step = (float(np.mean([r["dt"] for r in recs[1:]])) * 1e3
+                       if len(recs) > 1 else float("nan"))
+            tps = [float(x) for x in re.findall(
+                r"\(([0-9.]+) transitions/s\)", text)]
+            line = {"ms_per_train_step": ms_step, "transitions_per_s": tps,
+                    "seconds": secs, "train_steps": steps}
+            for beta in ((cfg.beta_final, cfg.beta_final - 1.0)
+                         if args.run_steps else ()):
+                ev = json.loads((run_dir / f"eval_beta{beta:g}.json")
+                                .read_text())
+                with np.load(run_dir / f"eval_beta{beta:g}.npz") as z:
+                    plaq_trace = stats.therm_cut(z["plaqs"]).mean(axis=1)
+                _, jk = stats.jackknife(plaq_trace)
+                plaq, exact = ev["plaqs"]["mean"], ev["plaq_exact"]
+                acc = ev["accept_prob"]["mean"]
+                q2, q2x = (ev["charges"]["susceptibility"],
+                           ev.get("q2_exact", float("nan")))
+                line[f"beta{beta:g}"] = dict(
+                    plaq=plaq, plaq_exact=exact, plaq_jackknife_err=jk,
+                    accept=acc, q2=q2, q2_exact=q2x)
+                if abs(plaq - exact) > PLAQ_TOL:
+                    failed.append(f"{name} beta={beta:g}: plaquette {plaq:.6f}"
+                                  f" +- {jk:.2e} against {exact:.6f}")
+                if acc <= MIN_ACCEPT:
+                    failed.append(f"{name} beta={beta:g}: acceptance {acc}")
+                if name == "topo" and abs(q2 / q2x - 1.0) > Q2_RTOL:
+                    failed.append(f"{name} beta={beta:g}: <Q^2> {q2:.4f} "
+                                  f"against {q2x:.4f}")
+            log(f"[cli] {name}: {json.dumps(line)}")
+            out[name] = line
+    if failed:
+        raise AssertionError(f"cli: failed gates {failed}")
+    return out
+
 
 # ---------------------------------------------------------------------------
 # Phase 9: the cost decomposition (l2hmc_tpu_torch/benchmarks)
@@ -1758,6 +1964,7 @@ def main():
     train_err = train_check_phase(device)
     tl, train_ms, train_plain_ms = train_phase(device)
     dec = decomposition_phase(params, eps_c, cfg.num_steps, device)
+    cli = cli_phase(device)
 
     from l2hmc_tpu_torch.train.gauge import init_params
 
@@ -1857,6 +2064,10 @@ def main():
         f"functions.  Train step {train_ms:.3f} "
         f"ms (plain potential {train_plain_ms:.3f} ms); train-step check "
         f"max rel err {train_err:.3e}; on {smi}")
+    for cmd, line in cli.items():
+        log(f"[result] cli {cmd}: {line['ms_per_train_step']:.3f} ms per "
+            f"train step, {line['transitions_per_s']} transitions/s (eval at "
+            f"beta_final, beta_final - 1); on {smi}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -11,12 +11,18 @@ lattice   U(1) gauge lattice: Wilson action, observables, exact oracles;
 ops       Wilson action with analytic gradient and its kernels (forward,
           backward, double backward); the fused chain kernels (hand-written
           CUDA C++ for sm_90a, with plain PyTorch versions)
-networks  the S/T/Q conditioners (MLP, local 5-point stencil) as
-          ``nn.Module``s
-dynamics  the trained L2HMC transition (u1, merge_v_halves), plain HMC,
-          the exact instanton hop, dual averaging of the step size
+networks  the S/T/Q conditioners (MLP, periodic CNN, local image net,
+          local 5-point stencil) as ``nn.Module``s
+dynamics  the trained L2HMC transition (every DynamicsConfig setting but
+          the chain operator), plain HMC, the exact instanton hop, dual
+          averaging of the step size
 train     gauge config, builders, losses, schedules, the optimizer and train
-          step, train/eval chunks, checkpoints
+          step, train/eval chunks, checkpoints (save, restore, JAX states
+          carried across)
+analysis  MCMC statistics and the offline re-analysis of a run dir (numpy)
+utils     argfile parsing, run dirs, the metrics logger
+cli       ``python -m l2hmc_tpu_torch.cli.train_gauge`` (the training CLI)
+          and ``python -m l2hmc_tpu_torch.cli.analyze_run``
 
 Entry points that create tensors put them on the first CUDA device unless
 given ``device="cpu"`` (``_device.resolve_device``).

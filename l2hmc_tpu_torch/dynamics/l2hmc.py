@@ -1,10 +1,15 @@
 """L2HMC augmented-leapfrog transition (port of ``l2hmc_tpu/dynamics/l2hmc.py``).
 
-Restricted to the champion family: ``group='u1'`` (periodic cos/sin network
-features, circle-diffeomorphism position scaling with exact log-Jacobian),
-``merge_v_halves`` (K+1 momentum kicks per trajectory), one fused
-integration per chain with a random per-chain direction, and the ``hmc``
-zero-net mode.  Other settings raise ``NotImplementedError``.
+Every setting of the reference's :class:`DynamicsConfig`: ``group='u1'``
+(periodic cos/sin network features, circle-diffeomorphism position scaling
+with exact log-Jacobian) or ``'r1'`` (raw features, the flat
+``x exp(eps s) + eps (exp(eps q) v + t)`` update); the split integrator
+(2K momentum half-kicks per trajectory, the potential gradient cached
+across steps: K+1 forces) or ``merge_v_halves`` (K+1 kicks); one fused
+integration per chain with a random per-chain direction, or
+``both_directions`` (forward and backward from the same momenta, one
+picked per chain); ``use_log_eps``; ``hmc`` zero nets; and ``remat``,
+activation checkpointing of each leapfrog step while autograd records.
 
 Update equations (per direction-fused sub-step; see the reference module)::
 
@@ -20,6 +25,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from l2hmc_tpu_torch.lattice.u1 import wrap as _wrap
 from l2hmc_tpu_torch.ops.l2hmc_kernel import _circle_scale as circle_scale
@@ -90,20 +96,6 @@ def get_eps(params: DynamicsParams, cfg: DynamicsConfig) -> torch.Tensor:
     return eps
 
 
-def _check_supported(cfg: DynamicsConfig):
-    unported = {
-        "group='r1'": cfg.group != "u1",
-        "the split integrator (merge_v_halves=False)": not cfg.merge_v_halves,
-        "both_directions": cfg.both_directions,
-        "use_log_eps": cfg.use_log_eps,
-    }
-    for what, hit in unported.items():
-        if hit:
-            raise NotImplementedError(
-                f"DynamicsConfig: {what} is not ported yet (ROADMAP queue A "
-                f"item 3, the rest of dynamics/l2hmc.py)")
-
-
 def make_dynamics(cfg: DynamicsConfig, potential_fn: PotentialFn):
     """Build the transition functions for a target potential.
 
@@ -113,16 +105,21 @@ def make_dynamics(cfg: DynamicsConfig, potential_fn: PotentialFn):
     ``transition(params, x, beta, generator) -> Transition``
     ``transition_with(params, x, beta, v, direction, u) -> Transition``
         (injected randomness: momenta ``v (B, x_dim)``, ``direction (B,)``
-        in {+1,-1}, accept uniforms ``u (B,)``)
+        in {+1,-1}, accept uniforms ``u (B,)``; with ``both_directions``
+        ``direction > 0`` is the per-chain coin that keeps the forward
+        trajectory)
     ``integrate(params, x, v, beta, direction) -> (x', v', sumlogdet)``
     ``hamiltonian``, ``potential_energy``, ``kinetic_energy``, ``accept_prob``.
 
-    ``cfg.remat`` is accepted and has no effect: it selects activation
-    checkpointing of the trajectory in the reference, which saves memory
-    in training only at large width (hidden ~4096).
+    ``cfg.remat`` wraps each leapfrog step in ``torch.utils.checkpoint``
+    (non-reentrant) while autograd records, as the reference wraps it in
+    ``jax.checkpoint``: the step's activations are recomputed in the
+    backward pass instead of kept, which re-runs the step's forces.
     """
-    _check_supported(cfg)
     K = cfg.num_steps
+    periodic = cfg.group == "u1"
+    if cfg.group not in ("u1", "r1"):
+        raise ValueError(f"group={cfg.group!r}")
 
     if cfg.hmc:
         def zero_net(net, v, x, t):
@@ -159,6 +156,9 @@ def make_dynamics(cfg: DynamicsConfig, potential_fn: PotentialFn):
         return g
 
     def pos_features(x, mask=None):
+        """Raw position for 'r1', (cos, sin) for 'u1'."""
+        if not periodic:
+            return x if mask is None else mask * x
         feats = torch.cat([torch.cos(x), torch.sin(x)], dim=-1)
         if mask is not None:
             feats = torch.cat([mask, mask], dim=-1) * feats
@@ -173,12 +173,18 @@ def make_dynamics(cfg: DynamicsConfig, potential_fn: PotentialFn):
         v_new = torch.where(d_col > 0, v * e - a, (v + a) * e)
         return v_new, d_row * torch.sum(h_s, dim=-1)
 
-    def update_x(params, x, v, tau, hold_mask, d_col, eps):
-        """Direction-fused position step on the torus; ``hold_mask`` part
-        stays fixed."""
+    def update_x(params, x, v, tau, hold_mask, d_col, d_row, eps):
+        """Direction-fused position step; ``hold_mask`` part stays fixed.
+        'r1': ``x exp(eps s) + b`` forward, ``(x - b) exp(-eps s)``
+        backward; 'u1': circle scaling and translation with wrap."""
         s, t, q = apply_net(params.xnet, v, pos_features(x, hold_mask), tau)
         es = eps * s
         b = eps * (torch.exp(eps * q) * v + t)
+        if not periodic:
+            e = torch.exp(d_col * es)
+            upd = torch.where(d_col > 0, x * e + b, (x - b) * e)
+            x_new = hold_mask * x + (1.0 - hold_mask) * upd
+            return x_new, d_row * torch.sum((1.0 - hold_mask) * es, dim=-1)
         u = torch.where(d_col > 0, x, _wrap(x - b))
         y, ld = circle_scale(u, d_col * es)
         upd = torch.where(d_col > 0, _wrap(y + b), y)
@@ -195,32 +201,56 @@ def make_dynamics(cfg: DynamicsConfig, potential_fn: PotentialFn):
         hold1 = torch.where(d_col > 0, mask, 1.0 - mask)
         return d_col, tau, hold1, 1.0 - hold1
 
-    def _integrate_merged(params, x, v, beta, direction):
-        """``merge_v_halves`` trajectory: K+1 VNet calls instead of 2K."""
+    def leapfrog_step(params, x, v, g, beta, step, d_row, eps):
+        """One split step: half-kick, the two X sub-updates, the force at
+        the new position (returned for the next step), half-kick."""
+        d_col, tau, hold1, hold2 = _step_context(params, step, d_row)
+        v, ld0 = update_v(params, x, v, g, tau, d_col, d_row, eps)
+        x, ld1 = update_x(params, x, v, tau, hold1, d_col, d_row, eps)
+        x, ld2 = update_x(params, x, v, tau, hold2, d_col, d_row, eps)
+        g = grad_potential(x, beta)
+        v, ld3 = update_v(params, x, v, g, tau, d_col, d_row, eps)
+        return x, v, g, ld0 + ld1 + ld2 + ld3
+
+    def leapfrog_step_merged(params, x, v, g, beta, step, d_row, eps):
+        """One ``merge_v_halves`` step: the boundary kick (a half-kick at
+        time 0, else a full kick at ``step - 1/2``), then the two X
+        sub-updates and the force at the new position."""
+        d_col, tau_x, hold1, hold2 = _step_context(params, step, d_row)
+        factor = 0.5 if step == 0 else 1.0
+        t_fwd = 0.0 if step == 0 else step - 0.5
+        t_bwd = K - 1.0 if step == 0 else K - 0.5 - step
+        tau_v = time_encoding(torch.where(d_row > 0, t_fwd, t_bwd), K)
+        v, ld0 = update_v(params, x, v, g, tau_v, d_col, d_row, eps,
+                          factor=factor)
+        x, ld1 = update_x(params, x, v, tau_x, hold1, d_col, d_row, eps)
+        x, ld2 = update_x(params, x, v, tau_x, hold2, d_col, d_row, eps)
+        return x, v, grad_potential(x, beta), ld0 + ld1 + ld2
+
+    def run_step(body, *args):
+        if cfg.remat and torch.is_grad_enabled():
+            return checkpoint(body, *args, use_reentrant=False,
+                              preserve_rng_state=False)
+        return body(*args)
+
+    def integrate(params, x, v, beta, direction):
+        """``num_steps`` leapfrog steps; ``direction (B,)`` in {+1,-1}."""
         eps = get_eps(params, cfg)
-        d_col = direction[:, None]
+        body = leapfrog_step_merged if cfg.merge_v_halves else leapfrog_step
         g = grad_potential(x, beta)
         sumlogdet = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
         for step in range(K):
-            _, tau_x, hold1, hold2 = _step_context(params, step, direction)
-            factor = 0.5 if step == 0 else 1.0
-            t_fwd = 0.0 if step == 0 else step - 0.5
-            t_bwd = K - 1.0 if step == 0 else K - 0.5 - step
-            tau_v = time_encoding(torch.where(
-                direction > 0, t_fwd, t_bwd), K)
-            v, ld = update_v(params, x, v, g, tau_v, d_col, direction, eps,
-                             factor=factor)
+            x, v, g, ld = run_step(body, params, x, v, g, beta, step,
+                                   direction, eps)
             sumlogdet = sumlogdet + ld
-            x, ld = update_x(params, x, v, tau_x, hold1, d_col, eps)
+        if cfg.merge_v_halves:
+            # closing half-kick: trajectory time K-1 forward, 0 backward
+            tau_v = time_encoding(torch.where(direction > 0, K - 1.0, 0.0),
+                                  K)
+            v, ld = update_v(params, x, v, g, tau_v, direction[:, None],
+                             direction, eps, factor=0.5)
             sumlogdet = sumlogdet + ld
-            x, ld = update_x(params, x, v, tau_x, hold2, d_col, eps)
-            sumlogdet = sumlogdet + ld
-            g = grad_potential(x, beta)
-        # closing half-kick: trajectory time K-1 forward, 0 backward
-        tau_v = time_encoding(torch.where(direction > 0, K - 1.0, 0.0), K)
-        v, ld = update_v(params, x, v, g, tau_v, d_col, direction, eps,
-                         factor=0.5)
-        return x, v, sumlogdet + ld
+        return x, v, sumlogdet
 
     def accept_prob_fn(x0, v0, x1, v1, sumlogdet, beta):
         """``exp(min(H0 - H1 + logdet, 0))`` with NaN -> 0."""
@@ -234,18 +264,42 @@ def make_dynamics(cfg: DynamicsConfig, potential_fn: PotentialFn):
                        keepdim=True)
         return torch.where(ok, xp, x), torch.where(ok, vp, v)
 
-    def transition_with(params, x, beta, v, direction, u):
-        xp, vp, sumlogdet = _integrate_merged(params, x, v, beta, direction)
-        prob = accept_prob_fn(x, v, xp, vp, sumlogdet, beta)
-        xp, vp = _sanitize(x, v, xp, vp)
+    def _accept(x, xp, vp, prob, sumlogdet, u, fwd):
         accept = (u < prob).to(x.dtype)
         x_out = accept[:, None] * xp + (1.0 - accept[:, None]) * x
         return Transition(
             x_proposed=xp, v_proposed=vp, accept_prob=prob, x_out=x_out,
             sumlogdet=sumlogdet, accept_mask=accept,
-            forward_frac=torch.mean((direction > 0).to(torch.float32)))
+            forward_frac=torch.mean(fwd.to(torch.float32)))
 
-    def _transition_fused(params, x, beta, generator):
+    def transition_fused(params, x, beta, v, direction, u):
+        xp, vp, sumlogdet = integrate(params, x, v, beta, direction)
+        prob = accept_prob_fn(x, v, xp, vp, sumlogdet, beta)
+        xp, vp = _sanitize(x, v, xp, vp)
+        return _accept(x, xp, vp, prob, sumlogdet, u, direction > 0)
+
+    def transition_both(params, x, beta, v, direction, u):
+        """The reference dataflow: integrate forward AND backward from the
+        same momenta, keep one per chain (``direction > 0``: forward)."""
+        ones = torch.ones(x.shape[0], dtype=x.dtype, device=x.device)
+        xf, vf, ldf = integrate(params, x, v, beta, ones)
+        xb, vb, ldb = integrate(params, x, v, beta, -ones)
+        pf = accept_prob_fn(x, v, xf, vf, ldf, beta)
+        pb = accept_prob_fn(x, v, xb, vb, ldb, beta)
+        xf, vf = _sanitize(x, v, xf, vf)
+        xb, vb = _sanitize(x, v, xb, vb)
+        fwd = (direction > 0).to(x.dtype)
+        fc = fwd[:, None]
+        xp = fc * xf + (1 - fc) * xb
+        vp = fc * vf + (1 - fc) * vb
+        prob = fwd * pf + (1 - fwd) * pb
+        sumlogdet = fwd * ldf + (1 - fwd) * ldb
+        return _accept(x, xp, vp, prob, sumlogdet, u, fwd)
+
+    transition_with = (transition_both if cfg.both_directions
+                       else transition_fused)
+
+    def transition(params, x, beta, generator):
         v = torch.randn(x.shape, generator=generator, dtype=x.dtype,
                         device=x.device)
         direction = torch.where(
@@ -261,9 +315,9 @@ def make_dynamics(cfg: DynamicsConfig, potential_fn: PotentialFn):
 
     return {
         "chain_operator": chain_operator,
-        "transition": _transition_fused,
+        "transition": transition,
         "transition_with": transition_with,
-        "integrate": _integrate_merged,
+        "integrate": integrate,
         "hamiltonian": hamiltonian,
         "potential_energy": potential_energy,
         "kinetic_energy": kinetic_energy,

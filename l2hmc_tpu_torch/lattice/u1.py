@@ -123,6 +123,51 @@ def wrap(x: torch.Tensor) -> torch.Tensor:
     return project_angle(x)
 
 
+def rect_sums(links: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Angle sums around the 2x1 (time-long) and 1x2 (space-long)
+    rectangles, with the orientation of :func:`plaq_sums`::
+
+        R_t(n) = u0(n) + u0(n+e0) + u1(n+2e0) - u0(n+e0+e1) - u0(n+e1) - u1(n)
+        R_x(n) = u0(n) + u1(n+e0) + u1(n+e0+e1) - u0(n+2e1) - u1(n+e1) - u1(n)
+
+    ``(..., Lt, Lx, 2)`` -> two ``(..., Lt, Lx)``.
+    """
+    u0 = links[..., 0]
+    u1 = links[..., 1]
+
+    def r(a, st, sx):
+        return torch.roll(a, shifts=(-st, -sx), dims=(-2, -1))
+
+    rect_t = u0 + r(u0, 1, 0) + r(u1, 2, 0) - r(u0, 1, 1) - r(u0, 0, 1) - u1
+    rect_x = u0 + r(u1, 1, 0) + r(u1, 1, 1) - r(u0, 0, 2) - r(u1, 0, 1) - u1
+    return rect_t, rect_x
+
+
+def improved_action(links: torch.Tensor, c1: float = -1.0 / 12.0
+                    ) -> torch.Tensor:
+    """Tree-level Symanzik-improved action per sample:
+    ``S = c0 sum(1 - cos P) + c1 sum(1 - cos R)`` over both rectangle
+    orientations, ``c0 = 1 - 8 c1``; ``c1 = 0`` is :func:`wilson_action`."""
+    c0 = 1.0 - 8.0 * c1
+    s = c0 * torch.sum(1.0 - torch.cos(plaq_sums(links)), dim=(-2, -1))
+    if c1 != 0.0:
+        rect_t, rect_x = rect_sums(links)
+        s = s + c1 * (torch.sum(1.0 - torch.cos(rect_t), dim=(-2, -1))
+                      + torch.sum(1.0 - torch.cos(rect_x), dim=(-2, -1)))
+    return s
+
+
+def make_improved_potential_fn(shape: LatticeShape, c1: float = -1.0 / 12.0):
+    """``U(x) -> per-sample improved action`` on flat states.  It has no
+    ``force``: the dynamics differentiate it by autograd, as the reference
+    does with ``jax.grad``."""
+
+    def potential(x: torch.Tensor) -> torch.Tensor:
+        return improved_action(to_links(x, shape), c1)
+
+    return potential
+
+
 def make_potential_fn(shape: LatticeShape):
     """``U(x) -> per-sample Wilson action`` on flat states (autograd form)."""
 
@@ -210,6 +255,14 @@ def observables(x: torch.Tensor, shape: LatticeShape, beta=None):
 def u1_plaq_exact(beta) -> float:
     """Infinite-volume average plaquette ``I1(beta)/I0(beta)``."""
     return float(i1e(beta) / i0e(beta))
+
+
+def log_z_exact_factorized(shape: LatticeShape, beta) -> float:
+    """Absolute ``log Z(beta) = n_links log 2pi + n_plaq log(I0(beta)
+    e^-beta)`` for the Lebesgue link measure on ``(-pi, pi]^{n_links}``
+    (the plaquettes factorize up to the global-charge constraint)."""
+    return float(shape.num_links * np.log(2.0 * np.pi)
+                 + shape.num_plaquettes * np.log(i0e(beta)))
 
 
 def wilson_loop_exact(beta, area: int) -> float:

@@ -14,11 +14,24 @@ Port of ``l2hmc_tpu/networks/nets.py``:
   accumulation).
 - ``make_zero_net``: S = T = Q = 0 (``network_arch='zero'``), with which the
   augmented leapfrog is plain leapfrog.
+- ``ConvNetSpec``/``make_conv_net``: the periodic CNN (two periodic conv
+  stacks, 3x3 then 2x2 at stride 2, optional local response norm, dense
+  embeddings and the fused head), and ``make_local_net``: the weight-shared
+  image conditioner (``num_layers`` periodic kxk convs and a 1x1 head to
+  per-link S/T/Q).  Both run NCHW with OIHW conv weights; the reference is
+  NHWC with HWIO weights.  :meth:`ConvNet.from_reference_leaf` and
+  :meth:`LocalNet.from_reference_leaf` convert a reference leaf (conv
+  weights HWIO -> OIHW; the conv net's ``x_layer``/``v_layer`` rows from
+  the reference's NHWC flatten order to NCHW's).
 - ``LocalNetSpec``/``make_local_flat_net``: the weight-shared local
   conditioner on the flat link layout — ``num_layers`` periodic 5-point
   stencil layers over per-direction channels, a 1x1 head to per-link S/T/Q.
   Parameters ``stencil_{i}.{w,wt,b}``, ``head.{w,b}``, ``coeff_scale``,
   ``coeff_transformation`` as in the reference.
+
+Every module has ``from_reference_leaf(name, array)``: the reference leaf
+at the dotted ``name`` in the module's own layout (the identity but for the
+image nets).
 """
 
 from __future__ import annotations
@@ -28,6 +41,7 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from l2hmc_tpu_torch.ops.leapfrog import _nb
@@ -113,6 +127,10 @@ class MLPNet(nn.Module):
         self.coeff_transformation = nn.Parameter(
             torch.zeros(1, d, device=device))
 
+    @staticmethod
+    def from_reference_leaf(name: str, array: np.ndarray) -> np.ndarray:
+        return array
+
     def forward(self, v, x, t):
         bf16 = self.spec.use_bf16
         inp = torch.cat([v, x, t], dim=-1)
@@ -139,6 +157,10 @@ class ZeroNet(nn.Module):
         super().__init__()
         self.x_dim = x_dim
 
+    @staticmethod
+    def from_reference_leaf(name: str, array: np.ndarray) -> np.ndarray:
+        return array
+
     def forward(self, v, x, t):
         z = torch.zeros((v.shape[0], self.x_dim), dtype=v.dtype,
                         device=v.device)
@@ -150,6 +172,194 @@ def make_zero_net(x_dim: int) -> ZeroNet:
     leapfrog is plain leapfrog.  The outputs have ``x_dim`` columns whatever
     the width of the inputs (the u1 features double the position slot)."""
     return ZeroNet(x_dim)
+
+
+# ---------------------------------------------------------------------------
+# Periodic (toroidal) image conditioners: the CNN and the local net
+# ---------------------------------------------------------------------------
+
+
+def periodic_pad_2d(x: torch.Tensor, kernel: int) -> torch.Tensor:
+    """Wrap-pad the two spatial axes of an NCHW tensor for a
+    ``kernel``-wide conv: (k-1)//2 before, k//2 after, so a conv without
+    padding gives L outputs (stride 1) or ceil(L/s) (stride s)."""
+    pl, pr = (kernel - 1) // 2, kernel // 2
+    if pl == 0 and pr == 0:
+        return x
+    return F.pad(x, (pl, pr, pl, pr), mode="circular")
+
+
+def conv2d_periodic(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                    stride: int = 1, bf16: bool = False) -> torch.Tensor:
+    """kxk conv of NCHW ``x`` with OIHW ``w`` on periodic padding; with
+    ``bf16`` both operands rounded to bfloat16, the sums in float32."""
+    x = periodic_pad_2d(x, w.shape[-1])
+    if bf16:
+        x, w = x.bfloat16().float(), w.bfloat16().float()
+    return F.conv2d(x, w, b, stride=stride)
+
+
+def local_response_norm(x: torch.Tensor, n: int = 5, k: float = 2.0,
+                        alpha: float = 1e-4, beta: float = 0.75
+                        ) -> torch.Tensor:
+    """The reference's local response normalization over the channels
+    (dim 1) of NCHW ``x``: ``x / (k + alpha * sum_{|c'-c| <= n}
+    x_{c'}^2)^beta``, the window ``n`` channels on each side and ``alpha``
+    not divided by its size (``F.local_response_norm`` differs in both),
+    as shifted sums in the reference's order."""
+    sq = x * x
+    c = x.shape[1]
+    total = sq
+    for off in range(1, n + 1):
+        if off < c:
+            total = total + F.pad(sq[:, off:], (0, 0, 0, 0, 0, off))
+            total = total + F.pad(sq[:, :-off], (0, 0, 0, 0, off, 0))
+    return x / torch.pow(k + alpha * total, beta)
+
+
+def _he_conv(generator, cout: int, cin: int, k: int, device=None):
+    """He-normal OIHW conv weights (the reference's ``_conv_init``)."""
+    w = torch.randn((cout, cin, k, k), generator=generator,
+                    dtype=torch.float32, device=device)
+    return w * float(np.sqrt(2.0 / (k * k * cin)))
+
+
+def _hwio_to_oihw(array: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(np.transpose(array, (3, 2, 0, 1)))
+
+
+def to_image(flat: torch.Tensor, lt: int, lx: int) -> torch.Tensor:
+    """NCHW view of a flat input: ``(B, d)`` links -> ``(B, 2, lt, lx)``;
+    periodic features ``(B, 2d)`` [cos | sin] -> ``(B, 4, lt, lx)`` with
+    channels cos0, cos1, sin0, sin1 (the reference's channel stacking)."""
+    b = flat.shape[0]
+    n = flat.shape[-1] // (lt * lx * 2)
+    return flat.reshape(b, n, lt, lx, 2).permute(0, 1, 4, 2, 3).reshape(
+        b, 2 * n, lt, lx)
+
+
+def from_image(img: torch.Tensor) -> torch.Tensor:
+    """``(B, 2, lt, lx)`` per-direction fields -> flat ``(B, 2 lt lx)``
+    in the interleaved link order."""
+    return img.permute(0, 2, 3, 1).reshape(img.shape[0], -1)
+
+
+class _Conv(nn.Module):
+    """OIHW weights ``w`` and bias ``b`` of one conv (the reference's
+    ``{"w", "b"}`` dict, its ``w`` HWIO)."""
+
+    def __init__(self, w, b):
+        super().__init__()
+        self.w = nn.Parameter(w)
+        self.b = nn.Parameter(b)
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvNetSpec:
+    """Static spec of the periodic-CNN S/T/Q network (same fields as the
+    reference)."""
+
+    time_size: int
+    space_size: int
+    num_filters: int = 8
+    filter_size1: int = 3
+    filter_size2: int = 2
+    num_hidden: int = 256
+    factor: float = 1.0
+    use_bf16: bool = False
+    bounded_q: bool = False
+    use_lrn: bool = False
+    v_channels: int = 2          # 2 link dirs; 4 with cos/sin features
+    x_channels: int = 2
+
+    @property
+    def x_dim(self) -> int:
+        return self.time_size * self.space_size * 2
+
+
+class ConvNet(nn.Module):
+    """``forward(v, x, t) -> (S, T, Q)``: each of ``v`` and ``x`` through a
+    periodic conv stack (conv k1 -> relu [-> LRN] -> conv k2 at stride 2
+    -> relu [-> LRN]), flattened, then ``relu(v_layer + x_layer +
+    t_layer)``, ``relu(h_layer)`` and the fused ``(h, 3d)`` head.
+
+    The stacks' outputs are flattened in NCHW order, so ``x_layer.w`` and
+    ``v_layer.w`` hold the reference's rows permuted
+    (:meth:`from_reference_leaf`)."""
+
+    def __init__(self, spec: ConvNetSpec, generator=None, device=None):
+        super().__init__()
+        self.spec = spec
+        g, dev = generator, device
+        f1, f2 = spec.num_filters, 2 * spec.num_filters
+        k1, k2 = spec.filter_size1, spec.filter_size2
+        self.lt2 = (spec.time_size + 1) // 2
+        self.lx2 = (spec.space_size + 1) // 2
+        conv_out = self.lt2 * self.lx2 * f2
+        d, h = spec.x_dim, spec.num_hidden
+
+        def conv(cin, cout, k):
+            return _Conv(_he_conv(g, cout, cin, k, dev),
+                         torch.zeros(cout, device=dev))
+
+        self.conv_x1 = conv(spec.x_channels, f1, k1)
+        self.conv_x2 = conv(f1, f2, k2)
+        self.conv_v1 = conv(spec.v_channels, f1, k1)
+        self.conv_v2 = conv(f1, f2, k2)
+        self.x_layer = Dense(conv_out, h, spec.factor / 3.0, g, dev)
+        self.v_layer = Dense(conv_out, h, 1.0 / 3.0, g, dev)
+        self.t_layer = Dense(2, h, 1.0 / 3.0, g, dev)
+        self.h_layer = Dense(h, h, 1.0, g, dev)
+        self.head_w = nn.Parameter(torch.cat([
+            _variance_scaling(g, (h, d), 0.001, dev) for _ in range(3)],
+            dim=1))
+        self.head_b = nn.Parameter(torch.zeros(3 * d, device=dev))
+        self.coeff_scale = nn.Parameter(torch.zeros(1, d, device=dev))
+        self.coeff_transformation = nn.Parameter(
+            torch.zeros(1, d, device=dev))
+
+    def from_reference_leaf(self, name: str, array: np.ndarray) -> np.ndarray:
+        array = np.asarray(array)
+        if name.startswith("conv_") and name.endswith(".w"):
+            return _hwio_to_oihw(array)
+        if name in ("x_layer.w", "v_layer.w"):
+            f2 = 2 * self.spec.num_filters
+            h = array.shape[1]
+            return np.ascontiguousarray(
+                array.reshape(self.lt2, self.lx2, f2, h)
+                .transpose(2, 0, 1, 3).reshape(-1, h))
+        return array
+
+    def _stack(self, c1: _Conv, c2: _Conv, flat):
+        bf16 = self.spec.use_bf16
+        y = to_image(flat, self.spec.time_size, self.spec.space_size)
+        y = torch.relu(conv2d_periodic(y, c1.w, c1.b, bf16=bf16))
+        if self.spec.use_lrn:
+            y = local_response_norm(y)
+        y = torch.relu(conv2d_periodic(y, c2.w, c2.b, stride=2, bf16=bf16))
+        if self.spec.use_lrn:
+            y = local_response_norm(y)
+        return y.reshape(flat.shape[0], -1)
+
+    def forward(self, v, x, t):
+        bf16 = self.spec.use_bf16
+        xc = self._stack(self.conv_x1, self.conv_x2, x)
+        vc = self._stack(self.conv_v1, self.conv_v2, v)
+        hh = torch.relu(self.v_layer(vc, bf16) + self.x_layer(xc, bf16)
+                        + self.t_layer(t, bf16))
+        hh = torch.relu(self.h_layer(hh, bf16))
+        heads = matmul(hh, self.head_w, bf16) + self.head_b
+        s_raw, translation, q_raw = torch.chunk(heads, 3, dim=-1)
+        scale = torch.tanh(s_raw) * torch.exp(self.coeff_scale)
+        if self.spec.bounded_q:
+            q_raw = torch.tanh(q_raw)
+        transformation = q_raw * torch.exp(self.coeff_transformation)
+        return scale, translation, transformation
+
+
+def make_conv_net(spec: ConvNetSpec, generator=None, device=None) -> ConvNet:
+    """Build the periodic-CNN conditioner (random init from ``generator``)."""
+    return ConvNet(spec, generator, device)
 
 
 # ---------------------------------------------------------------------------
@@ -272,6 +482,10 @@ class LocalFlatNet(nn.Module):
         self.coeff_scale = nn.Parameter(torch.zeros(2, device=device))
         self.coeff_transformation = nn.Parameter(torch.zeros(2, device=device))
 
+    @staticmethod
+    def from_reference_leaf(name: str, array: np.ndarray) -> np.ndarray:
+        return array
+
     def stencils(self):
         return [getattr(self, f"stencil_{i}")
                 for i in range(self.spec.num_layers)]
@@ -312,3 +526,64 @@ def make_local_flat_net(spec: LocalNetSpec, generator=None,
                         device=None) -> LocalFlatNet:
     """Build the flat local conditioner (random init from ``generator``)."""
     return LocalFlatNet(spec, generator, device)
+
+
+class LocalNet(nn.Module):
+    """The weight-shared image conditioner: ``forward(v, x, t) -> (S, T,
+    Q)``.  Inputs stacked as channels ``[v | x | t broadcast]`` of one
+    NCHW field, ``num_layers`` periodic kxk convs with ReLU, a 1x1 head to
+    ``[S0 S1 T0 T1 Q0 Q1]`` with per-direction coefficients."""
+
+    def __init__(self, spec: LocalNetSpec, generator=None, device=None):
+        super().__init__()
+        self.spec = spec
+        g, dev = generator, device
+        c, k = spec.channels, spec.kernel_size
+        cin = spec.v_channels + spec.x_channels + 2
+        w0 = _he_conv(g, c, cin, k, dev)
+        # factor-scaled init on the x-slot input channels
+        lo, hi = spec.v_channels, spec.v_channels + spec.x_channels
+        w0[:, lo:hi] *= float(np.sqrt(spec.factor))
+        self.conv_0 = _Conv(w0, torch.zeros(c, device=dev))
+        for i in range(1, spec.num_layers):
+            self.add_module(f"conv_{i}", _Conv(_he_conv(g, c, c, k, dev),
+                                               torch.zeros(c, device=dev)))
+        # 1x1 head, truncated normal at the 0.001 factor
+        std = float(np.sqrt(1.3 * 2.0 * 0.001 / c))
+        hw = torch.empty((6, c, 1, 1), dtype=torch.float32, device=dev)
+        nn.init.trunc_normal_(hw, 0.0, 1.0, -2.0, 2.0, generator=g)
+        self.head = _Conv(hw * std, torch.zeros(6, device=dev))
+        self.coeff_scale = nn.Parameter(torch.zeros(2, device=dev))
+        self.coeff_transformation = nn.Parameter(torch.zeros(2, device=dev))
+
+    @staticmethod
+    def from_reference_leaf(name: str, array: np.ndarray) -> np.ndarray:
+        array = np.asarray(array)
+        if name.endswith(".w"):
+            return _hwio_to_oihw(array)
+        return array
+
+    def forward(self, v, x, t):
+        spec = self.spec
+        b, lt, lx = v.shape[0], spec.time_size, spec.space_size
+        bf16 = spec.use_bf16
+        t_img = t[:, :, None, None].expand(b, 2, lt, lx)
+        y = torch.cat([to_image(v, lt, lx), to_image(x, lt, lx), t_img],
+                      dim=1)
+        for i in range(spec.num_layers):
+            layer = getattr(self, f"conv_{i}")
+            y = torch.relu(conv2d_periodic(y, layer.w, layer.b, bf16=bf16))
+        heads = conv2d_periodic(y, self.head.w, self.head.b, bf16=bf16)
+        cs = torch.exp(self.coeff_scale)[None, :, None, None]
+        ct = torch.exp(self.coeff_transformation)[None, :, None, None]
+        q_raw = heads[:, 4:6]
+        if spec.bounded_q:
+            q_raw = torch.tanh(q_raw)
+        return (from_image(torch.tanh(heads[:, 0:2]) * cs),
+                from_image(heads[:, 2:4]), from_image(q_raw * ct))
+
+
+def make_local_net(spec: LocalNetSpec, generator=None,
+                   device=None) -> LocalNet:
+    """Build the image local conditioner (random init from ``generator``)."""
+    return LocalNet(spec, generator, device)

@@ -1,18 +1,32 @@
-"""Trained weights carried across from the JAX package.
+"""Checkpoints of the port's training, and trained weights carried across
+from the JAX package.
 
-A JAX ``DynamicsParams`` pytree flattens (``jax.tree_util.tree_flatten``)
-to ``[xnet leaves..., vnet leaves..., raw_eps, masks]``, each net dict with
-its keys in sorted order at every level (:func:`net_leaf_order`;
-:data:`NET_LEAF_ORDER` for the MLP family).  The shipped
-``benchmarks/champion_16x16.npz`` stores those leaves as ``arr_0..arr_17``
-beside a ``config`` JSON string.
+Checkpoints (port of ``l2hmc_tpu/train/checkpoint.py``): one directory per
+step, ``<ckpt_dir>/<step>/state.pt``, a ``torch.save`` of the whole
+:class:`TrainState` as tensors (params, Adam's moments and count, the
+dual-averaging state, the chain state and the step) and, when given, the
+generator's state, so a restored run draws what the saved run would have
+drawn next.  The newest ``keep`` (3) are kept.  ``config.json`` beside
+them is ``dataclasses.asdict(config)`` at indent 2, written once, as the
+reference writes it, so :func:`load_config_dict` reads either package's.
+
+From the JAX package: a ``DynamicsParams`` pytree flattens
+(``jax.tree_util.tree_flatten``) to ``[xnet leaves..., vnet leaves...,
+raw_eps, masks]``, each net dict with its keys in sorted order at every
+level (:func:`net_leaf_order`; :data:`NET_LEAF_ORDER` for the MLP family);
+each leaf goes through its module's ``from_reference_leaf`` (the image
+nets' layouts differ).  The shipped ``benchmarks/champion_16x16.npz``
+stores those leaves as ``arr_0..arr_17`` beside a ``config`` JSON string.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import shutil
 from pathlib import Path
 from types import SimpleNamespace
+from typing import Optional
 
 import numpy as np
 import torch
@@ -70,15 +84,16 @@ def _nest(flat: dict) -> dict:
 
 def params_from_numpy(tree, cfg: GaugeConfig, device=None) -> DynamicsParams:
     """Port params from a reference ``DynamicsParams`` with numpy leaves
-    (fields ``xnet``, ``vnet`` — dicts as in ``make_mlp_net`` or
-    ``make_local_flat_net`` —, ``raw_eps`` and ``masks``), on ``device``
-    (``None``: the first CUDA device)."""
+    (fields ``xnet``, ``vnet`` — dicts as the reference's ``init`` of
+    ``cfg.network_arch`` makes them —, ``raw_eps`` and ``masks``), on
+    ``device`` (``None``: the first CUDA device)."""
     device = resolve_device(device)
     # the modules' initial values are overwritten; a private generator keeps
     # their construction off the global RNG
     xnet, vnet = build_networks(cfg, torch.Generator().manual_seed(0))
     for net, arrays in ((xnet, tree.xnet), (vnet, tree.vnet)):
-        state = {k: torch.tensor(np.asarray(v, np.float32))
+        state = {k: torch.tensor(net.from_reference_leaf(
+                     k, np.asarray(v, np.float32)))
                  for k, v in _net_arrays(arrays).items()}
         net.load_state_dict(state, strict=True)
     params = DynamicsParams(
@@ -124,12 +139,17 @@ def _find_adam(opt_state):
     return None
 
 
-def _leaf_at(tree, name: str):
-    """The leaf of a reference params-shaped tree at ``xnet/h_layer/w``."""
+def _leaf_at(tree, name: str, params: DynamicsParams):
+    """The leaf of a reference params-shaped tree at ``xnet/h_layer/w``, in
+    the layout of the port's tensor of that name in ``params``."""
     head, *rest = name.split("/")
     node = getattr(tree, head)
     for part in rest:
         node = node[part]
+    node = np.asarray(node, np.float32)
+    if head in ("xnet", "vnet"):
+        return getattr(params, head).from_reference_leaf(".".join(rest),
+                                                         node)
     return node
 
 
@@ -147,8 +167,8 @@ def train_state_from_numpy(tree, cfg: GaugeConfig, device=None) -> TrainState:
     init = make_optimizer(cfg).init(named_leaves(params))
 
     def moments(field):
-        return {k: torch.tensor(np.asarray(_leaf_at(getattr(adam, field), k),
-                                           np.float32), device=device)
+        return {k: torch.tensor(_leaf_at(getattr(adam, field), k, params),
+                                device=device)
                 for k in init.mu}
 
     opt_state = OptState(count=int(adam.count), mu=moments("mu"),
@@ -159,3 +179,87 @@ def train_state_from_numpy(tree, cfg: GaugeConfig, device=None) -> TrainState:
                       x=torch.tensor(np.asarray(tree.x, np.float32),
                                      device=device),
                       step=int(tree.step), da=da)
+
+
+# ---------------------------------------------------------------------------
+# Checkpoints of the port's training
+# ---------------------------------------------------------------------------
+
+
+def _step_dirs(ckpt_dir: Path):
+    """``{step: dir}`` of the complete checkpoints under ``ckpt_dir``."""
+    if not ckpt_dir.is_dir():
+        return {}
+    return {int(p.name): p for p in ckpt_dir.iterdir()
+            if p.name.isdigit() and (p / "state.pt").is_file()}
+
+
+def save_checkpoint(ckpt_dir, state: TrainState, step: int, config=None,
+                    keep: int = 3, generator_state=None):
+    """Write ``state`` as the checkpoint of ``step`` and prune to the newest
+    ``keep``; ``config.json`` is written when absent.
+    ``generator_state`` (``torch.Generator.get_state()``) is saved beside
+    the state for :func:`restore_checkpoint`."""
+    ckpt_dir = Path(ckpt_dir).absolute()
+    ckpt_dir.mkdir(parents=True, exist_ok=True)
+    if config is not None:
+        cfg_file = ckpt_dir / "config.json"
+        if not cfg_file.exists():
+            cfg_file.write_text(json.dumps(dataclasses.asdict(config),
+                                           indent=2))
+    opt = state.opt_state
+    payload = {
+        "params": {k: v.detach() for k, v in state.params.state_dict().items()},
+        "opt_count": int(opt.count), "mu": opt.mu, "nu": opt.nu,
+        "x": state.x, "step": int(state.step), "da": list(state.da),
+    }
+    if generator_state is not None:
+        payload["generator"] = generator_state
+    out = ckpt_dir / str(int(step))
+    out.mkdir(exist_ok=True)
+    tmp = out / "state.pt.tmp"
+    torch.save(payload, tmp)
+    tmp.replace(out / "state.pt")
+    steps = sorted(_step_dirs(ckpt_dir))
+    for old in steps[:-keep] if keep > 0 else []:
+        shutil.rmtree(ckpt_dir / str(old))
+
+
+def latest_step(ckpt_dir) -> Optional[int]:
+    """The newest checkpointed step under ``ckpt_dir``, or ``None``."""
+    steps = _step_dirs(Path(ckpt_dir).absolute())
+    return max(steps) if steps else None
+
+
+def restore_checkpoint(ckpt_dir, template: TrainState,
+                       step: Optional[int] = None, generator=None
+                       ) -> TrainState:
+    """The checkpointed state of ``step`` (``None``: the newest) in the
+    structure of ``template`` (a state of the same config, e.g. from
+    ``init_train_state``), on the template's device; ``template.params``
+    is loaded in place.  A ``generator`` is set to the saved generator
+    state when the checkpoint has one."""
+    ckpt_dir = Path(ckpt_dir).absolute()
+    if step is None:
+        step = latest_step(ckpt_dir)
+    if step is None:
+        raise FileNotFoundError(f"no checkpoint found in {ckpt_dir}")
+    device = template.x.device
+    payload = torch.load(ckpt_dir / str(int(step)) / "state.pt",
+                         map_location=device, weights_only=True)
+    params = template.params
+    params.load_state_dict(payload["params"], strict=True)
+    if generator is not None and "generator" in payload:
+        generator.set_state(payload["generator"].cpu())
+    return TrainState(
+        params=params,
+        opt_state=OptState(count=int(payload["opt_count"]),
+                           mu=payload["mu"], nu=payload["nu"]),
+        x=payload["x"], step=int(payload["step"]),
+        da=DualAveragingState(*payload["da"]))
+
+
+def load_config_dict(ckpt_dir) -> Optional[dict]:
+    """The ``config.json`` beside the checkpoints, or ``None``."""
+    f = Path(ckpt_dir).absolute() / "config.json"
+    return json.loads(f.read_text()) if f.exists() else None

@@ -1,8 +1,8 @@
 """U(1) gauge L2HMC trainer (port of ``l2hmc_tpu/train/gauge.py``).
 
 :class:`GaugeConfig` (every field, so a reference config JSON loads
-unchanged), the network and dynamics builders for ``network_arch`` in
-``('mlp', 'local_flat', 'zero')``, ``group='u1'``, ``action='wilson'``; the trainer:
+unchanged), the network and dynamics builders (every ``network_arch``,
+``group`` and ``action``); the trainer:
 :class:`TrainState`, the optimizer (optax's ``zero_nans`` ->
 ``clip_by_global_norm`` -> ``adam`` written out), the ESJD + charge loss, the
 train step with the eps dual-averaging warmup and the in-chain instanton hop,
@@ -37,9 +37,12 @@ from l2hmc_tpu_torch.dynamics.nuts import (
 )
 from l2hmc_tpu_torch.lattice import u1
 from l2hmc_tpu_torch.networks.nets import (
+    ConvNetSpec,
     LocalNetSpec,
     MLPNetSpec,
+    make_conv_net,
     make_local_flat_net,
+    make_local_net,
     make_mlp_net,
     make_zero_net,
 )
@@ -111,60 +114,70 @@ def config_from_dict(d: dict) -> GaugeConfig:
 
 
 def build_networks(cfg: GaugeConfig, generator=None, device=None):
-    """XNet (position, factor=2) and VNet (momentum, factor=1) modules."""
-    if cfg.network_arch not in ("mlp", "local_flat", "zero"):
-        raise NotImplementedError(
-            f"network_arch={cfg.network_arch!r} is not ported yet (ROADMAP "
-            "queue A item 6: conv, local)")
-    if cfg.group != "u1":
-        raise NotImplementedError(
-            f"group={cfg.group!r} is not ported yet (ROADMAP queue A item 3)")
-    if cfg.network_arch == "zero":
+    """XNet (position, factor=2) and VNet (momentum, factor=1) modules for
+    ``cfg.network_arch``; the position slot holds periodic (cos, sin)
+    features (4 channels, ``2 x_dim`` columns) for ``group='u1'``, the raw
+    position (2 channels, ``x_dim``) for ``'r1'``."""
+    periodic = cfg.group == "u1"
+    pos_dim = 2 * cfg.x_dim if periodic else 0
+    pos_ch = 4 if periodic else 2
+    g, dev = generator, device
+    arch = cfg.network_arch
+    if arch == "zero":
         return make_zero_net(cfg.x_dim), make_zero_net(cfg.x_dim)
-    if cfg.network_arch == "local_flat":
-        # periodic (cos, sin) position features: 4 channels in the
-        # position slot (XNet x slot, VNet v slot)
-        spec = dict(channels=cfg.num_filters, kernel_size=cfg.local_kernel,
-                    num_layers=cfg.local_layers, use_bf16=cfg.use_bf16,
-                    bounded_q=cfg.bounded_q)
-        xnet = make_local_flat_net(LocalNetSpec(
-            cfg.time_size, cfg.space_size, factor=2.0, x_channels=4, **spec),
-            generator, device)
-        vnet = make_local_flat_net(LocalNetSpec(
-            cfg.time_size, cfg.space_size, factor=1.0, v_channels=4, **spec),
-            generator, device)
-        return xnet, vnet
-    pos_dim = 2 * cfg.x_dim
-    xnet = make_mlp_net(MLPNetSpec(cfg.x_dim, cfg.hidden, factor=2.0,
-                                   use_bf16=cfg.use_bf16,
-                                   bounded_q=cfg.bounded_q,
-                                   x_in_dim=pos_dim), generator, device)
-    vnet = make_mlp_net(MLPNetSpec(cfg.x_dim, cfg.hidden, factor=1.0,
-                                   use_bf16=cfg.use_bf16,
-                                   bounded_q=cfg.bounded_q,
-                                   v_in_dim=pos_dim), generator, device)
-    return xnet, vnet
+    if arch == "mlp":
+        kw = dict(use_bf16=cfg.use_bf16, bounded_q=cfg.bounded_q)
+        return (make_mlp_net(MLPNetSpec(cfg.x_dim, cfg.hidden, factor=2.0,
+                                        x_in_dim=pos_dim, **kw), g, dev),
+                make_mlp_net(MLPNetSpec(cfg.x_dim, cfg.hidden, factor=1.0,
+                                        v_in_dim=pos_dim, **kw), g, dev))
+    if arch == "conv":
+        kw = dict(num_filters=cfg.num_filters, num_hidden=cfg.hidden,
+                  use_bf16=cfg.use_bf16, bounded_q=cfg.bounded_q)
+        return (make_conv_net(ConvNetSpec(
+                    cfg.time_size, cfg.space_size, factor=2.0,
+                    x_channels=pos_ch, **kw), g, dev),
+                make_conv_net(ConvNetSpec(
+                    cfg.time_size, cfg.space_size, factor=1.0,
+                    v_channels=pos_ch, **kw), g, dev))
+    if arch in ("local", "local_flat"):
+        make = make_local_net if arch == "local" else make_local_flat_net
+        kw = dict(channels=cfg.num_filters, kernel_size=cfg.local_kernel,
+                  num_layers=cfg.local_layers, use_bf16=cfg.use_bf16,
+                  bounded_q=cfg.bounded_q)
+        return (make(LocalNetSpec(cfg.time_size, cfg.space_size, factor=2.0,
+                                  x_channels=pos_ch, **kw), g, dev),
+                make(LocalNetSpec(cfg.time_size, cfg.space_size, factor=1.0,
+                                  v_channels=pos_ch, **kw), g, dev))
+    raise ValueError(f"network_arch={arch!r}")
 
 
-def build_dynamics(cfg: GaugeConfig, potential_fn=None):
-    """``(DynamicsConfig, dynamics dict)`` for the Wilson-action target.
+def build_dynamics(cfg: GaugeConfig, potential_fn=None, remat: bool = True):
+    """``(DynamicsConfig, dynamics dict)`` for the gauge action.
 
-    ``potential_fn`` replaces the default ``ops.wilson.make_potential_fn``
-    (kernels on CUDA states, plain version on CPU ones), e.g. by the plain
-    version on the card to hold the kernels against it."""
-    if cfg.action != "wilson":
-        raise NotImplementedError(
-            f"action={cfg.action!r} is not ported yet (ROADMAP queue A "
-            "item 7, rect_sums/improved_action)")
+    ``action='wilson'``: ``ops.wilson.make_potential_fn`` (kernels on CUDA
+    states, plain version on CPU ones); ``'improved'``: the Symanzik
+    potential of ``lattice/u1.py``, differentiated by autograd.
+    ``potential_fn`` replaces either, e.g. by the plain Wilson version on
+    the card to hold the kernels against it.  ``remat`` (the reference's
+    default, which its trainer never turns off) checkpoints each leapfrog
+    step while autograd records."""
     from l2hmc_tpu_torch.ops.wilson import make_potential_fn
 
     dyn_cfg = DynamicsConfig(
         x_dim=cfg.x_dim, num_steps=cfg.num_steps,
         eps_trainable=cfg.eps_trainable, hmc=cfg.hmc,
         both_directions=cfg.both_directions, group=cfg.group,
-        eps_cap=cfg.eps_cap, merge_v_halves=cfg.merge_v_halves)
+        eps_cap=cfg.eps_cap, merge_v_halves=cfg.merge_v_halves,
+        remat=remat)
     if potential_fn is None:
-        potential_fn = make_potential_fn(cfg.shape)
+        if cfg.action == "improved":
+            potential_fn = u1.make_improved_potential_fn(cfg.shape,
+                                                         cfg.rect_c1)
+        elif cfg.action == "wilson":
+            potential_fn = make_potential_fn(cfg.shape)
+        else:
+            raise ValueError(f"action={cfg.action!r}")
     return dyn_cfg, make_dynamics(dyn_cfg, potential_fn)
 
 
@@ -330,6 +343,20 @@ def init_train_state(cfg: GaugeConfig, generator=None,
                       da=dual_averaging_init(cfg.eps_init, device))
 
 
+def clone_train_state(state: TrainState) -> TrainState:
+    """An independent copy of ``state`` (params, moments, chains, dual
+    averaging), e.g. to run one state through two step functions."""
+    import copy
+
+    opt = state.opt_state
+    return state._replace(
+        params=copy.deepcopy(state.params),
+        opt_state=opt._replace(mu={k: v.clone() for k, v in opt.mu.items()},
+                               nu={k: v.clone() for k, v in opt.nu.items()}),
+        x=state.x.clone(),
+        da=DualAveragingState(*[t.clone() for t in state.da]))
+
+
 class TrainDraws(NamedTuple):
     """The randomness of one train step: momenta ``v (B, x_dim)``,
     directions ``d (B,)`` in {+1, -1} and accept uniforms ``u (B,)`` of the
@@ -445,7 +472,7 @@ def tree_summaries(tree: Dict[str, torch.Tensor], prefix: str):
     return out
 
 
-def make_train_step(cfg: GaugeConfig, potential_fn=None):
+def make_train_step(cfg: GaugeConfig, potential_fn=None, remat: bool = True):
     """``(train_step, train_step_with)``:
     ``train_step(state, generator) -> (state, metrics)`` draws the step's
     randomness on the state's device; ``train_step_with(state, draws)``
@@ -457,11 +484,13 @@ def make_train_step(cfg: GaugeConfig, potential_fn=None):
     ``raw_eps``'s when eps is fixed, or during the eps warmup), the
     optimizer update applied in place, the eps dual-averaging warmup and its
     handoff, the chain's wrap and, with ``train_hops``, one instanton hop.
+    ``remat=False`` keeps every leapfrog step's activations for the
+    backward pass instead of recomputing them (``build_dynamics``).
     """
     from l2hmc_tpu_torch.dynamics.topo import instanton_hop_with
     from l2hmc_tpu_torch.train.schedules import beta_schedule
 
-    dyn_cfg, dyn = build_dynamics(cfg, potential_fn)
+    dyn_cfg, dyn = build_dynamics(cfg, potential_fn, remat)
     _, loss_fn_with = make_loss_fn(cfg, dyn)
     opt = make_optimizer(cfg)
     lr_sched = _lr_schedule(cfg)
@@ -543,11 +572,12 @@ def _stack_metrics(per_step, device) -> Dict[str, torch.Tensor]:
     return out
 
 
-def make_train_chunk(cfg: GaugeConfig, chunk_size: int, potential_fn=None):
+def make_train_chunk(cfg: GaugeConfig, chunk_size: int, potential_fn=None,
+                     remat: bool = True):
     """``chunk(state, generator) -> (state, metrics)``: ``chunk_size`` train
     steps, metrics stacked to ``(chunk_size,)`` tensors on the state's
     device."""
-    train_step, _ = make_train_step(cfg, potential_fn)
+    train_step, _ = make_train_step(cfg, potential_fn, remat)
 
     def chunk(state: TrainState, generator):
         per_step = []

@@ -239,22 +239,233 @@ def test_torch_dynamics_helpers():
 
 
 @pytest.mark.parametrize("kw", [
-    {"group": "r1"}, {"merge_v_halves": False}, {"both_directions": True}])
+    {"chain_operator": 2}, {"aux_dim": 8}, {"autotune": True}])
 def test_torch_unported_settings_raise(kw):
-    base = dict(x_dim=32, num_steps=3, group="u1", merge_v_halves=True)
-    base.update(kw)
+    """What the port still leaves out raises and names its ROADMAP item:
+    the VAE's chain operator and aux conditioning (A14), and the CLI's
+    --autotune (A9)."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdyn.make_dynamics(tdyn.DynamicsConfig(**base), lambda x: x.sum(-1))
+        if "chain_operator" in kw:
+            _, dyn = tgauge.build_dynamics(_gauge_cfg())
+            dyn["chain_operator"](None, None, 1.0, None, kw["chain_operator"])
+        elif "aux_dim" in kw:
+            make_mlp_net(MLPNetSpec(32, 16, aux_dim=kw["aux_dim"]))
+        else:
+            from l2hmc_tpu_torch.cli.train_gauge import main
+            main(["--autotune", "--device", "cpu"])
 
 
 def test_torch_unported_builders_raise():
+    """The builders take every arch, group and action of the reference
+    and refuse an unknown one as it does."""
+    for arch in ("conv", "local", "local_flat", "mlp", "zero"):
+        for group in ("u1", "r1"):
+            xnet, vnet = tgauge.build_networks(
+                _gauge_cfg(network_arch=arch, group=group),
+                torch.Generator().manual_seed(0), "cpu")
+            assert xnet is not None and vnet is not None
+    _, dyn = tgauge.build_dynamics(_gauge_cfg(action="improved"))
+    assert set(dyn) >= {"transition", "transition_with", "integrate"}
+    with pytest.raises(ValueError, match="network_arch"):
+        tgauge.build_networks(_gauge_cfg(network_arch="resnet"))
+    with pytest.raises(ValueError, match="action"):
+        tgauge.build_dynamics(_gauge_cfg(action="clover"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tgauge.build_networks(_gauge_cfg(network_arch="conv"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tgauge.build_dynamics(_gauge_cfg(action="improved"))
-    _, dyn = tgauge.build_dynamics(_gauge_cfg())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dyn["chain_operator"]()
+        from l2hmc_tpu_torch.cli.train_gauge import main
+        main(["--profile", "--device", "cpu"])
+
+
+# ---------------------------------------------------------------------------
+# The rest of dynamics/l2hmc.py: split integrator, r1, use_log_eps,
+# both_directions, the improved action
+# ---------------------------------------------------------------------------
+
+SETTING_CASES = {
+    "split_conv": dict(network_arch="conv", merge_v_halves=False),
+    "split_mlp_r1": dict(merge_v_halves=False, group="r1"),
+    "merged_local_r1": dict(network_arch="local", group="r1",
+                            num_filters=4),
+    "split_local": dict(network_arch="local", merge_v_halves=False,
+                        num_filters=4, local_layers=1),
+    "log_eps": dict(use_log_eps=True),
+    "both_directions": dict(both_directions=True, merge_v_halves=False),
+    "improved": dict(action="improved", merge_v_halves=False),
+    "hmc_split": dict(hmc=True, merge_v_halves=False,
+                      network_arch="zero"),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_setting(case):
+    """JAX params of ``case`` (the gauge builder's init, nets perturbed by a
+    seeded N(0, 0.02^2)), its jitted transition, and the port's params,
+    dynamics config and dynamics."""
+    import dataclasses
+
+    from l2hmc_tpu.dynamics.l2hmc import init_dynamics_params
+    from l2hmc_tpu.train import gauge as jgauge
+
+    kw = dict(SETTING_CASES[case])
+    log_eps = kw.pop("use_log_eps", False)
+    base = dict(time_size=LT, space_size=LX, num_steps=K, network_arch="mlp",
+                num_hidden=HIDDEN, merge_v_halves=True, group="u1",
+                bounded_q=True, eps_init=0.12)
+    base.update(kw)
+    jcfg = jgauge.GaugeConfig(**base)
+    jdyn_cfg, jdyn, (xi, vi) = jgauge.build_dynamics(jcfg)
+    jdyn_cfg = dataclasses.replace(jdyn_cfg, use_log_eps=log_eps)
+    if log_eps:
+        (_, xa), (_, va) = jgauge.build_networks(jcfg)
+        jdyn = j_make_dynamics(jdyn_cfg, j_potential_fn(jcfg.shape), xa, va)
+    jp = init_dynamics_params(jax.random.PRNGKey(3), jdyn_cfg, xi, vi, 0.12)
+    rng = np.random.default_rng(31)
+    bump = lambda t: jax.tree.map(lambda a: jnp.asarray(  # noqa: E731
+        np.asarray(a) + 0.02 * rng.standard_normal(a.shape), jnp.float32), t)
+    jp = jp._replace(xnet=bump(jp.xnet), vnet=bump(jp.vnet))
+    tcfg = tgauge.GaugeConfig(**base)
+    params = params_from_numpy(jp, tcfg, device="cpu")
+    dyn_cfg, _ = tgauge.build_dynamics(tcfg)
+    dyn_cfg = dataclasses.replace(dyn_cfg, use_log_eps=log_eps)
+    pot = (tu1.make_improved_potential_fn(tcfg.shape, tcfg.rect_c1)
+           if tcfg.action == "improved" else None)
+    if pot is None:
+        from l2hmc_tpu_torch.ops.wilson import make_potential_fn
+        pot = make_potential_fn(tcfg.shape)
+    return jp, jax.jit(jdyn["transition"]), params, dyn_cfg, \
+        tdyn.make_dynamics(dyn_cfg, pot)
+
+
+@pytest.mark.parametrize("case", sorted(SETTING_CASES))
+def test_torch_transition_settings_match_jax(case):
+    jp, jtrans, params, dyn_cfg, dyn = _jax_setting(case)
+    x = _typical_x(11)
+    beta = 3.0
+    key = jax.random.PRNGKey(17)
+    want = jtrans(jp, jnp.asarray(x), beta, key)
+    v, direction, u = _jax_transition_randomness(key, B, x.shape[1])
+    assert 0 < int((direction > 0).sum()) < B
+    with torch.no_grad():
+        got = dyn["transition_with"](params, torch.from_numpy(x), beta, v,
+                                     direction, u)
+    for name in ("x_proposed", "v_proposed", "sumlogdet", "accept_prob",
+                 "x_out", "forward_frac"):
+        np.testing.assert_allclose(
+            getattr(got, name).numpy(), np.asarray(getattr(want, name)),
+            atol=ATOL, err_msg=name)
+    np.testing.assert_array_equal(got.accept_mask.numpy(),
+                                  np.asarray(want.accept_mask))
+    assert 0.02 < float(got.accept_prob.mean()) <= 1.0
+    if dyn_cfg.use_log_eps:
+        # raw_eps holds log(eps): eps = exp(raw_eps)
+        assert float(params.raw_eps.detach()) == pytest.approx(
+            float(np.log(0.12)), rel=1e-6)
+        assert float(tdyn.get_eps(params, dyn_cfg).detach()) == \
+            pytest.approx(0.12, rel=1e-6)
+
+
+@pytest.mark.parametrize("case", ["split_conv", "split_mlp_r1",
+                                  "merged_local_r1", "log_eps"])
+def test_torch_reversibility(case):
+    """Integrating forward then backward returns the start, and the two
+    log-Jacobians cancel (tests/test_dynamics.py test_reversibility,
+    test_u1_reversibility)."""
+    _, _, params, dyn_cfg, dyn = _jax_setting(case)
+    x = torch.from_numpy(_typical_x(12))
+    v = torch.from_numpy(np.random.default_rng(13).standard_normal(
+        x.shape).astype(np.float32))
+    ones = torch.ones(B)
+    with torch.no_grad():
+        xf, vf, ldf = dyn["integrate"](params, x, v, 1.0, ones)
+        xr, vr, ldb = dyn["integrate"](params, xf, vf, 1.0, -ones)
+    dx = xr - x
+    if dyn_cfg.group == "u1":
+        dx = tu1.wrap(dx)
+        assert float(xf.abs().max()) <= np.pi + 1e-5
+    np.testing.assert_allclose(dx.numpy(), 0.0, atol=1e-4)
+    np.testing.assert_allclose(vr.numpy(), v.numpy(), rtol=1e-3, atol=1e-4)
+    np.testing.assert_allclose((ldf + ldb).numpy(), 0.0, atol=1e-4)
+
+
+@pytest.mark.parametrize("group", ["r1", "u1"])
+@pytest.mark.parametrize("merge", [False, True])
+def test_torch_logdet_matches_autograd_jacobian(group, merge):
+    """sumlogdet equals log|det| of the autograd Jacobian of the whole map
+    (x, v) -> (x', v'), on a 2x2 lattice in float64
+    (tests/test_dynamics.py test_logdet_matches_autodiff_jacobian,
+    test_u1_logdet_matches_autodiff)."""
+    cfg = tgauge.GaugeConfig(time_size=2, space_size=2, num_steps=2,
+                             network_arch="mlp", num_hidden=8, group=group,
+                             merge_v_halves=merge, bounded_q=True,
+                             eps_init=0.3)
+    params = tgauge.init_params(cfg, torch.Generator().manual_seed(4),
+                                device="cpu")
+    with torch.no_grad():
+        for p in list(params.xnet.parameters()) + list(
+                params.vnet.parameters()):
+            p.add_(0.3 * torch.randn(p.shape,
+                                     generator=torch.Generator().manual_seed(
+                                         p.numel())))
+    params = params.double()
+    _, dyn = tgauge.build_dynamics(cfg, remat=False)
+    d = cfg.x_dim
+    rng = np.random.default_rng(5)
+    xv = torch.tensor(np.concatenate([rng.uniform(-2.5, 2.5, d),
+                                      rng.standard_normal(d)]))
+    for sign in (1.0, -1.0):
+        direction = torch.full((1,), sign, dtype=torch.float64)
+
+        def flat_map(z):
+            xo, vo, _ = dyn["integrate"](params, z[None, :d], z[None, d:],
+                                         1.0, direction)
+            return torch.cat([xo[0], vo[0]])
+
+        jac = torch.autograd.functional.jacobian(flat_map, xv)
+        with torch.no_grad():
+            _, _, ld = dyn["integrate"](params, xv[None, :d], xv[None, d:],
+                                        1.0, direction)
+        s, logdet = torch.linalg.slogdet(jac)
+        assert float(s) == pytest.approx(1.0)
+        assert float(ld[0]) == pytest.approx(float(logdet), abs=1e-9)
+
+
+def test_torch_remat_gives_the_same_gradients():
+    """Checkpointing each leapfrog step recomputes it in the backward pass;
+    the loss and every gradient are those without it (conv nets, split
+    integrator, the plain Wilson force and its double backward)."""
+    cfg = _gauge_cfg(network_arch="conv", merge_v_halves=False)
+    params = tgauge.init_params(cfg, torch.Generator().manual_seed(6),
+                                device="cpu")
+    x = torch.from_numpy(_typical_x(14))
+    v, direction, u = _jax_transition_randomness(jax.random.PRNGKey(2), B,
+                                                 x.shape[1])
+    out = {}
+    for remat in (True, False):
+        _, dyn = tgauge.build_dynamics(cfg, remat=remat)
+        tr = dyn["transition_with"](params, x, 3.0, v, direction, u)
+        loss = (tr.accept_prob * tr.x_proposed.cos().sum(-1)).sum()
+        out[remat] = (loss.detach(), torch.autograd.grad(
+            loss, list(params.parameters())))
+    assert torch.equal(out[True][0], out[False][0])
+    for a, b in zip(out[True][1], out[False][1]):
+        assert torch.equal(a, b)
+
+
+def test_torch_improved_action_matches_jax():
+    rng = np.random.default_rng(21)
+    links = rng.uniform(-np.pi, np.pi, (3, 4, 6, 2)).astype(np.float32)
+    for c1 in (-1.0 / 12.0, 0.0, 0.3):
+        want = np.asarray(ju1.improved_action(jnp.asarray(links), c1))
+        got = tu1.improved_action(torch.from_numpy(links), c1).numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-6)
+    for a, b in zip(tu1.rect_sums(torch.from_numpy(links)),
+                    ju1.rect_sums(jnp.asarray(links))):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    np.testing.assert_allclose(
+        tu1.improved_action(torch.from_numpy(links), 0.0).numpy(),
+        tu1.wilson_action(torch.from_numpy(links)).numpy(), rtol=1e-6)
+    shape = tu1.LatticeShape(4, 6)
+    assert tu1.log_z_exact_factorized(shape, 2.5) == pytest.approx(
+        ju1.log_z_exact_factorized(ju1.LatticeShape(4, 6), 2.5), rel=1e-12)
 
 
 def test_torch_eval_chunk_runs():

@@ -21,6 +21,7 @@ bf16 kernel as its test states.
 """
 
 import copy
+import dataclasses
 import shutil
 from pathlib import Path
 
@@ -541,6 +542,42 @@ def test_torch_train_step_kernel_matches_plain(cuda_device):
         float(mp["loss"]))
     for key in ("accept_prob", "plaqs", "eps"):
         assert abs(float(mk[key]) - float(mp[key])) <= ATOL, key
+    d = torch.remainder(sk.x - sp.x + np.pi, 2 * np.pi) - np.pi
+    assert float(d.abs().max()) <= ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", [True, False])
+def test_torch_conv_split_train_step_kernel_matches_plain(cuda_device, remat):
+    """The canonical 8x8 train step (conv nets, split integrator, trainable
+    eps; 16 chains) through the Wilson kernels against the plain potential,
+    with remat on (each leapfrog step recomputed in the backward pass: the
+    forces again, their double backward once) and off; the Wilson kernels
+    run as many times as derived (chip_smoke.wilson_launches_per_step)."""
+    import chip_smoke
+
+    cfg = dataclasses.replace(chip_smoke.canonical_cfg(), num_chains=16,
+                              lr_warmup_steps=0)
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    state = tgauge.init_train_state(cfg, gen, cuda_device)
+    draws = tgauge.draw_train_randomness(gen, 16, cfg.x_dim, False,
+                                         cuda_device)
+    kernels = chip_smoke.reset_launches()
+    out = []
+    for pot in (None, tw.make_plain_potential_fn(cfg.shape)):
+        st = state._replace(params=copy.deepcopy(state.params))
+        out.append(tgauge.make_train_step(cfg, pot, remat)[1](st, draws))
+        if pot is None:
+            launches = {k: v for k, v in chip_smoke.launch_counts(
+                kernels).items() if k.startswith("wilson_")}
+    assert launches == chip_smoke.wilson_launches_per_step(cfg.num_steps,
+                                                           remat)
+    (sk, mk), (sp, mp) = out
+    assert abs(float(mk["loss"]) - float(mp["loss"])) <= 1e-4 * abs(
+        float(mp["loss"]))
+    for key in ("accept_prob", "plaqs"):
+        assert abs(float(mk[key]) - float(mp[key])) <= ATOL, key
+    assert abs(float(mk["eps"]) - float(mp["eps"])) <= 1e-2 * float(mp["lr"])
     d = torch.remainder(sk.x - sp.x + np.pi, 2 * np.pi) - np.pi
     assert float(d.abs().max()) <= ATOL
 

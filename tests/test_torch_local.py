@@ -274,7 +274,8 @@ def test_torch_local_params_round_trip_from_jax():
 
 def test_torch_local_chain_wrapper_on_cpu():
     """The CPU wrapper draws from the generator (same seed, same chain),
-    and rejects a depth of 0."""
+    and rejects a depth of 0; the builder makes the image nets of the
+    other archs (conv, local), which no chain kernel takes."""
     cfg = _gauge_cfg(1)
     params = tgauge.init_params(cfg, torch.Generator().manual_seed(3),
                                 device="cpu")
@@ -295,5 +296,8 @@ def test_torch_local_chain_wrapper_on_cpu():
     with pytest.raises(ValueError, match="rand_arrays"):
         tl2.l2hmc_local_chain(links, params, None, 0.1, 3.0, K, 1, 1,
                               hop=True, rand_arrays=[links] * 4)
-    with pytest.raises(NotImplementedError, match="conv, local\)"):
-        tgauge.build_networks(_gauge_cfg(1, network_arch="conv"))
+    for arch, name in (("conv", "ConvNet"), ("local", "LocalNet")):
+        xnet, vnet = tgauge.build_networks(
+            _gauge_cfg(1, network_arch=arch), torch.Generator().manual_seed(0),
+            "cpu")
+        assert type(xnet).__name__ == type(vnet).__name__ == name

@@ -8,6 +8,7 @@ bit-identical, the retrain detector fires), not sample by sample; the
 step-level parity against JAX is tests/test_torch_train.py.
 """
 
+import copy
 import dataclasses
 import os
 import subprocess
@@ -110,6 +111,43 @@ def test_torch_train_to_convergence_retrains_on_low_acceptance():
     assert m["accept_prob"].shape == (2,)
 
 
+@pytest.mark.parametrize("merge", [False, True])
+def test_torch_remat_force_calls_as_derived(merge):
+    """The force calls of one train step on the CPU, with remat on and off,
+    are those chip_smoke.py derives for the Wilson force kernel (remat
+    recomputes each checkpointed step's force in the backward pass), and
+    an eval transition makes K+1."""
+    import chip_smoke
+    from l2hmc_tpu_torch.ops.wilson import make_potential_fn
+
+    cfg = _loop_cfg(num_chains=4, num_hidden=8, num_steps=3,
+                    merge_v_halves=merge, network_arch="conv",
+                    num_filters=2)
+    calls = []
+    pot = make_potential_fn(cfg.shape)
+    force = pot.force
+
+    def counted(x, beta):
+        calls.append(1)
+        return force(x, beta)
+
+    pot.force = counted
+    gen = torch.Generator().manual_seed(3)
+    state = tgauge.init_train_state(cfg, gen, device="cpu")
+    for remat in (True, False):
+        calls.clear()
+        step = tgauge.make_train_step(cfg, pot, remat)[0]
+        step(state._replace(params=copy.deepcopy(state.params)), gen)
+        assert len(calls) == chip_smoke.wilson_launches_per_step(
+            cfg.num_steps, remat)["wilson_force"]
+    calls.clear()
+    _, dyn = tgauge.build_dynamics(cfg, pot)
+    with torch.no_grad():
+        dyn["transition"](state.params, state.x, 2.0, gen)
+    assert len(calls) == chip_smoke.wilson_launches_per_transition(
+        cfg.num_steps)["wilson_force"]
+
+
 def test_torch_entry_points_default_to_the_card():
     """``device=None`` means the first CUDA device; without one the entry
     points raise and name the fix instead of falling back to the CPU."""
@@ -146,6 +184,9 @@ from l2hmc_tpu_torch import _device
 from l2hmc_tpu_torch.dynamics import nuts, topo
 from l2hmc_tpu_torch.ops import wilson
 from l2hmc_tpu_torch.train import checkpoint, gauge, losses, schedules
+from l2hmc_tpu_torch.analysis import observables, stats
+from l2hmc_tpu_torch.cli import analyze_run, train_gauge
+from l2hmc_tpu_torch.utils import flags, io
 cfg = gauge.GaugeConfig(time_size=4, space_size=4, num_chains=4,
                         num_steps=2, network_arch="mlp", num_hidden=8,
                         merge_v_halves=True, train_hops=True)

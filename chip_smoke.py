@@ -68,7 +68,7 @@ Phases (any failure raises and the script exits non-zero):
 10. Main path "cli": the README's commands through
    ``l2hmc_tpu_torch.cli.train_gauge.main`` in a temporary log dir, cut in
    length (``CLI_RUNS``): the canonical 8x8 command (200 train steps with
-   checkpoints, then ``--restore`` to 300 and 8000 eval transitions per
+   checkpoints, then ``--restore`` to 300 and 4000 eval transitions per
    beta), the tuned-HMC baseline (16x16, K=4, eps 0.079, beta 5,
    Metropolis warm start, 500 transitions) and the topological quick start
    (16x16 MLP h64, 200 train steps, 500 eval transitions with a hop each
@@ -78,6 +78,24 @@ Phases (any failure raises and the script exits non-zero):
    topological run's <Q^2> within 10% of exact; the restored run logs
    step 200 and writes step 250 first; every command's Wilson launches
    equal the count derived from its train steps and eval transitions.
+11. Main path "ensembles and tuning", each sub-path's launches counted
+   from 0: SMC (BASELINE config 5: 16x16, 256 particles, 31 rungs beta
+   1 -> 4, 5 moves K=5 per rung on the fused ``hmc_chain``, thermalized by
+   500 fused transitions at beta=1; gates: log Z against the factorized
+   exact value, the weighted plaquette against I1(4)/I0(4), one
+   ``hmc_chain`` launch per rung plus the thermalization); replica
+   exchange (``benchmarks/pt_vs_hop.py``'s ladder: 5 rungs beta 5 -> 2,
+   eps 0.079 sqrt(5/beta), K=4, 512 chains per rung, 1500 Metropolis
+   sweeps each, 1000 rounds; gates: each rung's plaquette within 1e-3,
+   every active pair's swap rate inside (0, 1), no off-parity swap); AIS
+   (8x8, uniform links -> beta=2 on the Wilson kernels by autograd; gate:
+   log Z against the exact value); multinomial HMC (16x16 beta=4, 256
+   chains, dual-averaging warmup; gate: plaquette within 1e-3); the
+   autotuner (``tune_hmc`` over its default grid at 16x16 beta=4, probes
+   on ``hmc_chain``: gate the DA eps at K=5 near 0.0822/0.85; then
+   ``tune_l2hmc`` at the quick-start config, K in {3, 4}, 250 probe-train
+   steps, probes on ``l2hmc_chain``: gate eps = lambda*/K and finite
+   positive scores).
 
 Each main path checks plaquettes against I1(4)/I0(4), the hop sampler's
 <Q^2> against the exact finite-volume value, and that its kernels were
@@ -1377,13 +1395,14 @@ README_HMC_BASELINE = ["--time_size", "16", "--space_size", "16",
                        "--beta_final", "5.0", "--train_steps", "0",
                        "--eval_init", "metropolis"]
 # Each command cut in length.  The canonical one trains 200 steps with
-# checkpoints and no eval, then resumes to 300 and evaluates 8000
+# checkpoints and no eval, then resumes to 300 and evaluates 4000
 # transitions per beta, so that the plaquette's jackknife error comes near
 # 2e-4 (the 1e-3 gate at ~5 sigma): at 128 chains of 8x8 it was 4.2-6.2e-4
 # after 500 transitions, 1.9e-4 (beta=4) / 2.3e-4 (beta=3) after 4000 and
 # 2.2e-4 / 1.6e-4 after 8000 (NVIDIA H100 80GB HBM3, 700.00 W): 300 train
 # steps leave a slowly mixing sampler (acceptance ~0.35 at beta=4), whose
-# error no affordable length takes reliably below 2e-4.  The HMC line is the
+# error no affordable length takes reliably below 2e-4, so 8000 bought
+# nothing over 4000 but ~170 s of the script's time limit.  The HMC line is the
 # README's tuned baseline (K=4, eps 0.079 fixed, beta 5, Metropolis warm
 # start): its plain-HMC line (README_HMC, eps 0.2921 trainable) accepts
 # ~0.01 at beta=4 on 16x16 and ESJD training raises eps further.  The
@@ -1394,7 +1413,7 @@ CLI_RUNS = {
                                      "100", "--run_steps", "0"],
     "canonical-restore": README_CANONICAL + [
         "--restore", "--train_steps", "300", "--save_steps", "100",
-        "--run_steps", "8000"],
+        "--run_steps", "4000"],
     "hmc": README_HMC_BASELINE + ["--run_steps", "500",
                                   "--eval_therm_sweeps", "500"],
     "topo": README_TOPO + ["--train_steps", "200", "--eval_hops", "1",
@@ -1938,6 +1957,327 @@ def decomposition_phase(params, eps_c, K_c, device):
             "bound": nb}
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: ensembles and tuning
+# ---------------------------------------------------------------------------
+
+# SMC: BASELINE config 5's 16x16 setup (benchmarks/smc_u1.py defaults)
+SMC_PARTICLES = 256
+SMC_RUNGS = 31
+SMC_BETAS = (1.0, 4.0)
+SMC_MOVES = 5
+SMC_K = 5
+SMC_THERM_N = 500
+# Bounds ~5 sd of the seed-to-seed spread at these settings, from
+# `python -m l2hmc_tpu_torch.benchmarks.ensemble_spread --device cpu
+# --seeds 10` (the plain versions, the HMC move): log Z -206.79 .. -208.78
+# against -207.60 (sd 0.56), the weighted plaquette 0.86175 .. 0.86587
+# against 0.86352 (sd 1.3e-3)
+SMC_LOGZ_TOL = 3.0
+SMC_PLAQ_TOL = 7e-3
+# replica exchange: benchmarks/pt_vs_hop.py's ladder
+PT_BETAS = tuple(float(b) for b in np.linspace(5.0, 2.0, 5))
+PT_EPS = tuple(round(0.079 * float(np.sqrt(5.0 / b)), 5) for b in PT_BETAS)
+PT_K = 4
+PT_CHAINS = 512
+PT_THERM_SWEEPS = 1500
+PT_ROUNDS = 1000
+PT_BURN = 200
+# AIS: 8x8, uniform links (exact samples of E = 0) -> beta * S at beta = 2,
+# the JAX defaults (100 rungs, eps 0.1, K=10); ensemble_spread.py (as
+# above): -75.17 .. -75.35 against -75.26 (sd 0.059); the bound ~8 sd
+AIS_SIDE = 8
+AIS_CHAINS = 1024
+AIS_BETA = 2.0
+AIS_LOGZ_TOL = 0.5
+# multinomial HMC (nuts_chain) at 16x16
+NUTS_CHAINS = 256
+NUTS_SAMPLES = 400
+NUTS_ADAPT = 100
+NUTS_BURN = 200
+NUTS_EPS0 = 0.08
+NUTS_STEPS = 16
+# autotune at 16x16, beta=4: benchmarks/autotune_gauge.py's base config
+TUNE_THERM_SWEEPS = 1500
+TUNE_PROBE_CHAINS = 512
+# the JAX tuner's cold DA eps at K=5: 0.0822 / 0.85 (RESULTS.md, the
+# K=5 eps=0.0822 cell is the 0.85 multiple of the DA point);
+# ensemble_spread.py (as above): 0.09574 .. 0.09745 (mean 0.09678, sd
+# 5.7e-4); the bound 7 sd
+TUNE_DA_EPS_K5 = 0.0822 / 0.85
+TUNE_DA_TOL = 0.004
+TUNE_L2_K = (3, 4)
+TUNE_L2_TRAIN_STEPS = 250
+
+
+def phase_launches(path, kernels, needed):
+    """Read a sub-path's launch counts (set to 0 before it) and fail if a
+    kernel it runs was not launched; reset them for the next one."""
+    launches = read_launches(path, kernels, needed)
+    reset_launches()
+    return launches
+
+
+def smc_check(device, kernels):
+    """SMC on the fused move: thermalize, anneal beta 1 -> 4, gate log Z
+    and the weighted plaquette."""
+    from l2hmc_tpu_torch.dynamics.hmc import hmc_chain_u1_fused
+    from l2hmc_tpu_torch.dynamics.smc import (
+        _eps, make_u1_fused_move, smc_beta_ladder, u1_log_z_exact_factorized,
+        weighted_mean)
+    from l2hmc_tpu_torch.lattice import u1
+    from l2hmc_tpu_torch.ops.wilson import make_potential_fn
+
+    shape = u1.LatticeShape(SIDE, SIDE)
+    gen = torch.Generator(device=device).manual_seed(1101)
+    x0 = u1.random_links(gen, SMC_PARTICLES, shape, device=device)
+    (links, _, _, pr), ms_th = timed(lambda: hmc_chain_u1_fused(
+        u1.to_links(x0, shape), gen, _eps(shape.num_plaquettes,
+                                          SMC_BETAS[0]),
+        SMC_BETAS[0], SMC_K, SMC_THERM_N))
+    move = make_u1_fused_move(shape, SMC_K, SMC_MOVES)
+    betas = np.linspace(*SMC_BETAS, SMC_RUNGS)
+    (final, ess), ms = timed(lambda: smc_beta_ladder(
+        gen, u1.to_flat(links), make_potential_fn(shape), betas, move))
+    launches = phase_launches("ensembles: smc", kernels, ("hmc_chain",))
+    log_z = float(final.log_z)
+    exact = u1_log_z_exact_factorized(shape.num_plaquettes, *SMC_BETAS)
+    plaq = float(weighted_mean(final.log_w,
+                               u1.observables(final.x, shape)["plaqs"]))
+    plaq_x = u1.u1_plaq_exact(SMC_BETAS[1])
+    line = {"log_z": log_z, "log_z_exact": exact, "plaq": plaq,
+            "plaq_exact": plaq_x,
+            "min_ess_frac": float(ess.min()) / SMC_PARTICLES,
+            "therm_ms": ms_th, "ladder_ms": ms,
+            "hmc_chain_launches": launches["hmc_chain"]}
+    log(f"[ensembles] smc {SIDE}x{SIDE}, {SMC_PARTICLES} particles, "
+        f"{SMC_RUNGS} rungs, {SMC_MOVES} moves K={SMC_K} (fused, one "
+        f"hmc_chain launch per rung; thermalized {SMC_THERM_N} transitions "
+        f"at beta={SMC_BETAS[0]:g}, accept {float(pr.mean()):.4f}): "
+        f"{json.dumps(line)}")
+    failed = []
+    if abs(log_z - exact) > SMC_LOGZ_TOL:
+        failed.append(f"smc log Z {log_z:.3f} against {exact:.3f}")
+    if abs(plaq - plaq_x) > SMC_PLAQ_TOL:
+        failed.append(f"smc plaquette {plaq:.5f} against {plaq_x:.5f}")
+    if launches["hmc_chain"] != SMC_RUNGS:
+        failed.append(f"smc: {launches['hmc_chain']} hmc_chain launches, "
+                      f"not {SMC_RUNGS - 1} rungs + 1 thermalization")
+    return line, failed
+
+
+def pt_check(device, kernels):
+    """Replica exchange on pt_vs_hop.py's ladder, every rung warm-started
+    by Metropolis; gate each rung's plaquette and the swaps."""
+    from l2hmc_tpu_torch.dynamics.tempering import PTConfig, pt_transition
+    from l2hmc_tpu_torch.lattice import u1
+    from l2hmc_tpu_torch.lattice.metropolis import thermalize
+    from l2hmc_tpu_torch.ops.wilson import make_potential_fn
+
+    shape = u1.LatticeShape(SIDE, SIDE)
+    cfg = PTConfig(betas=PT_BETAS, eps=PT_EPS, num_steps=PT_K)
+    gen = torch.Generator(device=device).manual_seed(1102)
+    x, ms_th = timed(lambda: torch.stack([thermalize(
+        gen, u1.random_links(gen, PT_CHAINS, shape, device=device), shape, b,
+        PT_THERM_SWEEPS) for b in PT_BETAS]))
+    reset_launches()
+    pot = make_potential_fn(shape)
+    r = len(PT_BETAS)
+    plaqs, q0, acc = [], [], []
+    swaps = torch.zeros((2, r - 1), dtype=torch.float64, device=device)
+    tries = torch.zeros_like(swaps)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(PT_ROUNDS):
+        out = pt_transition(pot, x, cfg, gen, i % 2)
+        x = u1.wrap(out.x)
+        if i >= PT_BURN:
+            links = u1.to_links(x, shape)
+            plaqs.append(u1.avg_plaquette(links).mean(dim=1))
+            q0.append(torch.round(u1.topological_charge(links[0])))
+            acc.append(out.accept_prob.mean(dim=1))
+        swaps[i % 2] += out.swap_mask.sum(dim=1)
+        tries[i % 2] += (out.swap_prob > 0).sum(dim=1)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = phase_launches("ensembles: pt", kernels, ("wilson_force",))
+    plaq = torch.stack(plaqs).double().mean(dim=0).cpu().numpy()
+    exact = np.array([u1.u1_plaq_exact(b) for b in PT_BETAS])
+    active = np.array([[i % 2 == p for i in range(r - 1)] for p in (0, 1)])
+    rate = (swaps.sum(dim=0) / tries.sum(dim=0).clamp(min=1)).cpu().numpy()
+    off = float(swaps.cpu().numpy()[~active].sum())
+    q2 = float((torch.stack(q0).double() ** 2).mean())
+    line = {"plaq": plaq.round(6).tolist(), "plaq_exact": exact.round(6)
+            .tolist(), "swap_rate": rate.round(4).tolist(),
+            "accept": torch.stack(acc).double().mean(dim=0).cpu().numpy()
+            .round(4).tolist(), "q2_rung0": q2,
+            "q2_exact_rung0": u1.topological_susceptibility_exact(
+                PT_BETAS[0], shape.num_plaquettes),
+            "rounds_per_s": PT_ROUNDS / secs, "warm_start_ms": ms_th,
+            "wilson_force_launches": launches["wilson_force"]}
+    log(f"[ensembles] pt {SIDE}x{SIDE}, betas {PT_BETAS}, eps {PT_EPS}, "
+        f"K={PT_K}, {PT_CHAINS} chains per rung, {PT_ROUNDS} rounds "
+        f"(plaquettes from round {PT_BURN}; <Q^2> not gated: beta=5 "
+        f"freezes): {json.dumps(line)}")
+    failed = []
+    for b, p, e in zip(PT_BETAS, plaq, exact):
+        if abs(p - e) > PLAQ_TOL:
+            failed.append(f"pt rung beta={b:g}: plaquette {p:.6f} against "
+                          f"{e:.6f}")
+    if not ((rate > 0) & (rate < 1)).all():
+        failed.append(f"pt swap rates {rate} not strictly inside (0, 1)")
+    if off != 0.0:
+        failed.append(f"pt: {off:g} swaps of off-parity pairs")
+    return line, failed
+
+
+def ais_check(device, kernels):
+    """AIS from uniform links to the Wilson action at beta=2 (every force
+    by autograd through the Wilson kernels); gate log Z."""
+    from l2hmc_tpu_torch.dynamics.ais import ais_log_weights, log_mean_exp
+    from l2hmc_tpu_torch.dynamics.smc import u1_log_z_exact_factorized
+    from l2hmc_tpu_torch.lattice import u1
+    from l2hmc_tpu_torch.ops.wilson import make_potential_fn
+
+    shape = u1.LatticeShape(AIS_SIDE, AIS_SIDE)
+    pot = make_potential_fn(shape)
+    gen = torch.Generator(device=device).manual_seed(1103)
+    x0 = u1.random_links(gen, AIS_CHAINS, shape, device=device)
+    logw, ms = timed(lambda: ais_log_weights(
+        gen, x0, lambda y: torch.zeros(y.shape[0], device=y.device),
+        lambda y: AIS_BETA * pot(y)))
+    launches = phase_launches("ensembles: ais", kernels,
+                              ("wilson_forward", "wilson_backward"))
+    log_z = float(log_mean_exp(logw))
+    exact = u1_log_z_exact_factorized(shape.num_plaquettes, 0.0, AIS_BETA)
+    line = {"log_z": log_z, "log_z_exact": exact, "ms": ms,
+            "wilson_forward_launches": launches["wilson_forward"],
+            "wilson_backward_launches": launches["wilson_backward"]}
+    log(f"[ensembles] ais {AIS_SIDE}x{AIS_SIDE}, {AIS_CHAINS} chains, "
+        f"uniform -> beta={AIS_BETA:g} (100 rungs, eps 0.1, K=10): "
+        f"{json.dumps(line)}")
+    if abs(log_z - exact) > AIS_LOGZ_TOL:
+        return line, [f"ais log Z {log_z:.4f} against {exact:.4f}"]
+    return line, []
+
+
+def nuts_check(device, kernels):
+    """Multinomial HMC at 16x16 beta=4 with dual-averaging warmup, from
+    fused-HMC-thermalized links; gate the plaquette."""
+    from l2hmc_tpu_torch.dynamics.hmc import hmc_chain_u1_fused
+    from l2hmc_tpu_torch.dynamics.nuts import nuts_chain
+    from l2hmc_tpu_torch.lattice import u1
+    from l2hmc_tpu_torch.ops.wilson import make_potential_fn
+
+    shape = u1.LatticeShape(SIDE, SIDE)
+    gen = torch.Generator(device=device).manual_seed(1104)
+    links = torch.zeros((NUTS_CHAINS, SIDE, SIDE, 2), device=device)
+    links, _, _, _ = hmc_chain_u1_fused(links, gen, HMC_EPS, BETA, HMC_K,
+                                        THERM_N)
+    reset_launches()
+    (xs, acc, uturn), ms = timed(lambda: nuts_chain(
+        make_potential_fn(shape), u1.to_flat(links), BETA, gen,
+        NUTS_SAMPLES, eps0=NUTS_EPS0, max_steps=NUTS_STEPS,
+        adapt_steps=NUTS_ADAPT))
+    launches = phase_launches("ensembles: nuts", kernels, ("wilson_force",))
+    kept = xs[NUTS_BURN:]
+    plaq = float(u1.avg_plaquette(u1.to_links(kept, shape)).double().mean())
+    line = {"plaq": plaq, "plaq_exact": u1.u1_plaq_exact(BETA),
+            "accept_stat": float(acc[NUTS_BURN:].double().mean()),
+            "uturn_frac": float(uturn[NUTS_BURN:].double().mean()),
+            "ms_per_transition": ms / NUTS_SAMPLES,
+            "wilson_force_launches": launches["wilson_force"]}
+    log(f"[ensembles] multinomial HMC {SIDE}x{SIDE} beta={BETA:g}, "
+        f"{NUTS_CHAINS} chains, L={NUTS_STEPS}, {NUTS_SAMPLES} transitions "
+        f"({NUTS_ADAPT} adapting from eps {NUTS_EPS0}; plaquette from "
+        f"{NUTS_BURN}): {json.dumps(line)}")
+    if abs(plaq - u1.u1_plaq_exact(BETA)) > PLAQ_TOL:
+        return line, [f"multinomial HMC plaquette {plaq:.6f}"]
+    return line, []
+
+
+def tune_check(device, kernels):
+    """tune_hmc over its full default grid (probes on hmc_chain), then
+    tune_l2hmc at the quick-start config (probes on l2hmc_chain); gate the
+    DA eps at K=5, the l2hmc eps grid and finite positive scores."""
+    import dataclasses
+
+    from l2hmc_tpu_torch.lattice import u1
+    from l2hmc_tpu_torch.lattice.metropolis import thermalize
+    from l2hmc_tpu_torch.train.autotune import tune_hmc, tune_l2hmc
+    from l2hmc_tpu_torch.train.gauge import GaugeConfig
+
+    base = GaugeConfig(time_size=SIDE, space_size=SIDE, num_chains=128,
+                       network_arch="mlp", num_hidden=64, merge_v_halves=True,
+                       eps_init=0.35 * (64.0 / (SIDE * SIDE)) ** 0.25,
+                       beta_init=2.0, beta_final=BETA)
+    gen = torch.Generator(device=device).manual_seed(1105)
+    x0 = u1.random_links(gen, base.num_chains, base.shape, device=device)
+    x0 = thermalize(gen, x0, base.shape, BETA, TUNE_THERM_SWEEPS)
+    reset_launches()
+    t0 = time.perf_counter()
+    hmc_opt = tune_hmc(base, x0, BETA, gen, probe_chains=TUNE_PROBE_CHAINS)
+    secs_hmc = time.perf_counter() - t0
+    l_hmc = phase_launches("tune: hmc", kernels,
+                           ("hmc_chain", "wilson_force"))
+    cfg_l2 = dataclasses.replace(train_cfg(), beta_final=BETA)
+    t0 = time.perf_counter()
+    l2_opt = tune_l2hmc(cfg_l2, gen, hmc_opt, k_grid=TUNE_L2_K,
+                        probe_train_steps=TUNE_L2_TRAIN_STEPS,
+                        eps_grid=(1.0,), probe_chains=TUNE_PROBE_CHAINS,
+                        device=device)
+    secs_l2 = time.perf_counter() - t0
+    l_l2 = phase_launches("tune: l2hmc", kernels,
+                          ("l2hmc_chain", "wilson_force"))
+    for c in hmc_opt.cells + l2_opt.cells:
+        log(f"[tune] cell {json.dumps(c)}")
+    da5 = next(c["eps_da"] for c in hmc_opt.cells if c["K"] == 5)
+    lam = hmc_opt.num_steps * hmc_opt.eps
+    line = {"hmc_winner": [hmc_opt.num_steps, hmc_opt.eps, hmc_opt.accept,
+                           hmc_opt.score],
+            "l2hmc_winner": [l2_opt.num_steps, l2_opt.eps, l2_opt.accept,
+                             l2_opt.score],
+            "da_eps_k5": da5, "tune_hmc_s": secs_hmc, "tune_l2hmc_s": secs_l2,
+            "hmc_chain_launches": l_hmc["hmc_chain"],
+            "l2hmc_chain_launches": l_l2["l2hmc_chain"]}
+    log(f"[tune] {SIDE}x{SIDE} beta={BETA:g}: {json.dumps(line)}")
+    failed = []
+    if abs(da5 - TUNE_DA_EPS_K5) > TUNE_DA_TOL:
+        failed.append(f"tune: DA eps at K=5 {da5:.5f} against "
+                      f"{TUNE_DA_EPS_K5:.5f}")
+    want = [round(lam / k, 5) for k in TUNE_L2_K]
+    if [c["eps"] for c in l2_opt.cells] != want:
+        failed.append(f"tune_l2hmc eps {[c['eps'] for c in l2_opt.cells]} "
+                      f"against lambda*/K {want}")
+    for c in hmc_opt.cells + l2_opt.cells:
+        if not (np.isfinite(c["score"]) and c["score"] > 0):
+            failed.append(f"tune cell {c}: score not finite and positive")
+    routes = ({c["route"] for c in hmc_opt.cells},
+              {c["route"] for c in l2_opt.cells})
+    if routes != ({"hmc_chain"}, {"l2hmc_chain"}):
+        failed.append(f"tune: probe routes {routes}")
+    return line, failed
+
+
+def ensembles_phase(device):
+    """Phase 11: SMC, replica exchange, AIS, multinomial HMC and the
+    autotuner, each sub-path's launches counted from 0."""
+    kernels = reset_launches()
+    t0 = time.perf_counter()
+    out, failed = {}, []
+    for name, check in (("smc", smc_check), ("pt", pt_check),
+                        ("ais", ais_check), ("nuts", nuts_check),
+                        ("tune", tune_check)):
+        t1 = time.perf_counter()
+        out[name], f = check(device, kernels)
+        out[name]["seconds"] = time.perf_counter() - t1
+        failed += f
+    log(f"[ensembles] phase {time.perf_counter() - t0:.1f} s")
+    if failed:
+        raise AssertionError(f"ensembles: failed gates {failed}")
+    return out
+
+
 def main():
     name, smi = device_phase()
     device = torch.device("cuda", 0)
@@ -1965,6 +2305,7 @@ def main():
     tl, train_ms, train_plain_ms = train_phase(device)
     dec = decomposition_phase(params, eps_c, cfg.num_steps, device)
     cli = cli_phase(device)
+    ens = ensembles_phase(device)
 
     from l2hmc_tpu_torch.train.gauge import init_params
 
@@ -2064,6 +2405,8 @@ def main():
         f"functions.  Train step {train_ms:.3f} "
         f"ms (plain potential {train_plain_ms:.3f} ms); train-step check "
         f"max rel err {train_err:.3e}; on {smi}")
+    for part, line in ens.items():
+        log(f"[result] ensembles {part}: {json.dumps(line)}; on {smi}")
     for cmd, line in cli.items():
         log(f"[result] cli {cmd}: {line['ms_per_train_step']:.3f} ms per "
             f"train step, {line['transitions_per_s']} transitions/s (eval at "

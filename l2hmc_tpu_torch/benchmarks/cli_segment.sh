@@ -5,10 +5,13 @@
 # SECONDS (the CLI checkpoints on it) and resumed with --restore from the
 # newest run dir under build/accept/<name> when one is there.  Each
 # command's newest run dir comes back under chiprun_out/accept/<name> with
-# its checkpoints pruned to the newest (three checkpoints of the 8x8 conv
-# nets are too large to copy back each segment).  Copy it back under
-# build/accept/<name>/ before the next segment.  CARD_TESTS=<pattern> also
-# runs the matching tests of tests/test_torch_kernels.py meanwhile.
+# its checkpoints pruned to the newest by (training attempt, step) (three
+# checkpoints of the 8x8 conv nets are too large to copy back each
+# segment).  Copy it back under
+# build/accept/<name>/ before the next segment.  A run dir with eval
+# files gets analysis.json (the port's analyze_run) on the card.
+# CARD_TESTS=<pattern> also runs the matching tests of
+# tests/test_torch_kernels.py meanwhile.
 #
 # usage: bash l2hmc_tpu_torch/benchmarks/cli_segment.sh SECONDS [canonical] [topo]
 T=$1; shift
@@ -31,12 +34,26 @@ wait
 for which in "$@"; do
   tail -8 build/accept/${which}_$seg.log
   newest=$(ls -d build/accept/$which/run_* | sort -t_ -k2 -n | tail -1)
+  if ls $newest/eval_beta*.npz > /dev/null 2>&1; then
+    python -m l2hmc_tpu_torch.cli.analyze_run $newest > build/accept/${which}_analysis_$seg.log 2>&1
+    tail -6 build/accept/${which}_analysis_$seg.log
+    cp build/accept/${which}_analysis_$seg.log chiprun_out/accept/
+  fi
   mkdir -p chiprun_out/accept/$which
   cp -r $newest chiprun_out/accept/$which/
   out=chiprun_out/accept/$which/$(basename $newest)/checkpoints
-  last=$(ls $out | grep -E '^[0-9]+$' | sort -n | tail -1)
-  for d in $(ls $out | grep -E '^[0-9]+$'); do [ "$d" != "$last" ] && rm -rf $out/$d; done
+  # checkpoint dirs are <step> (attempt 0) or attempt<a>_<step>: keep the
+  # newest by (attempt, step)
+  ckpts=$(ls $out | grep -E '^([0-9]+|attempt[0-9]+_[0-9]+)$')
+  last=$(for d in $ckpts; do echo "$d" | sed -E 's/^attempt([0-9]+)_([0-9]+)$/\1 \2 &/; t; s/^([0-9]+)$/0 \1 &/'; done | sort -k1,1n -k2,2n | tail -1 | cut -d' ' -f3)
+  for d in $ckpts; do [ "$d" = "$last" ] || rm -rf $out/$d; done
   cp build/accept/${which}_$seg.log chiprun_out/accept/
+  # keep the returned directory under 64 MiB: a long eval's traces (the
+  # quick start: 2 x 8000 transitions of 128 chains) can pass it;
+  # analysis.json stays
+  if [ $(du -sm chiprun_out | cut -f1) -gt 48 ]; then
+    rm -f chiprun_out/accept/$which/$(basename $newest)/eval_beta*.npz
+  fi
 done
 cp build/accept/*.txt build/accept/card_tests_*.log chiprun_out/accept/ 2>/dev/null
 du -sh chiprun_out

@@ -24,9 +24,20 @@ the generator's state after its step, so ``--restore`` continues the run
 with the draws it would have made.  The eval protocol goes on drawing from
 the same generator.
 
-Not ported: ``--autotune`` (ROADMAP queue A item 9) and ``--profile`` /
-``--profile_every`` (item 16) raise ``NotImplementedError``.  The port
-runs on the one device it is given.
+``--autotune`` runs the cold-start (K, eps) search of ``train/autotune.py``
+before training (skipped when ``--restore`` finds a checkpoint).
+
+Retraining (``--retrain_acc``): each checkpoint records its training
+attempt and the attempts finished so far; checkpoints are ordered by
+(attempt, step), so ``--restore`` re-enters the newest attempt at its
+step with that attempt's generator state, and a restored finished attempt
+whose end acceptance is below ``--retrain_acc`` goes on to the next
+attempt.  An interrupt inside a chunk checkpoints the state at the chunk's
+start (the train step updates the params in place).
+
+Not ported: ``--profile`` / ``--profile_every`` (ROADMAP queue A item 16)
+raise ``NotImplementedError``.  The port runs on the one device it is
+given.
 """
 
 from __future__ import annotations
@@ -66,7 +77,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "volume/beta, then probe-trains coarse-K trained "
                         "cells around its trajectory length and overrides "
                         "--num_steps/--eps with the winner; implies "
-                        "--eps_fixed (not ported: ROADMAP queue A item 9)")
+                        "--eps_fixed")
     p.add_argument("--autotune_probe_steps", type=int, default=8000,
                    help="probe-training depth per autotune cell (coarse-K "
                         "acceptance rescue needs ~10k steps to mature)")
@@ -220,14 +231,44 @@ def flags_to_config(a):
 
 
 def _check_ported(args):
-    if args.autotune:
-        raise NotImplementedError(
-            "--autotune is not ported yet (ROADMAP queue A item 9, "
-            "train/autotune.py)")
     if args.profile or args.profile_every:
         raise NotImplementedError(
             "--profile/--profile_every are not ported yet (ROADMAP queue A "
             "item 16, a torch.profiler trace digest)")
+
+
+def _autotune(cfg, args, device):
+    """Cold-start joint (K, eps) search (``train/autotune.py``): HMC's
+    optimum at the target distribution (1000 Metropolis sweeps at
+    ``beta_final`` first), then the trained kernel's coarse-K cells around
+    its trajectory length.  Returns ``cfg`` with the winner's K and fixed
+    eps.  Draws from a generator of its own (seeded ``seed + 1``), so the
+    training that follows draws as ``train_to_convergence`` would with the
+    tuned config."""
+    import dataclasses
+
+    import torch
+
+    from l2hmc_tpu_torch.lattice import u1
+    from l2hmc_tpu_torch.lattice.metropolis import thermalize
+    from l2hmc_tpu_torch.train.autotune import tune_hmc, tune_l2hmc
+    from l2hmc_tpu_torch.utils.io import log
+
+    gen = torch.Generator(device=device).manual_seed(args.seed + 1)
+    x0 = u1.random_links(gen, cfg.num_chains, cfg.shape, device=device)
+    x_th = thermalize(gen, x0, cfg.shape, cfg.beta_final, 1000)
+    probe_chains = max(cfg.num_chains, 512)
+    hmc_opt = tune_hmc(cfg, x_th, cfg.beta_final, gen,
+                       probe_chains=probe_chains)
+    log(f"autotune: HMC optimum K={hmc_opt.num_steps} eps={hmc_opt.eps} "
+        f"acc={hmc_opt.accept:.3f}")
+    l2_opt = tune_l2hmc(cfg, gen, hmc_opt,
+                        probe_train_steps=args.autotune_probe_steps,
+                        probe_chains=probe_chains, device=device)
+    log(f"autotune: trained cell K={l2_opt.num_steps} eps={l2_opt.eps} "
+        f"(probe acc {l2_opt.accept:.3f})")
+    return dataclasses.replace(cfg, num_steps=l2_opt.num_steps,
+                               eps_init=l2_opt.eps, eps_trainable=False)
 
 
 def _run_number(path: Path) -> int:
@@ -247,7 +288,8 @@ def main(argv=None):
     from l2hmc_tpu_torch.lattice import u1
     from l2hmc_tpu_torch.train import checkpoint as ckpt
     from l2hmc_tpu_torch.train.gauge import (
-        init_train_state, make_eval_chunk, make_train_chunk,
+        clone_train_state, init_train_state, make_eval_chunk,
+        make_train_chunk,
     )
     from l2hmc_tpu_torch.utils.io import (
         MetricsLogger, install_sigterm_handler, log, make_run_dir,
@@ -273,22 +315,43 @@ def main(argv=None):
             "(dual-averaging warmup finds the stable eps automatically) "
             "and a small lr (e.g. --lr_init 2e-5, RESULTS.md)")
 
+    # --autotune composes badly with --restore: the search could change
+    # num_steps (masks shape (K, d)) after a checkpoint already fixed it.
+    # When a checkpoint exists, the tuned (K, eps) are already baked into
+    # the restored state: skip the search.
+    has_ckpt = args.restore and any(
+        Path(args.log_dir).glob("run_*/checkpoints"))
+    if args.autotune and has_ckpt:
+        log("autotune: skipped — restoring from an existing checkpoint "
+            "(its (K, eps) are fixed by the saved state)")
+    if args.autotune and not cfg.hmc and not has_ckpt:
+        cfg = _autotune(cfg, args, device)
+
     gen = torch.Generator(device=device).manual_seed(args.seed)
     state = init_train_state(cfg, gen, device)
     start_step = 0
+    attempt = 0
+    # finished attempts, {"attempt", "end_accept"}
+    attempts = []
     ckpt_dir = run_dir / "checkpoints"
     if args.restore:
-        # restore from the newest run (by run number) that has checkpoints
+        # restore from the newest run (by run number) that has checkpoints,
+        # its newest checkpoint by (attempt, step)
         prev = sorted(Path(args.log_dir).glob("run_*/checkpoints"),
                       key=_run_number)
         if prev:
             ckpt_src = prev[-1]
-            step = ckpt.latest_step(ckpt_src)
-            if step is not None:
-                state = ckpt.restore_checkpoint(ckpt_src, state,
-                                                generator=gen)
+            key = ckpt.latest_checkpoint(ckpt_src)
+            if key is not None:
+                attempt, step = key
+                state = ckpt.restore_checkpoint(ckpt_src, state, step,
+                                                generator=gen,
+                                                attempt=attempt)
+                attempts = ckpt.checkpoint_attempts(ckpt_src, step,
+                                                    attempt)[1]
                 start_step = int(state.step)
-                log(f"restored step {start_step} from {ckpt_src}")
+                log(f"restored step {start_step} of training attempt "
+                    f"{attempt} from {ckpt_src}")
 
     chunk_size = args.logging_steps
     train_chunk = make_train_chunk(cfg, chunk_size)
@@ -299,16 +362,23 @@ def main(argv=None):
     # the generator's state that goes with `state` (saved with it)
     gen_state = gen.get_state()
     max_attempts = 1 + (args.max_retrains if args.retrain_acc > 0 else 0)
-    attempts = []
+    # the newest consistent (state, generator state, finished attempts,
+    # attempt): the train step updates the params in place, so an interrupt
+    # inside a chunk checkpoints this snapshot, not the half-updated params
+    snapshot = (clone_train_state(state), gen_state, list(attempts), attempt)
+
+    def save(st, g_state, done, att):
+        ckpt.save_checkpoint(ckpt_dir, st, int(st.step), cfg,
+                             generator_state=g_state, attempt=att,
+                             attempts=done)
+
     try:
-        for attempt in range(max_attempts):
-            if attempt > 0:
-                gen = torch.Generator(device=device).manual_seed(
-                    args.seed + 7700 + attempt)
-                state = init_train_state(cfg, gen, device)
-                start_step = 0
-                gen_state = gen.get_state()
+        while True:
             n_chunks = max((cfg.train_steps - start_step) // chunk_size, 0)
+            if n_chunks:
+                # a restored attempt trained on (a larger --train_steps) is
+                # judged again at its new end
+                attempts = [a for a in attempts if a["attempt"] != attempt]
             end_acc = float("nan")
             for c in range(n_chunks):
                 state, metrics = train_chunk(state, gen)
@@ -318,6 +388,9 @@ def main(argv=None):
                 t_now = time.perf_counter()
                 acc_arr = metrics["accept_prob"]
                 end_acc = float(acc_arr[-min(50, chunk_size):].mean())
+                if c == n_chunks - 1:
+                    attempts.append({"attempt": attempt,
+                                     "end_accept": round(end_acc, 4)})
                 rec = {k: float(v[-1]) for k, v in metrics.items()}
                 rec.update(
                     step=step,
@@ -329,37 +402,56 @@ def main(argv=None):
 
                 if args.summary_steps and step % args.summary_steps < chunk_size:
                     logger.write_summaries(step, state.params)
-                if args.save_steps and step % args.save_steps < chunk_size:
-                    ckpt.save_checkpoint(ckpt_dir, state, step, cfg,
-                                         generator_state=gen_state)
                 if eval_chunk is not None and step % args.eval_steps < chunk_size:
                     x_eval = u1.random_links(gen, cfg.num_chains, cfg.shape,
                                              device=device)
                     _, em = eval_chunk(state.params, x_eval, rec["beta"], gen)
+                    gen_state = gen.get_state()
                     log(
                         f"  eval@{step}: acc={float(em['accept_prob'].mean()):.4f} "
                         f"plaq={float(em['plaqs'][250:].mean()):.5f}"
                     )
-            attempts.append({"attempt": attempt,
-                             "end_accept": round(end_acc, 4)})
-            if (args.retrain_acc <= 0 or n_chunks == 0
-                    or end_acc >= args.retrain_acc):
+                if (c == n_chunks - 1 or args.save_steps
+                        and step % args.save_steps < chunk_size):
+                    save(state, gen_state, attempts, attempt)
+                snapshot = (clone_train_state(state), gen_state,
+                            list(attempts), attempt)
+            record = next((a for a in attempts if a["attempt"] == attempt),
+                          None)
+            if record is None:
+                # nothing trained and nothing recorded (--train_steps 0):
+                # no attempt to judge
+                attempts.append({"attempt": attempt, "end_accept": end_acc})
+                break
+            end_acc = record["end_accept"]
+            if (args.retrain_acc <= 0 or end_acc >= args.retrain_acc
+                    or attempt + 1 >= max_attempts):
                 break
             log(f"training attempt {attempt}: end acc {end_acc:.3f} < "
                 f"{args.retrain_acc} (half-acceptance basin) — retraining "
                 f"with a fresh seed")
+            attempt += 1
+            gen = torch.Generator(device=device).manual_seed(
+                args.seed + 7700 + attempt)
+            state = init_train_state(cfg, gen, device)
+            start_step = 0
+            gen_state = gen.get_state()
+            snapshot = (clone_train_state(state), gen_state, list(attempts),
+                        attempt)
     except (KeyboardInterrupt, SystemExit):
-        log(f"interrupted at step {int(state.step)}; checkpointing...")
-        ckpt.save_checkpoint(ckpt_dir, state, int(state.step), cfg,
-                             generator_state=gen_state)
+        st, g_state, done, att = snapshot
+        log(f"interrupted at step {int(st.step)} of training attempt "
+            f"{att}; checkpointing...")
+        save(st, g_state, done, att)
         logger.close()
         raise
 
     if attempts:
         save_params_json(run_dir, dict(vars(args),
                                        train_attempts=attempts))
-    ckpt.save_checkpoint(ckpt_dir, state, int(state.step), cfg,
-                         generator_state=gen_state)
+    if n_chunks == 0:
+        # nothing trained in this run: its run dir still gets the state
+        save(state, gen_state, attempts, attempt)
 
     # post-training eval protocol; --eval_hops interleaves exact instanton
     # hops into every eval chain (dynamics/topo.py)

@@ -1,8 +1,10 @@
 """Plain Hamiltonian Monte Carlo baseline (port of ``l2hmc_tpu/dynamics/hmc.py``).
 
 Standard leapfrog + MH accept with the same potential/kinetic conventions as
-the learned sampler, plus the U(1) chain entry :func:`hmc_chain_u1_fused`,
-which runs the fused chain of ``ops/leapfrog.py``.
+the learned sampler; :func:`hmc_chain`, a chain of them for any potential
+(the thermalizer of ``benchmarks/smc_u1.py``, the building block of AIS and
+SMC); and the U(1) chain entry :func:`hmc_chain_u1_fused`, which runs the
+fused chain of ``ops/leapfrog.py``.
 """
 
 from __future__ import annotations
@@ -11,7 +13,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from l2hmc_tpu_torch.ops.leapfrog import hmc_chain
+from l2hmc_tpu_torch.ops import leapfrog as fused
 
 PotentialFn = Callable[[torch.Tensor], torch.Tensor]
 
@@ -85,5 +87,28 @@ def hmc_chain_u1_fused(links: torch.Tensor, generator: torch.Generator,
     raises); on a CPU tensor the plain version runs.  ``hop=True`` appends
     one exact instanton hop per transition.
     """
-    return hmc_chain(links, generator, eps, beta, num_leapfrog, num_samples,
-                     hop=hop)
+    return fused.hmc_chain(links, generator, eps, beta, num_leapfrog,
+                           num_samples, hop=hop)
+
+
+@torch.no_grad()
+def hmc_chain(potential_fn: PotentialFn, x0: torch.Tensor, beta,
+              generator: Optional[torch.Generator], eps, num_leapfrog: int,
+              num_samples: int, wrap_fn: Optional[Callable] = None,
+              draws=None):
+    """Run ``num_samples`` HMC transitions from ``x0 (B, d)``.
+
+    Returns ``(samples (T, B, d), accept_probs (T, B))``; each sample is
+    the state after its transition (and ``wrap_fn``).  ``draws``, a
+    sequence of ``(v, u)`` per transition, replaces the generator's.
+    """
+    x = x0
+    xs, probs = [], []
+    for t in range(num_samples):
+        v, u = draws[t] if draws is not None else (None, None)
+        out = hmc_transition(potential_fn, x, beta, eps, num_leapfrog,
+                             generator, v=v, u=u)
+        x = out.x_out if wrap_fn is None else wrap_fn(out.x_out)
+        xs.append(x)
+        probs.append(out.accept_prob)
+    return torch.stack(xs), torch.stack(probs)

@@ -2,11 +2,13 @@
 from the JAX package.
 
 Checkpoints (port of ``l2hmc_tpu/train/checkpoint.py``): one directory per
-step, ``<ckpt_dir>/<step>/state.pt``, a ``torch.save`` of the whole
+step, ``<ckpt_dir>/<step>/state.pt`` (``attempt<a>_<step>`` in a
+retraining attempt ``a``), a ``torch.save`` of the whole
 :class:`TrainState` as tensors (params, Adam's moments and count, the
 dual-averaging state, the chain state and the step) and, when given, the
 generator's state, so a restored run draws what the saved run would have
-drawn next.  The newest ``keep`` (3) are kept.  ``config.json`` beside
+drawn next, and the training attempt with the attempts finished so far.
+The newest ``keep`` (3) by (attempt, step) are kept.  ``config.json`` beside
 them is ``dataclasses.asdict(config)`` at indent 2, written once, as the
 reference writes it, so :func:`load_config_dict` reads either package's.
 
@@ -26,7 +28,7 @@ import json
 import shutil
 from pathlib import Path
 from types import SimpleNamespace
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -186,20 +188,46 @@ def train_state_from_numpy(tree, cfg: GaugeConfig, device=None) -> TrainState:
 # ---------------------------------------------------------------------------
 
 
-def _step_dirs(ckpt_dir: Path):
-    """``{step: dir}`` of the complete checkpoints under ``ckpt_dir``."""
+def checkpoint_name(attempt: int, step: int) -> str:
+    """Directory name of the checkpoint of ``step`` in training attempt
+    ``attempt``: ``<step>`` for attempt 0 (the reference's layout),
+    ``attempt<a>_<step>`` for a retraining attempt ``a``."""
+    return str(int(step)) if attempt == 0 else f"attempt{attempt}_{step}"
+
+
+def _parse_name(name: str) -> Optional[Tuple[int, int]]:
+    if name.isdigit():
+        return 0, int(name)
+    head, _, step = name.partition("_")
+    if head.startswith("attempt") and head[7:].isdigit() and step.isdigit():
+        return int(head[7:]), int(step)
+    return None
+
+
+def _checkpoint_dirs(ckpt_dir: Path):
+    """``{(attempt, step): dir}`` of the complete checkpoints under
+    ``ckpt_dir``."""
     if not ckpt_dir.is_dir():
         return {}
-    return {int(p.name): p for p in ckpt_dir.iterdir()
-            if p.name.isdigit() and (p / "state.pt").is_file()}
+    out = {}
+    for p in ckpt_dir.iterdir():
+        key = _parse_name(p.name)
+        if key is not None and (p / "state.pt").is_file():
+            out[key] = p
+    return out
 
 
 def save_checkpoint(ckpt_dir, state: TrainState, step: int, config=None,
-                    keep: int = 3, generator_state=None):
-    """Write ``state`` as the checkpoint of ``step`` and prune to the newest
-    ``keep``; ``config.json`` is written when absent.
-    ``generator_state`` (``torch.Generator.get_state()``) is saved beside
-    the state for :func:`restore_checkpoint`."""
+                    keep: int = 3, generator_state=None, attempt: int = 0,
+                    attempts=()):
+    """Write ``state`` as the checkpoint of ``step`` in training attempt
+    ``attempt`` and prune to the newest ``keep`` by (attempt, step); a
+    retraining attempt restarts at step 0, so its checkpoints are newer
+    than every one of the attempts before it.  ``config.json`` is written
+    when absent.  ``generator_state`` (``torch.Generator.get_state()``) is
+    saved beside the state for :func:`restore_checkpoint`; ``attempts``, the
+    attempts finished so far (``{"attempt", "end_accept"}`` records), for
+    :func:`checkpoint_attempts`."""
     ckpt_dir = Path(ckpt_dir).absolute()
     ckpt_dir.mkdir(parents=True, exist_ok=True)
     if config is not None:
@@ -212,40 +240,60 @@ def save_checkpoint(ckpt_dir, state: TrainState, step: int, config=None,
         "params": {k: v.detach() for k, v in state.params.state_dict().items()},
         "opt_count": int(opt.count), "mu": opt.mu, "nu": opt.nu,
         "x": state.x, "step": int(state.step), "da": list(state.da),
+        "attempt": int(attempt),
+        "attempts": [{"attempt": int(a["attempt"]),
+                      "end_accept": float(a["end_accept"])}
+                     for a in attempts],
     }
     if generator_state is not None:
         payload["generator"] = generator_state
-    out = ckpt_dir / str(int(step))
+    out = ckpt_dir / checkpoint_name(attempt, step)
     out.mkdir(exist_ok=True)
     tmp = out / "state.pt.tmp"
     torch.save(payload, tmp)
     tmp.replace(out / "state.pt")
-    steps = sorted(_step_dirs(ckpt_dir))
-    for old in steps[:-keep] if keep > 0 else []:
-        shutil.rmtree(ckpt_dir / str(old))
+    dirs = _checkpoint_dirs(ckpt_dir)
+    for old in sorted(dirs)[:-keep] if keep > 0 else []:
+        shutil.rmtree(dirs[old])
+
+
+def latest_checkpoint(ckpt_dir) -> Optional[Tuple[int, int]]:
+    """``(attempt, step)`` of the newest checkpoint under ``ckpt_dir``, or
+    ``None``."""
+    keys = _checkpoint_dirs(Path(ckpt_dir).absolute())
+    return max(keys) if keys else None
 
 
 def latest_step(ckpt_dir) -> Optional[int]:
-    """The newest checkpointed step under ``ckpt_dir``, or ``None``."""
-    steps = _step_dirs(Path(ckpt_dir).absolute())
-    return max(steps) if steps else None
+    """The step of the newest checkpoint (by attempt, then step) under
+    ``ckpt_dir``, or ``None``."""
+    key = latest_checkpoint(ckpt_dir)
+    return None if key is None else key[1]
+
+
+def _checkpoint_file(ckpt_dir: Path, step, attempt) -> Path:
+    if step is None:
+        keys = [k for k in _checkpoint_dirs(ckpt_dir)
+                if attempt is None or k[0] == attempt]
+        if not keys:
+            raise FileNotFoundError(f"no checkpoint found in {ckpt_dir}")
+        attempt, step = max(keys)
+    return ckpt_dir / checkpoint_name(attempt or 0, step) / "state.pt"
 
 
 def restore_checkpoint(ckpt_dir, template: TrainState,
-                       step: Optional[int] = None, generator=None
-                       ) -> TrainState:
-    """The checkpointed state of ``step`` (``None``: the newest) in the
+                       step: Optional[int] = None, generator=None,
+                       attempt: Optional[int] = None) -> TrainState:
+    """The checkpointed state of ``step`` in ``attempt`` (``step=None``: the
+    newest by (attempt, step), within ``attempt`` when given; a given
+    ``step`` is attempt 0's unless ``attempt`` says otherwise) in the
     structure of ``template`` (a state of the same config, e.g. from
     ``init_train_state``), on the template's device; ``template.params``
     is loaded in place.  A ``generator`` is set to the saved generator
     state when the checkpoint has one."""
     ckpt_dir = Path(ckpt_dir).absolute()
-    if step is None:
-        step = latest_step(ckpt_dir)
-    if step is None:
-        raise FileNotFoundError(f"no checkpoint found in {ckpt_dir}")
     device = template.x.device
-    payload = torch.load(ckpt_dir / str(int(step)) / "state.pt",
+    payload = torch.load(_checkpoint_file(ckpt_dir, step, attempt),
                          map_location=device, weights_only=True)
     params = template.params
     params.load_state_dict(payload["params"], strict=True)
@@ -257,6 +305,18 @@ def restore_checkpoint(ckpt_dir, template: TrainState,
                            mu=payload["mu"], nu=payload["nu"]),
         x=payload["x"], step=int(payload["step"]),
         da=DualAveragingState(*payload["da"]))
+
+
+def checkpoint_attempts(ckpt_dir, step: Optional[int] = None,
+                        attempt: Optional[int] = None):
+    """``(attempt, finished)`` recorded with a checkpoint (chosen as by
+    :func:`restore_checkpoint`): its training attempt and the attempts
+    finished when it was written, as ``{"attempt", "end_accept"}``
+    records."""
+    payload = torch.load(_checkpoint_file(Path(ckpt_dir).absolute(), step,
+                                          attempt),
+                         map_location="cpu", weights_only=True)
+    return int(payload.get("attempt", 0)), list(payload.get("attempts", []))
 
 
 def load_config_dict(ckpt_dir) -> Optional[dict]:

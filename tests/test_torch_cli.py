@@ -223,6 +223,7 @@ torch.set_num_threads(1)
 from l2hmc_tpu_torch import analysis
 from l2hmc_tpu_torch.analysis import observables, stats
 from l2hmc_tpu_torch.cli import analyze_run, train_gauge
+from l2hmc_tpu_torch.train import autotune
 from l2hmc_tpu_torch.utils import flags, io
 assert train_gauge.main({TINY!r} + ["--network_arch", "local", "--group",
     "r1", "--action", "improved", "--train_steps", "2", "--run_steps", "4",
@@ -240,3 +241,185 @@ print("NOJAX_OK")
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert "NOJAX_OK" in proc.stdout
     assert (tmp_path / "run_1" / "analysis.json").exists()
+
+
+# ---------------------------------------------------------------------------
+# Resuming across retraining attempts
+# ---------------------------------------------------------------------------
+
+RETRAIN = ["--train_steps", "6", "--run_steps", "20", "--retrain_acc", "2.0",
+           "--network_arch", "mlp"]
+
+
+def _interrupt_step(monkeypatch, at_call):
+    """Make the CLI's train step raise KeyboardInterrupt (what SIGTERM
+    becomes) on its ``at_call``-th call, inside a chunk whose earlier steps
+    already updated the params in place."""
+    make_step = tgauge.make_train_step
+
+    def patched(*args, **kwargs):
+        step, step_with = make_step(*args, **kwargs)
+        calls = []
+
+        def wrapped(state, gen):
+            calls.append(1)
+            if len(calls) == at_call:
+                raise KeyboardInterrupt
+            return step(state, gen)
+        return wrapped, step_with
+
+    monkeypatch.setattr(tgauge, "make_train_step", patched)
+
+
+@pytest.fixture(scope="module")
+def retrain_runs(tmp_path_factory):
+    """With --retrain_acc 2.0 every attempt fails: attempt 0 trains 6 steps,
+    attempt 1 (a fresh seed) 6 more, then attempt 1 is evaluated.  The same
+    run interrupted in the middle of attempt 1's second chunk (call 10 of
+    the train step; call 9 has updated the params in place), then resumed
+    with --restore."""
+    root = tmp_path_factory.mktemp("retrain")
+    argv = RETRAIN + ["--max_retrains", "1"]
+    full = _run(root / "full", *argv)
+    mp = pytest.MonkeyPatch()
+    _interrupt_step(mp, 10)
+    with pytest.raises(KeyboardInterrupt):
+        _run(root / "cut", *argv)
+    mp.undo()
+    cut = max((root / "cut").glob("run_*"))
+    ckpts = sorted(p.name for p in (cut / "checkpoints").iterdir())
+    resumed = _run(root / "cut", *argv, "--restore")
+    return full, cut, ckpts, resumed
+
+
+def _assert_same_eval(a_dir, b_dir):
+    for beta in (4, 3):
+        with np.load(a_dir / f"eval_beta{beta}.npz") as a, \
+                np.load(b_dir / f"eval_beta{beta}.npz") as b:
+            for k in a.files:
+                np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+def test_torch_cli_restore_continues_a_retraining_attempt(retrain_runs):
+    """The resumed run re-enters attempt 1 at step 2 with its generator
+    state and continues it bit for bit; the params it evaluates are
+    attempt 1's, never the failed attempt 0's."""
+    full, cut, _, resumed = retrain_runs
+    recs = _records(full)
+    assert [r["step"] for r in recs] == [2, 4, 6, 2, 4, 6]
+    assert [r["step"] for r in _records(cut)] == [2, 4, 6, 2]
+    got = _records(resumed)
+    assert [r["step"] for r in got] == [4, 6]
+    for r, want in zip(got, recs[-2:]):
+        for k, v in r.items():
+            if k != "dt":
+                assert v == want[k], k
+    _assert_same_eval(full, resumed)
+    attempts = json.loads((full / "params.json").read_text())[
+        "train_attempts"]
+    assert [a["attempt"] for a in attempts] == [0, 1]
+    assert json.loads((resumed / "params.json").read_text())[
+        "train_attempts"] == attempts
+
+
+def test_torch_checkpoints_prune_by_attempt_then_step(retrain_runs):
+    """Keep-3 keeps the newest by (attempt, step): attempt 1's step-2
+    checkpoint survives attempt 0's steps 4 and 6, and the checkpoint the
+    interrupt wrote is attempt 1's last consistent state, step 2."""
+    from l2hmc_tpu_torch.train import checkpoint as tckpt
+
+    full, cut, ckpts, _ = retrain_runs
+    assert ckpts == ["4", "6", "attempt1_2", "config.json"]
+    assert tckpt.latest_checkpoint(cut / "checkpoints") == (1, 2)
+    assert tckpt.latest_step(cut / "checkpoints") == 2
+    attempt, done = tckpt.checkpoint_attempts(cut / "checkpoints")
+    assert attempt == 1 and [a["attempt"] for a in done] == [0]
+    assert sorted(p.name for p in (full / "checkpoints").iterdir()) == [
+        "attempt1_2", "attempt1_4", "attempt1_6", "config.json"]
+
+
+def test_torch_cli_restored_failed_attempt_retrains(tmp_path):
+    """A finished attempt restored with an end acceptance below
+    --retrain_acc is not evaluated: the resumed run goes on to attempt 1,
+    as the run that retrained without stopping did."""
+    full = _run(tmp_path / "full", *RETRAIN, "--max_retrains", "1")
+    first = _run(tmp_path / "cut", *RETRAIN, "--max_retrains", "0")
+    assert [a["attempt"] for a in json.loads(
+        (first / "params.json").read_text())["train_attempts"]] == [0]
+    resumed = _run(tmp_path / "cut", *RETRAIN, "--max_retrains", "1",
+                   "--restore")
+    got = _records(resumed)
+    want = _records(full)[3:]
+    assert [r["step"] for r in got] == [2, 4, 6]
+    for r, w in zip(got, want):
+        assert r["loss"] == w["loss"] and r["plaqs"] == w["plaqs"]
+    _assert_same_eval(full, resumed)
+
+
+def test_torch_cli_segment_prunes_to_the_newest_attempt(tmp_path):
+    """benchmarks/cli_segment.sh's prune keeps the newest checkpoint by
+    (attempt, step): attempt 1's step 150 over attempt 0's step 12000."""
+    import re
+
+    script = (REPO / "l2hmc_tpu_torch" / "benchmarks" / "cli_segment.sh"
+              ).read_text()
+    lines = [ln.strip() for ln in script.splitlines()
+             if re.match(r"\s*(ckpts|last)=|\s*for d in \$ckpts", ln)]
+    assert len(lines) == 3, lines
+    out = tmp_path / "checkpoints"
+    for d in ("11950", "12000", "attempt1_100", "attempt1_150",
+              "config.json"):
+        (out / d).mkdir(parents=True)
+    subprocess.run(["bash", "-c", f"out={out}\n" + "\n".join(lines)],
+                   check=True)
+    assert sorted(p.name for p in out.iterdir()) == [
+        "attempt1_150", "config.json"]
+
+
+def test_torch_cli_autotune_runs(tmp_path, monkeypatch, capsys):
+    """--autotune (it raised before the tuner was ported) runs the search
+    before training, its grids cut to one cell each here, and trains the
+    winner with its K and fixed eps."""
+    from l2hmc_tpu_torch.train import autotune as ttune
+
+    tune_hmc, tune_l2hmc = ttune.tune_hmc, ttune.tune_l2hmc
+    make_chunk = tgauge.make_train_chunk
+    small = dict(probe_steps=200, estimator="lag1")
+
+    def small_hmc(*a, **kw):
+        return tune_hmc(*a, **kw, k_grid=(3,), da_steps=5, eps_grid=(1.0,),
+                        **small)
+
+    def small_l2hmc(*a, **kw):
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(tgauge, "make_train_chunk",
+                       lambda cfg, n, *b, **k: make_chunk(cfg, 5, *b, **k))
+            return tune_l2hmc(*a, **kw, k_grid=(2,), eps_grid=(1.0,),
+                              **small)
+
+    monkeypatch.setattr(ttune, "tune_hmc", small_hmc)
+    monkeypatch.setattr(ttune, "tune_l2hmc", small_l2hmc)
+    run = _run(tmp_path, "--network_arch", "mlp", "--merge_v_halves",
+               "--autotune", "--train_steps", "4", "--run_steps", "4")
+    out = capsys.readouterr().out
+    assert "autotune: HMC optimum K=3" in out
+    assert "autotune: trained cell K=2" in out
+    cfg = json.loads((run / "checkpoints" / "config.json").read_text())
+    assert cfg["num_steps"] == 2 and cfg["eps_trainable"] is False
+    assert cfg["eps_init"] > 0
+    assert [r["step"] for r in _records(run)] == [2, 4]
+
+
+def test_torch_cli_restore_extends_a_finished_attempt(tmp_path, capsys):
+    """A finished attempt restored with a larger --train_steps trains on
+    (the checkpoint's end-of-attempt record does not stop it), as the
+    chip_smoke.py CLI phase resumes 200 steps to 300."""
+    _run(tmp_path, "--train_steps", "4", "--run_steps", "0")
+    capsys.readouterr()
+    run = _run(tmp_path, "--train_steps", "6", "--run_steps", "0",
+               "--restore")
+    assert "restored step 4 of training attempt 0" in capsys.readouterr().out
+    assert [r["step"] for r in _records(run)] == [6]
+    attempts = json.loads((run / "params.json").read_text())[
+        "train_attempts"]
+    assert [a["attempt"] for a in attempts] == [0]

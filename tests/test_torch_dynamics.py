@@ -239,11 +239,11 @@ def test_torch_dynamics_helpers():
 
 
 @pytest.mark.parametrize("kw", [
-    {"chain_operator": 2}, {"aux_dim": 8}, {"autotune": True}])
+    {"chain_operator": 2}, {"aux_dim": 8}, {"profile": True}])
 def test_torch_unported_settings_raise(kw):
     """What the port still leaves out raises and names its ROADMAP item:
     the VAE's chain operator and aux conditioning (A14), and the CLI's
-    --autotune (A9)."""
+    --profile (A16; --autotune is ported, tests/test_torch_cli.py)."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         if "chain_operator" in kw:
             _, dyn = tgauge.build_dynamics(_gauge_cfg())
@@ -252,7 +252,7 @@ def test_torch_unported_settings_raise(kw):
             make_mlp_net(MLPNetSpec(32, 16, aux_dim=kw["aux_dim"]))
         else:
             from l2hmc_tpu_torch.cli.train_gauge import main
-            main(["--autotune", "--device", "cpu"])
+            main(["--profile", "--device", "cpu"])
 
 
 def test_torch_unported_builders_raise():

@@ -141,7 +141,9 @@ def test_torch_hmc_baseline_chain_matches_jax_reference():
 
 def test_torch_port_imports_no_jax():
     """A fresh interpreter runs the CPU slice (champion chain with hop, HMC
-    thermalizer) and imports neither jax nor the JAX package."""
+    thermalizer, a short SMC ladder on the fused move, a PT round,
+    multinomial HMC and AIS) and imports neither jax nor the JAX
+    package."""
     code = r"""
 import sys
 before = {m for m in sys.modules if m == "jax" or m.startswith("jax.")}
@@ -149,9 +151,26 @@ import torch
 torch.set_num_threads(1)
 import chip_smoke
 from l2hmc_tpu_torch.dynamics.hmc import hmc_chain_u1_fused
+from l2hmc_tpu_torch.dynamics import ais, nuts, smc, tempering
+from l2hmc_tpu_torch.lattice import u1
 from l2hmc_tpu_torch.ops.l2hmc_kernel import l2hmc_chain
+from l2hmc_tpu_torch.ops.wilson import make_potential_fn
 from l2hmc_tpu_torch.train.checkpoint import load_champion
 cfg, params = load_champion(device="cpu")
+shape = u1.LatticeShape(4, 4)
+pot = make_potential_fn(shape)
+g0 = torch.Generator().manual_seed(1)
+x = u1.random_links(g0, 8, shape, device="cpu")
+final, _ = smc.smc_beta_ladder(g0, x, pot, [1.0, 1.5, 2.0],
+                               smc.make_u1_fused_move(shape, 3, 2))
+pt = tempering.pt_transition(pot, x.reshape(2, 4, -1),
+                             tempering.PTConfig((2.0, 1.0), (0.2, 0.3), 3),
+                             g0, 0)
+xs, _, _ = nuts.nuts_chain(pot, x, 2.0, g0, 2, eps0=0.2, max_steps=4)
+logw = ais.ais_log_weights(g0, x, lambda y: 0.0 * pot(y), pot, num_betas=2,
+                           eps=0.2, num_leapfrog=2)
+assert all(bool(torch.isfinite(t).all())
+           for t in (final.x, final.log_z, pt.x, xs, logw))
 g = torch.Generator().manual_seed(0)
 links = torch.zeros(2, 16, 16, 2)
 links, plaq, _, _ = hmc_chain_u1_fused(links, g, 0.08, 4.0, 5, 2)

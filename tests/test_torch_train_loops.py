@@ -172,8 +172,8 @@ def test_torch_entry_points_default_to_the_card():
 
 def test_torch_train_path_imports_no_jax():
     """A fresh interpreter imports every module of the training slice, runs
-    two train steps with hops on the CPU, and loads neither jax nor the JAX
-    package."""
+    two train steps with hops and a one-cell HMC tune on the CPU, and loads
+    neither jax nor the JAX package."""
     code = r"""
 import sys
 before = {m for m in sys.modules if m == "jax" or m.startswith("jax.")}
@@ -181,9 +181,10 @@ import torch
 torch.set_num_threads(1)
 import chip_smoke
 from l2hmc_tpu_torch import _device
-from l2hmc_tpu_torch.dynamics import nuts, topo
+from l2hmc_tpu_torch.dynamics import ais, nuts, smc, tempering, topo
 from l2hmc_tpu_torch.ops import wilson
-from l2hmc_tpu_torch.train import checkpoint, gauge, losses, schedules
+from l2hmc_tpu_torch.train import (autotune, checkpoint, gauge, losses,
+                                   schedules)
 from l2hmc_tpu_torch.analysis import observables, stats
 from l2hmc_tpu_torch.cli import analyze_run, train_gauge
 from l2hmc_tpu_torch.utils import flags, io
@@ -194,6 +195,10 @@ g = torch.Generator().manual_seed(0)
 state = gauge.init_train_state(cfg, g, device="cpu")
 state, m = gauge.make_train_chunk(cfg, 2)(state, g)
 assert bool(torch.isfinite(m["loss"]).all())
+hcfg = autotune._hmc_cfg(cfg, 2, 0.2)
+res = autotune.tune_hmc(hcfg, state.x, 2.0, g, k_grid=(2,), da_steps=2,
+                        probe_steps=200, eps_grid=(1.0,), estimator="lag1")
+assert res.num_steps == 2 and res.cells[0]["route"] == "hmc_chain"
 jax_mods = {m for m in sys.modules if m == "jax" or m.startswith("jax.")}
 assert jax_mods == before, sorted(jax_mods - before)[:5]
 ref = [m for m in sys.modules if m == "l2hmc_tpu" or m.startswith("l2hmc_tpu.")]

@@ -97,6 +97,31 @@ Phases (any failure raises and the script exits non-zero):
    steps, probes on ``l2hmc_chain``: gate eps = lambda*/K and finite
    positive scores).
 
+12. Main path "flow" (``dynamics/flow.py``, ``cli/train_flow.py``), launches
+   counted from 0: ``configs/flow_8x8.txt`` at its widths (8x8, 16 layers,
+   6 mixtures, 32 channels, batch 1024) through
+   ``l2hmc_tpu_torch.cli.train_flow.main``, cut in length (``FLOW_ARGV``:
+   300 reverse-KL steps, 50 fKL steps on the 4096-config buffer that two
+   ``hmc_chain`` launches make, the importance-weight eval and 200 MH
+   steps); every Wilson action through the kernels (forward and backward
+   per step, action-only in the evals), the launches checked against the
+   count derived from the code (``flow_launches``).  Gates: the fKL
+   chain's plaquette within 1e-3 of I1/I0(2) (the buffer's own mean
+   within 5 standard errors), the loss falling, the summary's log Z at
+   most the factorized value plus 3 standard errors (a lower bound in
+   expectation).  Then one reverse-KL step at ``configs/flow_16x16.txt``'s
+   widths (16x16, 24 layers, 8 mixtures, 64 channels, 5x5, batch 1024) on
+   the Wilson kernels against the same step on the plain action: loss
+   within 1e-5, every gradient within 1e-3 of its largest entry.
+13. Main path "parallel" (``parallel/``), launches counted from 0: a
+   one-rank NCCL group (``file://`` rendezvous) running the dry run's
+   modes 1, 2, 4, 5 and 6 (``parallel/dryrun.run_modes``; the Wilson
+   kernels in modes 1 and 4, ``hmc_chain`` in mode 5, launches as
+   derived), each held against the same run with no group and to the JAX
+   dry run's assertions; then 10 quick-start train steps per turn on the
+   group and alone (NCCL cannot put two ranks on one card: the multi-rank
+   checks are the CPU tests).
+
 Each main path checks plaquettes against I1(4)/I0(4), the hop sampler's
 <Q^2> against the exact finite-volume value, and that its kernels were
 launched (counts set to 0 just before the path and read just after); it
@@ -2278,6 +2303,372 @@ def ensembles_phase(device):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the flow sampler
+# ---------------------------------------------------------------------------
+
+# configs/flow_8x8.txt at its widths, cut in length only
+FLOW_ARGV = ["@configs/flow_8x8.txt", "--train_steps", "300",
+             "--logging_steps", "50", "--fkl_steps", "50",
+             "--mh_steps", "200"]
+FLOW_PLAQ_TOL = 1e-3          # the fKL chain's plaquette against I1/I0(2)
+FLOW_BUFFER_SE = 5.0          # the buffer's mean: within 5 standard errors
+FLOW_LOGZ_SE = 3.0            # log Z: a lower bound up to 3 standard errors
+# configs/flow_16x16.txt's widths for one reverse-KL step, kernel vs plain
+FLOW16 = dict(time_size=16, space_size=16, num_layers=24, n_mix=8,
+              hidden_channels=64, kernel_size=5)
+FLOW16_BATCH = 1024
+FLOW_LOSS_RTOL = 1e-5
+FLOW_GRAD_RTOL = 1e-3         # max|d| over max|g|, per tensor
+FLOW_ACTION_RTOL = 1e-5       # the action-only forward, per sample
+FKL_CHECK_N = 8               # transitions of the fKL buffer's chain check
+
+
+def flow_launches(train_steps, fkl_steps, mh_steps):
+    """Kernel launches of a ``train_flow`` run: each train and fKL step's
+    reverse-KL loss runs the Wilson forward (sin P kept) and, in its
+    backward, the Wilson backward; the importance weights and the MH chain
+    (its start and each proposal) the action-only forward; the fKL buffer
+    two ``hmc_chain`` launches (600 and 100 transitions)."""
+    steps = train_steps + fkl_steps
+    return {"wilson_forward": steps, "wilson_backward": steps,
+            "wilson_action_only": 1 + (1 + mh_steps if mh_steps else 0),
+            "wilson_force": 0, "wilson_double_backward": 0,
+            "hmc_chain": 2 if fkl_steps else 0}
+
+
+def flow_cli_check(device, kernels):
+    """The canonical 8x8 flow command through ``train_flow.main``, cut in
+    length; gates on its log, metrics and summary."""
+    import contextlib
+    import re
+    import tempfile
+    from pathlib import Path
+
+    from l2hmc_tpu_torch.cli import train_flow
+    from l2hmc_tpu_torch.lattice import u1
+
+    failed = []
+    with tempfile.TemporaryDirectory() as td:
+        reset_launches()
+        tee = _Tee(sys.stdout)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(tee):
+            rc = train_flow.main(FLOW_ARGV + ["--log_dir", td, "--device",
+                                              str(device)])
+        secs = time.perf_counter() - t0
+        launches = launch_counts(kernels)
+        run = Path(td) / "run_1"
+        recs = [json.loads(line) for line in
+                (run / "metrics.jsonl").read_text().splitlines()]
+        summary = json.loads((run / "summary.json").read_text())
+    if rc != 0:
+        raise AssertionError(f"flow cli: exit code {rc}")
+    args = train_flow.build_parser().parse_args(FLOW_ARGV)
+    want = flow_launches(args.train_steps, args.fkl_steps, args.mh_steps)
+    got = {k: launches[k] for k in want}
+    if got != want:
+        failed.append(f"flow cli launches {got}, derived {want}")
+    train = [r for r in recs if "fkl" not in r]
+    ms_step = [1e3 * r["dt"] for r in train[1:]]
+    m = re.search(r"mean plaquette ([0-9.]+) \+- ([0-9.]+), chain "
+                  r"([0-9.]+)", tee.text())
+    buf, buf_se, chain = (float(m.group(i)) for i in (1, 2, 3))
+    exact = u1.u1_plaq_exact(args.beta)
+    if abs(chain - exact) > FLOW_PLAQ_TOL:
+        failed.append(f"flow fKL chain plaquette {chain:.5f} against "
+                      f"{exact:.5f}")
+    if abs(buf - exact) > FLOW_BUFFER_SE * buf_se:
+        failed.append(f"flow fKL buffer plaquette {buf:.5f} +- {buf_se} "
+                      f"against {exact:.5f}")
+    if not train[-1]["loss"] < train[0]["loss"]:
+        failed.append(f"flow loss did not fall: {train[0]['loss']:.3f} -> "
+                      f"{train[-1]['loss']:.3f}")
+    ess = max(summary["weight_ess_frac"], 1e-4)
+    se = float(np.sqrt(max(1.0 / ess - 1.0, 0.0) / args.eval_batch))
+    bound = summary["log_z_exact_factorized"] + FLOW_LOGZ_SE * se + 0.01
+    if not summary["log_z_flow"] <= bound:
+        failed.append(f"flow log Z {summary['log_z_flow']} above "
+                      f"{summary['log_z_exact_factorized']} + "
+                      f"{FLOW_LOGZ_SE} x {se:.3f}")
+    line = {"seconds": secs, "ms_per_train_step": ms_step,
+            "loss_first_last": [train[0]["loss"], train[-1]["loss"]],
+            "buffer_plaq": [buf, buf_se], "chain_plaq": chain,
+            "plaq_exact": exact, "summary": summary, "launches": got}
+    log(f"[flow] cli {' '.join(FLOW_ARGV)}: {json.dumps(line)}")
+    return line, failed
+
+
+def flow_cli_cfg():
+    """``(FlowConfig, args)`` of FLOW_ARGV, built as ``train_flow.main``
+    builds them."""
+    from l2hmc_tpu_torch.cli import train_flow
+    from l2hmc_tpu_torch.dynamics import flow as F
+
+    args = train_flow.build_parser().parse_args(FLOW_ARGV)
+    return F.FlowConfig(time_size=args.time_size or args.size,
+                        space_size=args.size, num_layers=args.num_layers,
+                        n_mix=args.n_mix, hidden_channels=args.hidden_channels,
+                        kernel_size=args.kernel_size,
+                        conditioner_depth=args.conditioner_depth), args
+
+
+def flow_step_check(device, cfg, batch, beta, seed, eval_batches=()):
+    """One reverse-KL step of ``cfg`` at ``batch`` on the Wilson kernels
+    against the same step on the plain action: same parameters (the port's
+    init with the output convs moved off zero), same base samples; loss
+    and every gradient.  ``eval_batches``: the action-only forward of the
+    evals (importance weights, MH) on as many flow samples, against the
+    plain forward."""
+    from l2hmc_tpu_torch.dynamics import flow as F
+    from l2hmc_tpu_torch.ops import wilson as W
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = F.init_flow(gen, cfg, device)
+    with torch.no_grad():
+        for layer in params:
+            layer.c2.w.copy_(0.01 * torch.randn(
+                layer.c2.w.shape, generator=gen, device=device))
+    z = F.draw_base(gen, batch, cfg, device)
+    named = dict(params.named_parameters())
+
+    def step(action_fn):
+        loss, _ = F.reverse_kl_loss_with(params, z, beta, cfg, action_fn)
+        return loss.detach(), torch.autograd.grad(loss, list(named.values()))
+
+    out, ms = {}, {}
+    for name, fn in (("kernel", F.wilson_action), ("plain", W.wilson_action),
+                     ("plain", W.wilson_action), ("kernel", F.wilson_action)):
+        step(fn)
+        out[name], t = timed(lambda: step(fn))
+        ms.setdefault(name, []).append(t)
+    loss_err = abs(float(out["kernel"][0] - out["plain"][0])) / abs(
+        float(out["plain"][0]))
+    grad_err = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-12))
+                   for a, b in zip(out["kernel"][1], out["plain"][1]))
+    action_err = 0.0
+    with torch.no_grad():
+        for b in eval_batches:
+            x, _ = F.sample_and_logq(params, gen, b, cfg)
+            want = W.wilson_action(x)
+            action_err = max(action_err, float(
+                ((F.wilson_action(x) - want).abs() / want.abs()).max()))
+    failed = []
+    label = f"flow {cfg.time_size}x{cfg.space_size}"
+    if loss_err > FLOW_LOSS_RTOL:
+        failed.append(f"{label} loss rel err {loss_err:.3e}")
+    if grad_err > FLOW_GRAD_RTOL:
+        failed.append(f"{label} grad rel err {grad_err:.3e}")
+    if action_err > FLOW_ACTION_RTOL:
+        failed.append(f"{label} action-only rel err {action_err:.3e}")
+    line = {"loss": float(out["kernel"][0]), "loss_rel_err": loss_err,
+            "grad_max_rel_err": grad_err, "ms_kernel": ms["kernel"],
+            "ms_plain": ms["plain"]}
+    if eval_batches:
+        line["action_only_rel_err"] = action_err
+    log(f"[flow] reverse-KL step at {cfg}, batch {batch}, beta {beta}"
+        + (f", action-only at batches {list(eval_batches)}"
+           if eval_batches else "") + f": {json.dumps(line)}")
+    return line, failed
+
+
+def fkl_hmc_check(device):
+    """``hmc_chain`` at the fKL buffer's shapes (``train_flow``: 2048 chains
+    of the flow lattice, K=5, its eps and beta) on injected draws against
+    its plain version, from the buffer's cold start and from
+    near-equilibrium links.  Returns the largest error."""
+    from l2hmc_tpu_torch.lattice.u1 import typical_links
+    from l2hmc_tpu_torch.ops.leapfrog import hmc_chain, hmc_chain_reference
+
+    cfg, args = flow_cli_cfg()
+    lt, lx = cfg.time_size, cfg.space_size
+    b, n, d = args.fkl_buffer // 2, FKL_CHECK_N, lt * lx
+    rng = np.random.default_rng(1202)
+    v0s, v1s, _, us, _, _ = injected(rng, n, b, d, device)
+    err = 0.0
+    # <cos P> = exp(-2 sigma^2) ~ 0.70, beta=2's plaquette
+    for tag, links in (
+            ("cold", torch.zeros((b, lt, lx, 2), device=device)),
+            ("typical", torch.tensor(typical_links(rng, b, lt, lx,
+                                                   sigma=0.42),
+                                     device=device))):
+        out_k = hmc_chain(links, None, args.fkl_hmc_eps, args.beta, 5, n,
+                          rand_arrays=(v0s, v1s, us))
+        out_p = hmc_chain_reference(links, v0s, v1s, us, args.fkl_hmc_eps,
+                                    args.beta, 5)
+        torch.cuda.synchronize()
+        err = max(err, check_kernel(
+            f"hmc_chain {lt}x{lx} {b} ch K=5 eps={args.fkl_hmc_eps} "
+            f"beta={args.beta} ({tag} links, the fKL buffer)", out_k, out_p,
+            us))
+    return err
+
+
+def flow_phase(device):
+    """Phase 12: the flow CLI (launches counted from 0); its kernels at its
+    shapes against their plain versions (a reverse-KL step and the evals'
+    action-only forward at FLOW_ARGV's widths, the fKL buffer's
+    ``hmc_chain``); the step at flow_16x16's widths kernel vs plain."""
+    from l2hmc_tpu_torch.dynamics import flow as F
+
+    kernels = reset_launches()
+    t0 = time.perf_counter()
+    cli, failed = flow_cli_check(device, kernels)
+    cfg8, args = flow_cli_cfg()
+    step8, f8 = flow_step_check(device, cfg8, args.batch, args.beta, 1203,
+                                (args.eval_batch, args.eval_batch // 4))
+    hmc_err = fkl_hmc_check(device)
+    step16, f16 = flow_step_check(device, F.FlowConfig(**FLOW16),
+                                  FLOW16_BATCH, 4.0, 1201)
+    log(f"[flow] phase {time.perf_counter() - t0:.1f} s")
+    failed += f8 + f16
+    if failed:
+        raise AssertionError(f"flow: failed gates {failed}")
+    return {"cli": cli, "step8": step8, "step16": step16,
+            "hmc_chain_err": hmc_err}
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: the multi-device path on a one-rank NCCL group
+# ---------------------------------------------------------------------------
+
+PAR_STEPS = 10                 # train steps per timed turn, group vs none
+
+
+def parallel_launches():
+    """Launches of ``run_modes(1)``: mode 1 one train step at K=2
+    (``wilson_launches_per_step``), mode 4 one reverse-KL loss and
+    gradient (forward, backward), mode 5 five rungs of one fused move each
+    and one action-only forward each (the reweighting)."""
+    want = wilson_launches_per_step(2)
+    want["wilson_forward"] += 1
+    want["wilson_backward"] += 1
+    want["wilson_action_only"] += 5
+    want["hmc_chain"] = 5
+    return want
+
+
+def modes_kernel_err(kernel, plain):
+    """``{mode: (error, tolerance)}`` of the dry run's modes 1, 4 and 5 on
+    the kernels against the same modes on the plain versions
+    (``run_modes(moves="injected")`` against ``moves="plain"``): the train
+    step's links, acceptance, loss and updated parameters; the flow step's
+    loss and gradient; the SMC ladder's particles, log Z and ESS."""
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max().clamp_min(1e-12))
+
+    tr, tp = kernel["train_step"], plain["train_step"]
+    fk, fp = kernel["flow"], plain["flow"]
+    sk, sp = kernel["smc"], plain["smc"]
+    return {
+        "train_step": (max(angle_err(tr["x"], tp["x"]),
+                           abs(tr["accept_prob"] - tp["accept_prob"]),
+                           abs(tr["loss"] - tp["loss"]) / abs(tp["loss"]),
+                           rel(tr["params"], tp["params"])), ATOL),
+        "flow": (max(abs(fk["loss"] - fp["loss"]) / abs(fp["loss"]),
+                     rel(fk["grads"], fp["grads"])), FLOW_GRAD_RTOL),
+        "smc": (max(angle_err(sk["x"], sp["x"]),
+                    abs(sk["log_z"] - sp["log_z"]),
+                    float((sk["ess"] - sp["ess"]).abs().max())), ATOL),
+    }
+
+
+def parallel_phase(device):
+    """Phase 13: the dry run's modes 1, 2, 4, 5 and 6 on a one-rank NCCL
+    group (``file://`` rendezvous), held against the same run with no
+    group; modes 1, 4 and 5 with no group on the kernels (mode 5's chain on
+    injected draws) against their plain versions; a train step on the
+    group against the same step alone."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from l2hmc_tpu_torch.parallel import dryrun
+    from l2hmc_tpu_torch.parallel.mesh import get_mesh, shard_train_state
+    from l2hmc_tpu_torch.train.gauge import (init_train_state,
+                                             make_train_step)
+
+    kernels = reset_launches()
+    t0 = time.perf_counter()
+    failed = []
+    with tempfile.TemporaryDirectory() as td:
+        dist.init_process_group(
+            "nccl" if torch.device(device).type == "cuda" else "gloo",
+            init_method=f"file://{td}/rdv", rank=0, world_size=1)
+        try:
+            grouped = dryrun.run_modes(1, device, td)
+            launches = phase_launches("parallel", kernels,
+                                      ("wilson_force", "hmc_chain"))
+            mesh = get_mesh(device=device)
+            cfg = train_cfg()
+
+            def steps(m):
+                gen = torch.Generator(device=device).manual_seed(1301)
+                state = shard_train_state(init_train_state(cfg, gen, device),
+                                          m)
+                step, _ = make_train_step(cfg, mesh=m)
+                state, _ = step(state, gen)
+                torch.cuda.synchronize(device)
+                t = time.perf_counter()
+                for _ in range(PAR_STEPS):
+                    state, metrics = step(state, gen)
+                torch.cuda.synchronize(device)
+                return 1e3 * (time.perf_counter() - t) / PAR_STEPS, state.x
+
+            turns = [(name, steps(m)) for name, m in (
+                ("nccl", mesh), ("alone", None), ("alone", None),
+                ("nccl", mesh))]
+        finally:
+            dist.destroy_process_group()
+    alone = dryrun.run_modes(1, device)
+    # the kernels against their plain versions: the one run launches what
+    # the path launches, the other nothing
+    reset_launches()
+    injected = dryrun.run_modes(1, device, moves="injected")
+    inj_launches = launch_counts(kernels)
+    reset_launches()
+    plain = dryrun.run_modes(1, device, moves="plain")
+    plain_launches = {k: v for k, v in launch_counts(kernels).items() if v}
+    reset_launches()
+    dryrun.check_modes(grouped, 1)
+    errs = modes_kernel_err(injected, plain)
+    for mode, (err, tol) in errs.items():
+        if not err <= tol:
+            failed.append(f"parallel mode {mode} kernel vs plain {err:.3e} "
+                          f"(tolerance {tol})")
+    want = parallel_launches()
+    got = {k: launches[k] for k in want}
+    if got != want:
+        failed.append(f"parallel launches {got}, derived {want}")
+    if {k: inj_launches[k] for k in want} != want or plain_launches:
+        failed.append(f"parallel kernel vs plain: launches {inj_launches} "
+                      f"and {plain_launches}, derived {want} and none")
+    diff = dryrun.modes_diff(grouped, alone)
+    # one rank: every collective is the identity; the flow's convolutions
+    # may pick other cuDNN algorithms from one call to the next
+    if max(diff.values()) > 1e-4:
+        failed.append(f"parallel modes against no group: {diff}")
+    x_diff = float((turns[0][1][1] - turns[1][1][1]).abs().max())
+    if x_diff > 1e-4:
+        failed.append(f"parallel train step, group vs alone: x {x_diff}")
+    line = {"modes_seconds_nccl": {k: v["seconds"]
+                                   for k, v in grouped.items()},
+            "modes_seconds_alone": {k: v["seconds"]
+                                    for k, v in alone.items()},
+            "max_diff": diff, "launches": got,
+            "max_abs_err": {k: v[0] for k, v in errs.items()},
+            "train_step_ms": [(name, r[0]) for name, r in turns],
+            "train_step_x_diff": x_diff,
+            "smc_log_z": [grouped["smc"]["log_z"],
+                          grouped["smc"]["log_z_exact"]]}
+    log(f"[parallel] one-rank NCCL group, modes 1, 2, 4, 5, 6 and "
+        f"{PAR_STEPS} quick-start train steps per turn: {json.dumps(line)}")
+    log(f"[parallel] phase {time.perf_counter() - t0:.1f} s")
+    if failed:
+        raise AssertionError(f"parallel: failed gates {failed}")
+    return line
+
+
 def main():
     name, smi = device_phase()
     device = torch.device("cuda", 0)
@@ -2306,6 +2697,10 @@ def main():
     dec = decomposition_phase(params, eps_c, cfg.num_steps, device)
     cli = cli_phase(device)
     ens = ensembles_phase(device)
+    flow = flow_phase(device)
+    par = parallel_phase(device)
+    errs["hmc_chain"] = max(errs["hmc_chain"], flow["hmc_chain_err"],
+                            par["max_abs_err"]["smc"])
 
     from l2hmc_tpu_torch.train.gauge import init_params
 
@@ -2411,6 +2806,16 @@ def main():
         log(f"[result] cli {cmd}: {line['ms_per_train_step']:.3f} ms per "
             f"train step, {line['transitions_per_s']} transitions/s (eval at "
             f"beta_final, beta_final - 1); on {smi}")
+    log(f"[result] flow cli: ms per train step (chunks 2-6) "
+        f"{flow['cli']['ms_per_train_step']}, launches "
+        f"{flow['cli']['launches']}; reverse-KL step kernel / plain "
+        f"{flow['step8']['ms_kernel']} / {flow['step8']['ms_plain']} ms "
+        f"(8x8), {flow['step16']['ms_kernel']} / "
+        f"{flow['step16']['ms_plain']} ms (16x16); on {smi}")
+    log(f"[result] parallel: modes (s) {par['modes_seconds_nccl']} on the "
+        f"group, {par['modes_seconds_alone']} alone; kernel vs plain "
+        f"{par['max_abs_err']}; quick-start train step (ms) "
+        f"{par['train_step_ms']}; on {smi}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

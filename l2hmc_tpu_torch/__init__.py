@@ -15,17 +15,22 @@ networks  the S/T/Q conditioners (MLP, periodic CNN, local image net,
           local 5-point stencil) as ``nn.Module``s
 dynamics  the trained L2HMC transition (every DynamicsConfig setting but
           the chain operator), plain HMC, the exact instanton hop, dual
-          averaging of the step size
+          averaging of the step size; the ensembles (SMC, replica
+          exchange, AIS, multinomial HMC); the gauge-equivariant flow
 train     gauge config, builders, losses, schedules, the optimizer and train
           step, train/eval chunks, checkpoints (save, restore, JAX states
           carried across)
 analysis  MCMC statistics and the offline re-analysis of a run dir (numpy)
 utils     argfile parsing, run dirs, the metrics logger
-cli       ``python -m l2hmc_tpu_torch.cli.train_gauge`` (the training CLI)
-          and ``python -m l2hmc_tpu_torch.cli.analyze_run``
+parallel  the multi-device path on ``torch.distributed``: the process
+          mesh and chain sharding, the domain-decomposed action, the dry run
+cli       ``python -m l2hmc_tpu_torch.cli.train_gauge`` (the training CLI,
+          data-parallel under ``torchrun``), ``.train_flow`` and
+          ``.analyze_run``
 
-Entry points that create tensors put them on the first CUDA device unless
-given ``device="cpu"`` (``_device.resolve_device``).
+Entry points that create tensors put them on this process's CUDA device
+(``cuda:<local rank>``) unless given ``device="cpu"``
+(``_device.resolve_device``).
 
 Conventions kept from the reference: links are ``(B, Lt, Lx, 2)`` angles,
 the flat state is ``(B, 2*Lt*Lx)`` interleaved as ``(t*Lx + s)*2 + mu``,

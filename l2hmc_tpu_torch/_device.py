@@ -1,18 +1,39 @@
 """Where the port's entry points put what they create.
 
 Functions that create tensors from nothing (fresh parameters, link fields,
-train states) take ``device=None`` to mean the first CUDA device: the port
-runs on the card unless the caller asks for the CPU.  Functions that take
-tensors follow their inputs' device instead.
+train states) take ``device=None`` to mean this process's CUDA device: the
+port runs on the card unless the caller asks for the CPU.  Functions that
+take tensors follow their inputs' device instead.
+
+Under a launcher (``torchrun`` sets ``LOCAL_RANK``) or in an initialized
+process group, each process's card is ``cuda:<local rank>``; alone, it is
+``cuda:0``.
 """
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 
+def local_rank() -> int:
+    """This process's index on its host: ``LOCAL_RANK`` when a launcher set
+    it, else the global rank modulo the host's cards in an initialized
+    process group, else 0."""
+    env = os.environ.get("LOCAL_RANK")
+    if env is not None:
+        return int(env)
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank() % max(torch.cuda.device_count(), 1)
+    return 0
+
+
 def resolve_device(device=None) -> torch.device:
-    """``device`` as a ``torch.device``; ``None`` is ``cuda:0``.
+    """``device`` as a ``torch.device``; ``None`` is ``cuda:<local rank>``
+    (:func:`local_rank`: ``cuda:0`` in a process of its own).
 
     Raises when ``None`` is given and no CUDA device is present: the port
     never falls back to the CPU on its own.
@@ -23,4 +44,4 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(
             "no CUDA device: the port runs on the card by default; pass "
             "device=\"cpu\" to run on the CPU")
-    return torch.device("cuda", 0)
+    return torch.device("cuda", local_rank())

@@ -35,9 +35,19 @@ whose end acceptance is below ``--retrain_acc`` goes on to the next
 attempt.  An interrupt inside a chunk checkpoints the state at the chunk's
 start (the train step updates the params in place).
 
+Data parallelism: under a launcher the run trains data-parallel over
+every rank, as the reference CLI shards its train state over the mesh::
+
+    torchrun --standalone --nproc_per_node=N -m l2hmc_tpu_torch.cli.train_gauge ...
+
+(``--device cpu`` for gloo ranks on the CPU; by default NCCL, one card per
+rank).  Every rank seeds the same generator and keeps its slice of the
+chains (``parallel/mesh.py``); only global rank 0 writes the run dir, the
+checkpoints (the full state, gathered) and the eval files, and logs.  With
+no launcher nothing changes.
+
 Not ported: ``--profile`` / ``--profile_every`` (ROADMAP queue A item 16)
-raise ``NotImplementedError``.  The port runs on the one device it is
-given.
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -192,8 +202,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "reference's per-logging-step Chrome-trace "
                         "timelines (gauge_model.py:1250-1265)")
     p.add_argument("--device", default=None,
-                   help="torch device to run on (default: the first CUDA "
-                        "device; 'cpu' on a machine without one)")
+                   help="torch device to run on (default: this rank's "
+                        "CUDA device; without a card it raises: pass "
+                        "'cpu' there)")
     return p
 
 
@@ -283,29 +294,40 @@ def main(argv=None):
     import numpy as np
     import torch
 
+    import torch.distributed as dist
+
     from l2hmc_tpu_torch._device import resolve_device
     from l2hmc_tpu_torch.analysis import stats
     from l2hmc_tpu_torch.lattice import u1
+    from l2hmc_tpu_torch.parallel.mesh import (
+        gather_chains, get_mesh, initialize_distributed, shard_chains,
+        shard_train_state,
+    )
     from l2hmc_tpu_torch.train import checkpoint as ckpt
     from l2hmc_tpu_torch.train.gauge import (
         clone_train_state, init_train_state, make_eval_chunk,
         make_train_chunk,
     )
     from l2hmc_tpu_torch.utils.io import (
-        MetricsLogger, install_sigterm_handler, log, make_run_dir,
-        save_params_json,
+        MetricsLogger, install_sigterm_handler, is_primary, log,
+        make_run_dir, save_params_json,
     )
 
     install_sigterm_handler()
+    launched = initialize_distributed(args.device)
     device = resolve_device(args.device)
     cfg = flags_to_config(args)
+    # the reference builds its mesh on every run; here a mesh exists where
+    # a process group does, and a lone process keeps the plain path
+    mesh = get_mesh(device=device) if dist.is_initialized() else None
 
     run_dir = make_run_dir(args.log_dir)
     save_params_json(run_dir, vars(args))
     log(f"run dir: {run_dir}")
     log(f"devices: [{device}"
         + (f" {torch.cuda.get_device_name(device)}]" if device.type == "cuda"
-           else "]"))
+           else "]")
+        + (f" x {mesh.world} ranks (data-parallel)" if mesh else ""))
     x_dim = 2 * cfg.time_size * cfg.space_size
     if (not cfg.hmc and x_dim > 16384 and cfg.eps_warmup_steps == 0
             and (cfg.lr_init > 5e-5 or cfg.eps_trainable)):
@@ -325,10 +347,16 @@ def main(argv=None):
         log("autotune: skipped — restoring from an existing checkpoint "
             "(its (K, eps) are fixed by the saved state)")
     if args.autotune and not cfg.hmc and not has_ckpt:
-        cfg = _autotune(cfg, args, device)
+        # one search for every rank: its cells are scored by wall-clock
+        # rates, so ranks tuning on their own could pick different (K,
+        # eps); rank 0 tunes and sends the winner
+        box = [_autotune(cfg, args, device) if is_primary() else None]
+        if mesh is not None:
+            dist.broadcast_object_list(box, src=0)
+        cfg = box[0]
 
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    state = init_train_state(cfg, gen, device)
+    state = shard_train_state(init_train_state(cfg, gen, device), mesh)
     start_step = 0
     attempt = 0
     # finished attempts, {"attempt", "end_accept"}
@@ -346,7 +374,7 @@ def main(argv=None):
                 attempt, step = key
                 state = ckpt.restore_checkpoint(ckpt_src, state, step,
                                                 generator=gen,
-                                                attempt=attempt)
+                                                attempt=attempt, mesh=mesh)
                 attempts = ckpt.checkpoint_attempts(ckpt_src, step,
                                                     attempt)[1]
                 start_step = int(state.step)
@@ -354,8 +382,9 @@ def main(argv=None):
                     f"{attempt} from {ckpt_src}")
 
     chunk_size = args.logging_steps
-    train_chunk = make_train_chunk(cfg, chunk_size)
-    eval_chunk = make_eval_chunk(cfg, 500) if args.eval_steps else None
+    train_chunk = make_train_chunk(cfg, chunk_size, mesh=mesh)
+    eval_chunk = (make_eval_chunk(cfg, 500, mesh)
+                  if args.eval_steps else None)
 
     logger = MetricsLogger(run_dir, print_every=1, tensorboard=args.tensorboard)
     t_prev = time.perf_counter()
@@ -370,7 +399,7 @@ def main(argv=None):
     def save(st, g_state, done, att):
         ckpt.save_checkpoint(ckpt_dir, st, int(st.step), cfg,
                              generator_state=g_state, attempt=att,
-                             attempts=done)
+                             attempts=done, mesh=mesh)
 
     try:
         while True:
@@ -403,8 +432,8 @@ def main(argv=None):
                 if args.summary_steps and step % args.summary_steps < chunk_size:
                     logger.write_summaries(step, state.params)
                 if eval_chunk is not None and step % args.eval_steps < chunk_size:
-                    x_eval = u1.random_links(gen, cfg.num_chains, cfg.shape,
-                                             device=device)
+                    x_eval = shard_chains(u1.random_links(
+                        gen, cfg.num_chains, cfg.shape, device=device), mesh)
                     _, em = eval_chunk(state.params, x_eval, rec["beta"], gen)
                     gen_state = gen.get_state()
                     log(
@@ -433,7 +462,8 @@ def main(argv=None):
             attempt += 1
             gen = torch.Generator(device=device).manual_seed(
                 args.seed + 7700 + attempt)
-            state = init_train_state(cfg, gen, device)
+            state = shard_train_state(init_train_state(cfg, gen, device),
+                                      mesh)
             start_step = 0
             gen_state = gen.get_state()
             snapshot = (clone_train_state(state), gen_state, list(attempts),
@@ -461,22 +491,26 @@ def main(argv=None):
             from l2hmc_tpu_torch.dynamics import topo
 
             eval_chunk = topo.make_hop_eval_chunk(
-                cfg, n_eval, n_hops=args.eval_hops, nu_max=args.nu_max)
+                cfg, n_eval, n_hops=args.eval_hops, nu_max=args.nu_max,
+                mesh=mesh)
         else:
-            eval_chunk = make_eval_chunk(cfg, n_eval)
+            eval_chunk = make_eval_chunk(cfg, n_eval, mesh)
         for beta in (cfg.beta_final, cfg.beta_final - 1.0):
             if args.eval_init == "train":
                 x = state.x
             elif args.eval_init == "metropolis":
                 from l2hmc_tpu_torch.lattice.metropolis import thermalize
 
-                x = thermalize(gen, state.x, cfg.shape, beta,
-                               args.eval_therm_sweeps)
+                # the sweeps draw per link: every rank sweeps the whole
+                # batch (the one-process draws) and keeps its chains
+                x = shard_chains(thermalize(
+                    gen, gather_chains(state.x, mesh), cfg.shape, beta,
+                    args.eval_therm_sweeps), mesh)
                 log(f"  eval init: {args.eval_therm_sweeps} Metropolis "
                     f"sweeps at beta={beta:g}")
             else:
-                x = u1.random_links(gen, cfg.num_chains, cfg.shape,
-                                    device=device)
+                x = shard_chains(u1.random_links(
+                    gen, cfg.num_chains, cfg.shape, device=device), mesh)
             all_metrics = {}
             done = 0
             t_eval = time.perf_counter()
@@ -509,8 +543,11 @@ def main(argv=None):
                         beta, cfg.shape.num_plaquettes)
                 )
             out_file = run_dir / f"eval_beta{beta:g}.json"
-            out_file.write_text(json.dumps(summary, indent=2, default=str))
-            np.savez_compressed(run_dir / f"eval_beta{beta:g}.npz", **merged)
+            if is_primary():
+                out_file.write_text(json.dumps(summary, indent=2,
+                                               default=str))
+                np.savez_compressed(run_dir / f"eval_beta{beta:g}.npz",
+                                    **merged)
             q2_note = (f" <Q^2>={summary['charges']['susceptibility']:.4f}"
                        f" (exact {summary['q2_exact']:.4f})"
                        if "q2_exact" in summary else "")
@@ -533,6 +570,8 @@ def main(argv=None):
                 f"({done / t_eval:.1f} transitions/s)")
 
     logger.close()
+    if launched:
+        dist.destroy_process_group()
     return 0
 
 

@@ -93,16 +93,21 @@ def instanton_hop(x: torch.Tensor, beta, generator, shape: u1.LatticeShape,
 
 
 def make_hop_eval_chunk(cfg, chunk_size: int, n_hops: int = 1,
-                        nu_max: int = 1):
+                        nu_max: int = 1, mesh=None):
     """Sampling chunk interleaving the configured dynamics with ``n_hops``
     instanton hops per step: ``chunk(params, x, beta, generator) -> (x,
     metrics)``, the metrics of ``train.gauge.make_eval_chunk`` plus
     ``hop_accept`` (mean hop probability) and ``hop_dq`` (mean |nu|
-    accepted), each ``(chunk_size, B)``."""
-    from l2hmc_tpu_torch.train.gauge import build_dynamics
+    accepted), each ``(chunk_size, B)``.  With a ``mesh`` (data-parallel,
+    as ``make_eval_chunk``), the global draws are sliced and the metrics
+    gathered."""
+    from l2hmc_tpu_torch.parallel.mesh import shard_chains
+    from l2hmc_tpu_torch.train.gauge import (build_dynamics, draw_transition,
+                                             gather_trace)
 
     _, dyn = build_dynamics(cfg)
     shape = cfg.shape
+    data = mesh.size("data") if mesh is not None else 1
 
     @torch.no_grad()
     def chunk(params, x, beta, generator):
@@ -110,11 +115,15 @@ def make_hop_eval_chunk(cfg, chunk_size: int, n_hops: int = 1,
                 "hop_accept", "hop_dq")
         out = {k: [] for k in keys}
         for _ in range(chunk_size):
-            tr = dyn["transition"](params, x, beta, generator)
+            tr = dyn["transition_with"](
+                params, x, beta, *draw_transition(generator, x, mesh))
             x = u1.wrap(tr.x_out)
             hp, hdq = [], []
             for _ in range(n_hops):
-                h = instanton_hop(x, beta, generator, shape, nu_max)
+                nu, u = draw_hop(generator, x.shape[0] * data, nu_max,
+                                 x.device)
+                h = instanton_hop_with(x, beta, shard_chains(nu, mesh),
+                                       shard_chains(u, mesh), shape)
                 x = h.x_out
                 hp.append(h.accept_prob)
                 hdq.append(torch.abs(h.nu))
@@ -125,6 +134,7 @@ def make_hop_eval_chunk(cfg, chunk_size: int, n_hops: int = 1,
             out["wloop22"].append(u1.wilson_loop(u1.to_links(x, shape), 2, 2))
             out["hop_accept"].append(torch.stack(hp).mean(dim=0))
             out["hop_dq"].append(torch.stack(hdq).mean(dim=0))
-        return x, {k: torch.stack(v) for k, v in out.items()}
+        return x, {k: gather_trace(torch.stack(v), mesh)
+                   for k, v in out.items()}
 
     return chunk

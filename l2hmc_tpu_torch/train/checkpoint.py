@@ -219,7 +219,7 @@ def _checkpoint_dirs(ckpt_dir: Path):
 
 def save_checkpoint(ckpt_dir, state: TrainState, step: int, config=None,
                     keep: int = 3, generator_state=None, attempt: int = 0,
-                    attempts=()):
+                    attempts=(), mesh=None):
     """Write ``state`` as the checkpoint of ``step`` in training attempt
     ``attempt`` and prune to the newest ``keep`` by (attempt, step); a
     retraining attempt restarts at step 0, so its checkpoints are newer
@@ -227,7 +227,19 @@ def save_checkpoint(ckpt_dir, state: TrainState, step: int, config=None,
     when absent.  ``generator_state`` (``torch.Generator.get_state()``) is
     saved beside the state for :func:`restore_checkpoint`; ``attempts``, the
     attempts finished so far (``{"attempt", "end_accept"}`` records), for
-    :func:`checkpoint_attempts`."""
+    :func:`checkpoint_attempts`.
+
+    With a ``mesh`` (``parallel/mesh.py``) every rank calls it: the chains
+    are gathered over 'data' and the primary (global rank 0) writes the
+    full state, so the layout is one for any world size; the call returns
+    on every rank once the file is there."""
+    from l2hmc_tpu_torch.parallel.mesh import gather_chains, is_primary
+
+    if mesh is not None:
+        state = state._replace(x=gather_chains(state.x, mesh))
+        if not is_primary():
+            mesh.barrier()
+            return
     ckpt_dir = Path(ckpt_dir).absolute()
     ckpt_dir.mkdir(parents=True, exist_ok=True)
     if config is not None:
@@ -247,7 +259,15 @@ def save_checkpoint(ckpt_dir, state: TrainState, step: int, config=None,
     }
     if generator_state is not None:
         payload["generator"] = generator_state
-    out = ckpt_dir / checkpoint_name(attempt, step)
+    _write_payload(ckpt_dir, checkpoint_name(attempt, step), payload, keep)
+    if mesh is not None:
+        mesh.barrier()
+
+
+def _write_payload(ckpt_dir: Path, name: str, payload: dict, keep: int):
+    """``payload`` as ``<ckpt_dir>/<name>/state.pt`` (written whole, then
+    renamed), pruned to the newest ``keep`` by (attempt, step)."""
+    out = ckpt_dir / name
     out.mkdir(exist_ok=True)
     tmp = out / "state.pt.tmp"
     torch.save(payload, tmp)
@@ -255,6 +275,29 @@ def save_checkpoint(ckpt_dir, state: TrainState, step: int, config=None,
     dirs = _checkpoint_dirs(ckpt_dir)
     for old in sorted(dirs)[:-keep] if keep > 0 else []:
         shutil.rmtree(dirs[old])
+
+
+def save_tensors(ckpt_dir, tensors: dict, step: int, config=None,
+                 keep: int = 3):
+    """A dict of tensors and numbers (e.g. the flow's parameters, or its
+    optimizer state) as the checkpoint of ``step``, in the layout of
+    :func:`save_checkpoint` (``<step>/state.pt``, ``config.json`` when
+    given and absent, the newest ``keep`` kept); read back by
+    :func:`load_tensors`."""
+    ckpt_dir = Path(ckpt_dir).absolute()
+    ckpt_dir.mkdir(parents=True, exist_ok=True)
+    if config is not None and not (ckpt_dir / "config.json").exists():
+        (ckpt_dir / "config.json").write_text(
+            json.dumps(dataclasses.asdict(config), indent=2))
+    _write_payload(ckpt_dir, checkpoint_name(0, step), dict(tensors), keep)
+
+
+def load_tensors(ckpt_dir, step: Optional[int] = None,
+                 device=None) -> dict:
+    """What :func:`save_tensors` wrote for ``step`` (``None``: the newest),
+    on ``device`` (``None``: where it was saved from)."""
+    return torch.load(_checkpoint_file(Path(ckpt_dir).absolute(), step, 0),
+                      map_location=device, weights_only=True)
 
 
 def latest_checkpoint(ckpt_dir) -> Optional[Tuple[int, int]]:
@@ -283,14 +326,19 @@ def _checkpoint_file(ckpt_dir: Path, step, attempt) -> Path:
 
 def restore_checkpoint(ckpt_dir, template: TrainState,
                        step: Optional[int] = None, generator=None,
-                       attempt: Optional[int] = None) -> TrainState:
+                       attempt: Optional[int] = None,
+                       mesh=None) -> TrainState:
     """The checkpointed state of ``step`` in ``attempt`` (``step=None``: the
     newest by (attempt, step), within ``attempt`` when given; a given
     ``step`` is attempt 0's unless ``attempt`` says otherwise) in the
     structure of ``template`` (a state of the same config, e.g. from
     ``init_train_state``), on the template's device; ``template.params``
     is loaded in place.  A ``generator`` is set to the saved generator
-    state when the checkpoint has one."""
+    state when the checkpoint has one.  With a ``mesh`` the saved (global)
+    chains are sliced to this rank's: a checkpoint of n ranks restores on
+    any m that divide its chains."""
+    from l2hmc_tpu_torch.parallel.mesh import shard_chains
+
     ckpt_dir = Path(ckpt_dir).absolute()
     device = template.x.device
     payload = torch.load(_checkpoint_file(ckpt_dir, step, attempt),
@@ -303,7 +351,7 @@ def restore_checkpoint(ckpt_dir, template: TrainState,
         params=params,
         opt_state=OptState(count=int(payload["opt_count"]),
                            mu=payload["mu"], nu=payload["nu"]),
-        x=payload["x"], step=int(payload["step"]),
+        x=shard_chains(payload["x"], mesh), step=int(payload["step"]),
         da=DualAveragingState(*payload["da"]))
 
 

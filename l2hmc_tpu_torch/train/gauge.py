@@ -12,6 +12,14 @@ chunk :func:`make_eval_chunk`.
 PyTorch runs eagerly, so a chunk is a Python loop over steps; metrics stay
 on the device until the chunk ends.  The train step updates
 ``state.params`` in place (the returned state holds the same module).
+
+Data parallelism (the reference's ``parallel.mesh`` shardings): every
+builder takes a ``mesh`` (``parallel/mesh.py``).  With one, the state's
+chains are this rank's slice of the batch (``shard_train_state``), every
+rank draws the GLOBAL randomness from one identically seeded generator and
+keeps its rows, the gradients are all-reduced as a mean over 'data' before
+the optimizer clips them, and every reported mean is the global one; an
+n-rank step then reproduces the one-process step to all-reduce rounding.
 """
 
 from __future__ import annotations
@@ -194,10 +202,36 @@ def init_params(cfg: GaugeConfig, generator=None,
                           masks).to(device)
 
 
-def make_eval_chunk(cfg: GaugeConfig, chunk_size: int):
+def draw_transition(generator, x: torch.Tensor, mesh=None):
+    """One transition's ``(v, direction, u)`` for the chains ``x``, in the
+    order of ``dyn["transition"]``'s draws; with a ``mesh``, drawn for the
+    global batch and sliced to this rank's chains."""
+    from l2hmc_tpu_torch.parallel.mesh import shard_chains
+
+    b = x.shape[0] * (mesh.size("data") if mesh is not None else 1)
+    kw = dict(generator=generator, device=x.device)
+    v = torch.randn((b, *x.shape[1:]), dtype=x.dtype, **kw)
+    direction = torch.where(torch.rand((b,), **kw) > 0.5, 1.0,
+                            -1.0).to(x.dtype)
+    u = torch.rand((b,), **kw)
+    return tuple(shard_chains(t, mesh) for t in (v, direction, u))
+
+
+def gather_trace(trace: torch.Tensor, mesh=None) -> torch.Tensor:
+    """A ``(T, B_local)`` trace gathered to ``(T, B)`` over 'data'."""
+    if mesh is None:
+        return trace
+    from l2hmc_tpu_torch.parallel.mesh import gather_chains
+
+    return gather_chains(trace.T.contiguous(), mesh).T.contiguous()
+
+
+def make_eval_chunk(cfg: GaugeConfig, chunk_size: int, mesh=None):
     """Sampling-only chunk: ``chunk(params, x, beta, generator) -> (x,
     metrics)`` with ``metrics`` a dict of ``(chunk_size, B)`` tensors:
-    accept_prob, actions, plaqs, charges and the 2x2 Wilson loop."""
+    accept_prob, actions, plaqs, charges and the 2x2 Wilson loop.  With a
+    ``mesh``, ``x`` is this rank's chains, the draws are the global ones
+    sliced, and the metrics are gathered to the global batch."""
     _, dyn = build_dynamics(cfg)
     shape = cfg.shape
 
@@ -206,14 +240,16 @@ def make_eval_chunk(cfg: GaugeConfig, chunk_size: int):
         keys = ("accept_prob", "actions", "plaqs", "charges", "wloop22")
         out = {k: [] for k in keys}
         for _ in range(chunk_size):
-            tr = dyn["transition"](params, x, beta, generator)
+            tr = dyn["transition_with"](
+                params, x, beta, *draw_transition(generator, x, mesh))
             x = u1.wrap(tr.x_out)
             obs = u1.observables(x, shape)
             out["accept_prob"].append(tr.accept_prob)
             for k in ("actions", "plaqs", "charges"):
                 out[k].append(obs[k])
             out["wloop22"].append(u1.wilson_loop(u1.to_links(x, shape), 2, 2))
-        return x, {k: torch.stack(v) for k, v in out.items()}
+        return x, {k: gather_trace(torch.stack(v), mesh)
+                   for k, v in out.items()}
 
     return chunk
 
@@ -375,8 +411,17 @@ class TrainDraws(NamedTuple):
 
 
 def draw_train_randomness(generator, b: int, x_dim: int, hop: bool,
-                          device=None) -> TrainDraws:
-    """:class:`TrainDraws` from ``generator`` (on ``device``)."""
+                          device=None, mesh=None) -> TrainDraws:
+    """:class:`TrainDraws` from ``generator`` (on ``device``); with a
+    ``mesh``, ``b`` is this rank's chains: the draws are made for the
+    global batch and sliced to this rank's rows."""
+    if mesh is not None:
+        from l2hmc_tpu_torch.parallel.mesh import shard_chains
+
+        full = draw_train_randomness(generator, b * mesh.size("data"),
+                                     x_dim, hop, device)
+        return TrainDraws(*(None if t is None else shard_chains(t, mesh)
+                            for t in full))
     from l2hmc_tpu_torch.dynamics.topo import draw_hop
 
     kw = dict(generator=generator, device=device)
@@ -472,7 +517,8 @@ def tree_summaries(tree: Dict[str, torch.Tensor], prefix: str):
     return out
 
 
-def make_train_step(cfg: GaugeConfig, potential_fn=None, remat: bool = True):
+def make_train_step(cfg: GaugeConfig, potential_fn=None, remat: bool = True,
+                    mesh=None):
     """``(train_step, train_step_with)``:
     ``train_step(state, generator) -> (state, metrics)`` draws the step's
     randomness on the state's device; ``train_step_with(state, draws)``
@@ -486,6 +532,14 @@ def make_train_step(cfg: GaugeConfig, potential_fn=None, remat: bool = True):
     handoff, the chain's wrap and, with ``train_hops``, one instanton hop.
     ``remat=False`` keeps every leapfrog step's activations for the
     backward pass instead of recomputing them (``build_dynamics``).
+
+    With a ``mesh`` (``parallel/mesh.py``), ``state.x`` is this rank's
+    slice of the chains, ``train_step`` draws the global randomness and
+    keeps its rows, and ``train_step_with`` takes this rank's rows; the
+    loss is each rank's mean over its chains, the gradients are
+    all-reduced as a mean over 'data' before ``zero_nans`` and the clip
+    (JAX clips the global gradient), the eps warmup reads the global mean
+    acceptance, and every metric is the global mean.
     """
     from l2hmc_tpu_torch.dynamics.topo import instanton_hop_with
     from l2hmc_tpu_torch.train.schedules import beta_schedule
@@ -496,6 +550,22 @@ def make_train_step(cfg: GaugeConfig, potential_fn=None, remat: bool = True):
     lr_sched = _lr_schedule(cfg)
     shape = cfg.shape
     warmup = cfg.eps_warmup_steps
+
+    def data_mean(t):
+        return t if mesh is None else mesh.all_reduce(t, "data", "mean")
+
+    def all_reduce_grads(grads):
+        """Mean over 'data' of every gradient, in one collective."""
+        if mesh is None:
+            return grads
+        names = list(grads)
+        flat = data_mean(torch.cat([grads[k].reshape(-1) for k in names]))
+        out, at = {}, 0
+        for k in names:
+            n = grads[k].numel()
+            out[k] = flat[at:at + n].reshape(grads[k].shape)
+            at += n
+        return out
 
     def train_step_with(state: TrainState, draws: TrainDraws):
         step = state.step
@@ -509,6 +579,8 @@ def make_train_step(cfg: GaugeConfig, potential_fn=None, remat: bool = True):
                                   allow_unused=True)
         grads = {k: torch.zeros_like(v).detach() for k, v in leaves.items()}
         grads.update({k: g for k, g in zip(wrt, got) if g is not None})
+        grads = all_reduce_grads(grads)
+        aux["accept_prob"] = data_mean(aux["accept_prob"])
         in_warmup = step < warmup
         if not cfg.eps_trainable or in_warmup:
             # fixed eps, or dual averaging drives it: keep the ESJD eps
@@ -533,16 +605,20 @@ def make_train_step(cfg: GaugeConfig, potential_fn=None, remat: bool = True):
                 x_new = instanton_hop_with(x_new, beta, draws.nu,
                                            draws.u_hop, shape).x_out
             obs = u1.observables(x_new, shape)
+            means = data_mean(torch.stack([
+                loss.detach(), aux["dq"], torch.mean(obs["actions"]),
+                torch.mean(obs["plaqs"]),
+                torch.mean(torch.square(obs["charges"]))]))
             metrics = {
-                "loss": loss.detach(),
+                "loss": means[0],
                 "accept_prob": aux["accept_prob"],
-                "dq": aux["dq"],
+                "dq": means[1],
                 "eps": get_eps(params, dyn_cfg).detach().clone(),
                 "beta": beta,
                 "lr": lr_sched(step),
-                "actions": torch.mean(obs["actions"]),
-                "plaqs": torch.mean(obs["plaqs"]),
-                "charges2": torch.mean(torch.square(obs["charges"])),
+                "actions": means[2],
+                "plaqs": means[3],
+                "charges2": means[4],
             }
             if cfg.grad_summaries:
                 metrics.update(tree_summaries(grads, "grads"))
@@ -555,7 +631,7 @@ def make_train_step(cfg: GaugeConfig, potential_fn=None, remat: bool = True):
     def train_step(state: TrainState, generator):
         x = state.x
         draws = draw_train_randomness(generator, x.shape[0], x.shape[1],
-                                      cfg.train_hops, x.device)
+                                      cfg.train_hops, x.device, mesh)
         return train_step_with(state, draws)
 
     return train_step, train_step_with
@@ -573,11 +649,11 @@ def _stack_metrics(per_step, device) -> Dict[str, torch.Tensor]:
 
 
 def make_train_chunk(cfg: GaugeConfig, chunk_size: int, potential_fn=None,
-                     remat: bool = True):
+                     remat: bool = True, mesh=None):
     """``chunk(state, generator) -> (state, metrics)``: ``chunk_size`` train
     steps, metrics stacked to ``(chunk_size,)`` tensors on the state's
-    device."""
-    train_step, _ = make_train_step(cfg, potential_fn, remat)
+    device (with a ``mesh``: data-parallel steps, global metrics)."""
+    train_step, _ = make_train_step(cfg, potential_fn, remat, mesh)
 
     def chunk(state: TrainState, generator):
         per_step = []
@@ -591,7 +667,8 @@ def make_train_chunk(cfg: GaugeConfig, chunk_size: int, potential_fn=None,
 
 def train_to_convergence(cfg: GaugeConfig, seed: int = 0, *,
                          chunk_size: int = 250, retrain_acc: float = 0.0,
-                         max_retrains: int = 3, trace=None, device=None):
+                         max_retrains: int = 3, trace=None, device=None,
+                         mesh=None):
     """Train the sampler; detect-and-retrain on the beta >= 5 bimodality.
 
     ``retrain_acc`` > 0 arms the detector: when the mean acceptance over
@@ -601,17 +678,22 @@ def train_to_convergence(cfg: GaugeConfig, seed: int = 0, *,
     seeded with ``seed`` (``a = 0``) or ``seed + 7700 + a``.
 
     Returns ``(state, last_metrics, attempts)``; ``trace`` is an optional
-    ``fn(msg)`` progress callback.
+    ``fn(msg)`` progress callback.  With a ``mesh`` every rank seeds the
+    same generator, trains its slice of the chains data-parallel and judges
+    the attempt on the global acceptance; the returned ``state.x`` is this
+    rank's slice.
     """
+    from l2hmc_tpu_torch.parallel.mesh import shard_train_state
+
     device = resolve_device(device)
     chunk_size = min(chunk_size, max(cfg.train_steps, 1))
-    chunk = make_train_chunk(cfg, chunk_size)
+    chunk = make_train_chunk(cfg, chunk_size, mesh=mesh)
     attempts = []
     state = m = None
     for attempt in range(max_retrains + 1):
         gen = torch.Generator(device=device).manual_seed(
             seed if attempt == 0 else seed + 7700 + attempt)
-        state = init_train_state(cfg, gen, device)
+        state = shard_train_state(init_train_state(cfg, gen, device), mesh)
         for _ in range(max(cfg.train_steps // chunk_size, 1)):
             state, m = chunk(state, gen)
         end_acc = float(m["accept_prob"][-min(50, chunk_size):].mean())

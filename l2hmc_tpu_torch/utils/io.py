@@ -2,8 +2,9 @@
 ``l2hmc_tpu/utils/io.py``).
 
 Run dirs are ``<base>/run_<n>``; metrics go to ``metrics.jsonl`` (one
-record per logged step), the run's flags to ``params.json``.  The port runs
-one process, so every process is the primary one.
+record per logged step), the run's flags to ``params.json``.  In a
+``torch.distributed`` process group only global rank 0 (the primary) writes
+and logs; the others compute the same run dir and stay silent.
 """
 
 from __future__ import annotations
@@ -18,7 +19,12 @@ import torch
 
 
 def is_primary() -> bool:
-    return True
+    """``True`` on global rank 0 of an initialized process group, and when
+    there is no group (the reference's ``jax.process_index() == 0``)."""
+    import torch.distributed as dist
+
+    return not (dist.is_available() and dist.is_initialized()) or (
+        dist.get_rank() == 0)
 
 
 def install_sigterm_handler():
@@ -40,18 +46,26 @@ def log(*args, **kwargs):
 
 
 def make_run_dir(base: str | Path, prefix: str = "run") -> Path:
-    """Create the next numbered run dir ``<base>/<prefix>_<n>``."""
+    """Create the next numbered run dir ``<base>/<prefix>_<n>``.  In a
+    process group the primary picks and creates it and every rank gets its
+    path (a collective: every rank calls it)."""
+    import torch.distributed as dist
+
     base = Path(base)
-    base.mkdir(parents=True, exist_ok=True)
-    existing = [
-        int(p.name.split("_")[-1])
-        for p in base.glob(f"{prefix}_*")
-        if p.name.split("_")[-1].isdigit()
-    ]
-    nxt = max(existing, default=0) + 1
-    run_dir = base / f"{prefix}_{nxt}"
+    run_dir = None
     if is_primary():
+        base.mkdir(parents=True, exist_ok=True)
+        existing = [
+            int(p.name.split("_")[-1])
+            for p in base.glob(f"{prefix}_*")
+            if p.name.split("_")[-1].isdigit()
+        ]
+        run_dir = base / f"{prefix}_{max(existing, default=0) + 1}"
         run_dir.mkdir(parents=True, exist_ok=True)
+    if dist.is_available() and dist.is_initialized():
+        box = [str(run_dir) if run_dir is not None else None]
+        dist.broadcast_object_list(box, src=0)
+        run_dir = Path(box[0])
     return run_dir
 
 

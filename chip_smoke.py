@@ -71,7 +71,7 @@ Phases (any failure raises and the script exits non-zero):
    checkpoints, then ``--restore`` to 300 and 4000 eval transitions per
    beta), the tuned-HMC baseline (16x16, K=4, eps 0.079, beta 5,
    Metropolis warm start, 500 transitions) and the topological quick start
-   (16x16 MLP h64, 200 train steps, 500 eval transitions with a hop each
+   (16x16 MLP h64, 100 train steps, 500 eval transitions with a hop each
    after 500 Metropolis sweeps).  Gates on the eval files the CLI wrote:
    plaquette within 1e-3 of I1/I0 at beta_final and beta_final - 1 (its
    jackknife error printed beside it), acceptance above 0.05, the
@@ -93,7 +93,7 @@ Phases (any failure raises and the script exits non-zero):
    chains, dual-averaging warmup; gate: plaquette within 1e-3); the
    autotuner (``tune_hmc`` over its default grid at 16x16 beta=4, probes
    on ``hmc_chain``: gate the DA eps at K=5 near 0.0822/0.85; then
-   ``tune_l2hmc`` at the quick-start config, K in {3, 4}, 250 probe-train
+   ``tune_l2hmc`` at the quick-start config, K = 4, 250 probe-train
    steps, probes on ``l2hmc_chain``: gate eps = lambda*/K and finite
    positive scores).
 
@@ -101,7 +101,7 @@ Phases (any failure raises and the script exits non-zero):
    counted from 0: ``configs/flow_8x8.txt`` at its widths (8x8, 16 layers,
    6 mixtures, 32 channels, batch 1024) through
    ``l2hmc_tpu_torch.cli.train_flow.main``, cut in length (``FLOW_ARGV``:
-   300 reverse-KL steps, 50 fKL steps on the 4096-config buffer that two
+   200 reverse-KL steps, 50 fKL steps on the 4096-config buffer that two
    ``hmc_chain`` launches make, the importance-weight eval and 200 MH
    steps); every Wilson action through the kernels (forward and backward
    per step, action-only in the evals), the launches checked against the
@@ -121,6 +121,29 @@ Phases (any failure raises and the script exits non-zero):
    dry run's assertions; then 10 quick-start train steps per turn on the
    group and alone (NCCL cannot put two ranks on one card: the multi-rank
    checks are the CPU tests).
+14. Main path "h2h and targets", each script's launches counted from 0:
+   ``l2hmc_tpu_torch.benchmarks.trained_vs_hmc.main`` on the shipped
+   champion at 2048 chains, 600 transitions, both tiers (``TVH_ARGV``: the
+   eager harness on the Wilson kernels, the fused tier on ``l2hmc_chain``
+   and ``hmc_chain``); ``hmc_ess_sweep.main`` on (K=5, eps 0.08) and (5,
+   0.10) at 2048 chains; ``h2h_seeds.main`` with 2 seeds of 100 train
+   steps and 500 interleaved transitions at 512 chains; and
+   ``l2hmc_tpu_torch.cli.train_sampler.main`` on ``configs/scg_2d.txt``
+   and ``configs/mog_2d.txt``, cut in length (``SAMPLER_ARGV``), which
+   launch no kernel and are host-bound, so they run in a child process
+   from the end of phase 9 on, beside phases 10-13 (``start_targets``).
+   Gates:
+   every plaquette within 1e-3 of I1(4)/I0(4); every acceptance above 0.05;
+   one sampler's eager and fused acceptances within 5 standard errors
+   (``ACCEPT_TAU_FACTOR``); launches as derived from the transitions and
+   train steps run (``wilson_launches_per_transition``,
+   ``wilson_launches_per_step``; two calls of each chain kernel per fused
+   sampler, two of ``hmc_chain`` per sweep point; none on the analytic
+   path); the JSON keys, ``summary.json``'s and ``metrics.jsonl``'s, equal
+   to the JAX scripts' (listed here from their sources); each target's
+   eval moments within 5 standard errors of its exact mean and standard
+   deviation (``moment_errors``; for the mixture, of the offset from the
+   nearest mode, ``exact_moments``).
 
 Each main path checks plaquettes against I1(4)/I0(4), the hop sampler's
 <Q^2> against the exact finite-volume value, and that its kernels were
@@ -202,8 +225,9 @@ def device_phase():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    from l2hmc_tpu_torch._device import float32_matmuls
+
+    float32_matmuls()
     log(f"[device] torch.cuda.get_device_name: {name}; "
         f"count {torch.cuda.device_count()}")
     log("[device] nvidia-smi --query-gpu=name,power.limit:")
@@ -1441,7 +1465,7 @@ CLI_RUNS = {
         "--run_steps", "4000"],
     "hmc": README_HMC_BASELINE + ["--run_steps", "500",
                                   "--eval_therm_sweeps", "500"],
-    "topo": README_TOPO + ["--train_steps", "200", "--eval_hops", "1",
+    "topo": README_TOPO + ["--train_steps", "100", "--eval_hops", "1",
                            "--run_steps", "500", "--eval_init", "metropolis",
                            "--eval_therm_sweeps", "500"],
 }
@@ -2031,7 +2055,7 @@ TUNE_PROBE_CHAINS = 512
 # 5.7e-4); the bound 7 sd
 TUNE_DA_EPS_K5 = 0.0822 / 0.85
 TUNE_DA_TOL = 0.004
-TUNE_L2_K = (3, 4)
+TUNE_L2_K = (4,)
 TUNE_L2_TRAIN_STEPS = 250
 
 
@@ -2308,7 +2332,7 @@ def ensembles_phase(device):
 # ---------------------------------------------------------------------------
 
 # configs/flow_8x8.txt at its widths, cut in length only
-FLOW_ARGV = ["@configs/flow_8x8.txt", "--train_steps", "300",
+FLOW_ARGV = ["@configs/flow_8x8.txt", "--train_steps", "200",
              "--logging_steps", "50", "--fkl_steps", "50",
              "--mh_steps", "200"]
 FLOW_PLAQ_TOL = 1e-3          # the fKL chain's plaquette against I1/I0(2)
@@ -2669,6 +2693,391 @@ def parallel_phase(device):
     return line
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the head-to-head scripts and the analytic targets
+# ---------------------------------------------------------------------------
+
+# the README headline's commands at full width, cut in length
+TVH_ARGV = ["--arch", "mlp", "--num_hidden", "64", "--num_steps", "3",
+            "--merge_v", "--eps_init", "0.125", "--eps_fixed",
+            "--charge_reward", "--params_from",
+            "benchmarks/champion_16x16.npz", "--eval_chains", "2048",
+            "--tier", "both", "--eval_steps", "600"]
+SWEEP_GRID = {5: (0.08, 0.10)}         # HMC's optimum and one neighbour
+SWEEP_ARGV = ["--record", "1000"]
+H2H_ARGV = ["--seeds", "2", "--train_steps", "100", "--eval_steps", "500",
+            "--eval_chains", "512"]
+SAMPLER_ARGV = {
+    "scg": ["@configs/scg_2d.txt", "--train_steps", "100",
+            "--eval_steps", "300"],
+    "mog": ["@configs/mog_2d.txt", "--train_steps", "100",
+            "--eval_steps", "300"],
+}
+# the JSON keys the JAX scripts print (benchmarks/trained_vs_hmc.py
+# :339-380 and :392-427, benchmarks/h2h_seeds.py :202-271,
+# benchmarks/hmc_ess_sweep.py :84-104) and cli/train_sampler.py's
+# summary.json (:190-217)
+STATS_KEYS = {"ess_ratio", "tau_int", "tau_reliable_frac",
+              "eff_samples_per_s", "steps_per_s"}
+TVH_SAMPLER_KEYS = {"sampler", "accept_prob", "plaq", "charge",
+                    "tunneling_rate_per_step", "plaq_mean", "q2", "wall_s"}
+TVH_KEYS = {"benchmark", "label", "config", "plaq_exact", "q2_exact",
+            "l2hmc", "hmc", "plaq_ess_per_s_ratio",
+            "plaq_ess_per_step_ratio", "q_ess_per_s_ratio",
+            "tunneling_per_s_ratio", "train_wall_s", "fused_tier"}
+TVH_CONFIG_KEYS = {"size", "beta", "eval_chains", "eval_steps", "arch",
+                   "num_filters", "num_hidden", "K", "merge_v",
+                   "charge_reward", "charge_weight", "train_steps",
+                   "eps_init", "eps_fixed", "metric", "hmc_K", "hmc_eps"}
+TVH_FUSED_KEYS = {"l2hmc", "hmc", "plaq_ess_per_s_ratio",
+                  "q_ess_per_s_ratio", "l2hmc_fused_vs_xla_speedup"}
+SWEEP_ROW_KEYS = {"num_leapfrog", "eps", "accept", "ess_ratio",
+                  "transitions_per_s", "ess_per_s"}
+H2H_KEYS = {"benchmark", "config", "plaq_exact", "per_seed", "summary"}
+H2H_CONFIG_KEYS = {"size", "beta", "seeds", "train_steps", "eval_steps",
+                   "eval_chains", "trained", "hmc"}
+H2H_SEED_KEYS = {"seed", "train_attempts", "trained", "hmc",
+                 "ratio_ess_per_s", "ratio_ess_per_step",
+                 "ratio_q_ess_per_s", "ratio_tunneling_per_s"}
+H2H_SAMPLER_KEYS = {"accept", "plaq", "charge", "plaq_mean"}
+H2H_SUMMARY_KEYS = {"ratio_ess_per_s", "ratio_ess_per_step",
+                    "ratio_q_ess_per_s", "ratio_tunneling_per_s"}
+SUMMARY_KEYS = {"l2hmc": {"ess_per_step", "accept", "mean", "std"},
+                "hmc": {"ess_per_step", "accept"}}
+METRICS_KEYS = {"step", "dt", "loss", "accept_prob", "eps", "temperature"}
+# the accept-probability means of one sampler on the eager and the fused
+# tier: standard errors from the 64 traced chains x T transitions, with
+# p (1 - p) bounding the per-transition variance and a factor 3 for
+# their autocorrelation (integrated times of a few transitions)
+ACCEPT_TAU_FACTOR = 3.0
+# the analytic targets' eval moments: within 5 standard errors of the
+# exact ones (the mean's from the spread of the per-chain means, the
+# standard deviation's by a jackknife over 20 blocks of chains).  For a
+# mixture, the moments of the offset from the nearest mode (exact: 0 and
+# each component's standard deviation): a cut training does not mix the
+# modes (~5e-4 hops per transition), so which mode a chain holds follows
+# its first transitions from x = 0 and the nets' asymmetry, not the
+# target's weights
+MOMENT_NSE = 5.0
+
+
+def _json_lines(text):
+    """The one-line JSON objects among ``text``'s lines."""
+    return [json.loads(line) for line in text.splitlines()
+            if line.startswith("{") and line.endswith("}")]
+
+
+def run_main(main_fn, argv):
+    """``main_fn(argv)`` with its stdout kept: ``(JSON lines, seconds)``."""
+    import contextlib
+
+    tee = _Tee(sys.stdout)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        rc = main_fn(argv)
+    if rc != 0:
+        raise AssertionError(f"{main_fn.__module__}: exit code {rc}")
+    return _json_lines(tee.text()), time.perf_counter() - t0
+
+
+def key_gate(failed, what, got, want):
+    if set(got) != set(want):
+        failed.append(f"{what} keys {sorted(set(got) ^ set(want))} differ "
+                      "from the JAX script's")
+
+
+def accept_se(p, steps):
+    return ACCEPT_TAU_FACTOR * np.sqrt(max(p * (1 - p), 1e-6)
+                                       / (64 * steps))
+
+
+def tvh_check(device, kernels, failed):
+    """trained_vs_hmc on the champion, both tiers."""
+    from l2hmc_tpu_torch.benchmarks import trained_vs_hmc
+
+    (res,), secs = run_main(trained_vs_hmc.main,
+                            TVH_ARGV + ["--device", str(device)])
+    launches = phase_launches("h2h trained_vs_hmc", kernels,
+                              ("l2hmc_chain", "hmc_chain", "wilson_force",
+                               "wilson_action_only"))
+    key_gate(failed, "trained_vs_hmc", res, TVH_KEYS)
+    key_gate(failed, "trained_vs_hmc config", res["config"],
+             TVH_CONFIG_KEYS)
+    fused = res["fused_tier"]
+    key_gate(failed, "trained_vs_hmc fused_tier", fused, TVH_FUSED_KEYS)
+    steps = int(TVH_ARGV[TVH_ARGV.index("--eval_steps") + 1])
+    exact = res["plaq_exact"]
+    tiers = {"eager l2hmc": (res["l2hmc"], steps),
+             "eager hmc": (res["hmc"], steps),
+             "fused l2hmc": (fused["l2hmc"], 600),
+             "fused hmc": (fused["hmc"], 1500)}
+    for name, (r, _) in tiers.items():
+        key_gate(failed, f"trained_vs_hmc {name}", r, TVH_SAMPLER_KEYS)
+        for obs in ("plaq", "charge"):
+            key_gate(failed, f"trained_vs_hmc {name} {obs}", r[obs],
+                     STATS_KEYS)
+        if not abs(r["plaq_mean"] - exact) < PLAQ_TOL:
+            failed.append(f"trained_vs_hmc {name} plaquette "
+                          f"{r['plaq_mean']} vs {exact}")
+        if not r["accept_prob"] > MIN_ACCEPT:
+            failed.append(f"trained_vs_hmc {name} acceptance "
+                          f"{r['accept_prob']}")
+    for s in ("l2hmc", "hmc"):
+        (re_, te), (rf, tf) = tiers[f"eager {s}"], tiers[f"fused {s}"]
+        pe, pf = re_["accept_prob"], rf["accept_prob"]
+        se = np.hypot(accept_se(pe, te), accept_se(pf, tf))
+        if not abs(pe - pf) <= ACCEPT_NSE * se:
+            failed.append(f"trained_vs_hmc {s} acceptance eager {pe} vs "
+                          f"fused {pf} (se {se:.2e})")
+    # the champion (K=3) and HMC (K=5) on the eager harness: a warm and a
+    # timed chunk of min(1000, eval_steps) transitions each; the fused tier
+    # a warm and a timed call per sampler
+    n_eager = 2 * min(1000, steps)
+    want = {"l2hmc_chain": 2, "hmc_chain": 2}
+    for k in ("wilson_forward", "wilson_action_only", "wilson_backward",
+              "wilson_force", "wilson_double_backward"):
+        want[k] = n_eager * (wilson_launches_per_transition(3)[k]
+                             + wilson_launches_per_transition(5)[k])
+    got = {k: launches[k] for k in want}
+    if got != want:
+        failed.append(f"trained_vs_hmc launches {got}, derived {want}")
+    log(f"[h2h] trained_vs_hmc {secs:.1f} s: {json.dumps(res)}")
+    return {"seconds": secs, "launches": got, "result": res}
+
+
+def sweep_check(device, kernels, failed):
+    """hmc_ess_sweep on (K=5, eps 0.08) and one neighbour."""
+    from l2hmc_tpu_torch.benchmarks import hmc_ess_sweep
+
+    full = hmc_ess_sweep.GRID
+    hmc_ess_sweep.GRID = SWEEP_GRID
+    try:
+        rows, secs = run_main(hmc_ess_sweep.main,
+                              SWEEP_ARGV + ["--device", str(device)])
+    finally:
+        hmc_ess_sweep.GRID = full
+    launches = phase_launches("h2h hmc_ess_sweep", kernels, ("hmc_chain",))
+    points = [(k, e) for k, eps in SWEEP_GRID.items() for e in eps]
+    if [(r["num_leapfrog"], r["eps"]) for r in rows[:-1]] != points:
+        failed.append(f"hmc_ess_sweep rows {rows[:-1]}")
+    for r in rows[:-1]:
+        key_gate(failed, "hmc_ess_sweep row", set(r) - {"frozen"},
+                 SWEEP_ROW_KEYS)
+        if not r["accept"] > MIN_ACCEPT:
+            failed.append(f"hmc_ess_sweep acceptance {r}")
+    key_gate(failed, "hmc_ess_sweep best", rows[-1], {"best"})
+    # a thermalization call and a timed call per point
+    if launches["hmc_chain"] != 2 * len(points):
+        failed.append(f"hmc_ess_sweep hmc_chain launches "
+                      f"{launches['hmc_chain']}, derived {2 * len(points)}")
+    log(f"[h2h] hmc_ess_sweep {secs:.1f} s: {json.dumps(rows)}")
+    return {"seconds": secs, "rows": rows,
+            "launches": {"hmc_chain": launches["hmc_chain"]}}
+
+
+def h2h_seeds_check(device, kernels, failed):
+    """h2h_seeds: two trainings of the champion recipe, interleaved evals."""
+    from l2hmc_tpu_torch.benchmarks import h2h_seeds
+
+    (res,), secs = run_main(h2h_seeds.main,
+                            H2H_ARGV + ["--device", str(device)])
+    launches = phase_launches("h2h h2h_seeds", kernels,
+                              ("wilson_force", "wilson_double_backward"))
+    key_gate(failed, "h2h_seeds", res, H2H_KEYS)
+    key_gate(failed, "h2h_seeds config", res["config"], H2H_CONFIG_KEYS)
+    key_gate(failed, "h2h_seeds summary", res["summary"], H2H_SUMMARY_KEYS)
+    for rec in res["per_seed"]:
+        key_gate(failed, "h2h_seeds per_seed", rec, H2H_SEED_KEYS)
+        for s in ("trained", "hmc"):
+            key_gate(failed, f"h2h_seeds {s}", rec[s], H2H_SAMPLER_KEYS)
+            if not abs(rec[s]["plaq_mean"] - res["plaq_exact"]) < PLAQ_TOL:
+                failed.append(f"h2h_seeds seed {rec['seed']} {s} plaquette "
+                              f"{rec[s]['plaq_mean']}")
+            if not rec[s]["accept"] > MIN_ACCEPT:
+                failed.append(f"h2h_seeds seed {rec['seed']} {s} "
+                              f"acceptance {rec[s]['accept']}")
+    seeds = int(H2H_ARGV[H2H_ARGV.index("--seeds") + 1])
+    train = int(H2H_ARGV[H2H_ARGV.index("--train_steps") + 1])
+    evals = 2 * int(H2H_ARGV[H2H_ARGV.index("--eval_steps") + 1])
+    want = {k: seeds * (train * wilson_launches_per_step(3)[k]
+                        + evals * (wilson_launches_per_transition(3)[k]
+                                   + wilson_launches_per_transition(5)[k]))
+            for k in wilson_launches_per_step(3)}
+    got = {k: launches[k] for k in want}
+    if got != want:
+        failed.append(f"h2h_seeds launches {got}, derived {want}")
+    log(f"[h2h] h2h_seeds {secs:.1f} s: {json.dumps(res)}")
+    return {"seconds": secs, "launches": got, "result": res}
+
+
+def exact_moments(target, xs):
+    """``(samples, exact mean, exact standard deviation)`` per coordinate:
+    a Gaussian's samples ``xs (T, chains, d)`` and its moments; a
+    mixture's offsets from each sample's nearest mode and the components'
+    moments (equal components: zero mean, the diagonal of sigma)."""
+    if not hasattr(target, "mus"):
+        return (xs, target.mu.double().cpu().numpy(),
+                np.sqrt(np.diag(target.sigma.double().cpu().numpy())))
+    mus = target.mus.double().cpu().numpy()
+    sd = np.sqrt(np.diagonal(target.sigmas.double().cpu().numpy(),
+                             axis1=1, axis2=2))
+    if not np.allclose(sd, sd[0]):
+        raise ValueError("moment gate: components of unequal widths")
+    near = np.argmin(((xs[..., None, :] - mus) ** 2).sum(-1), axis=-1)
+    return xs - mus[near], np.zeros(mus.shape[1]), sd[0]
+
+
+def moment_errors(xs, mean, sd, blocks=20):
+    """``(|mean error| / se, |sd error| / se)`` per coordinate of the
+    samples ``xs (T, chains, d)`` past the first quarter: the mean's
+    standard error from the spread of the per-chain means, the standard
+    deviation's by a jackknife over blocks of chains."""
+    kept = xs[xs.shape[0] // 4:].astype(np.float64)
+    chains = kept.shape[1]
+    chain_means = kept.mean(axis=0)
+    se_mean = chain_means.std(axis=0, ddof=1) / np.sqrt(chains)
+    groups = np.array_split(np.arange(chains), blocks)
+    loo = np.array([np.delete(kept, g, axis=1).reshape(-1, kept.shape[2])
+                    .std(axis=0) for g in groups])
+    se_sd = np.sqrt((blocks - 1) / blocks
+                    * ((loo - loo.mean(axis=0)) ** 2).sum(axis=0))
+    got_sd = kept.reshape(-1, kept.shape[2]).std(axis=0)
+    return (np.abs(kept.mean(axis=(0, 1)) - mean) / se_mean,
+            np.abs(got_sd - sd) / se_sd)
+
+
+def sampler_check(device, kernels, failed):
+    """train_sampler on configs/scg_2d.txt and configs/mog_2d.txt, cut in
+    length; the eval samples kept by wrapping the CLI's sample chain."""
+    import tempfile
+    from pathlib import Path
+
+    from l2hmc_tpu_torch.cli import train_sampler
+    from l2hmc_tpu_torch.train import sampler as S
+
+    out = {}
+    make = S.make_sample_chain
+    for name, argv in SAMPLER_ARGV.items():
+        kept = []
+
+        def recording(cfg, energy_fn):
+            sample = make(cfg, energy_fn)
+
+            def run(*args, **kw):
+                xs, probs = sample(*args, **kw)
+                kept.append(xs)
+                return xs, probs
+
+            return run
+
+        S.make_sample_chain = recording
+        try:
+            with tempfile.TemporaryDirectory() as td:
+                _, secs = run_main(train_sampler.main, argv + [
+                    "--log_dir", td, "--device", str(device)])
+                run_dir = Path(td) / "run_1"
+                summary = json.loads((run_dir / "summary.json").read_text())
+                records = [json.loads(line) for line in
+                           (run_dir / "metrics.jsonl").read_text()
+                           .splitlines()]
+        finally:
+            S.make_sample_chain = make
+        launches = phase_launches(f"targets {name}", kernels, ())
+        if any(launches.values()):
+            failed.append(f"targets {name}: launches {launches} (the "
+                          "analytic path runs no kernel)")
+        args = train_sampler.build_parser().parse_args(argv)
+        target, modes = train_sampler.make_target(args, device)
+        want_summary = {k: set(v) | ({"tunneling_rate"} if modes is not None
+                                     else set())
+                        for k, v in SUMMARY_KEYS.items()}
+        key_gate(failed, f"targets {name} summary", summary, want_summary)
+        for k, v in want_summary.items():
+            key_gate(failed, f"targets {name} summary {k}", summary[k], v)
+        for rec in records:
+            want = METRICS_KEYS | ({"tunneling_rate"} if "tunneling_rate"
+                                   in rec else set())
+            key_gate(failed, f"targets {name} metrics.jsonl", rec, want)
+        xs, mean, sd = exact_moments(target, kept[-1].cpu().numpy())
+        err_mean, err_sd = moment_errors(xs, mean, sd)
+        if not (np.all(err_mean <= MOMENT_NSE)
+                and np.all(err_sd <= MOMENT_NSE)):
+            failed.append(f"targets {name}: eval moments off by "
+                          f"{err_mean.tolist()} / {err_sd.tolist()} "
+                          "standard errors")
+        if not summary["l2hmc"]["accept"] > MIN_ACCEPT:
+            failed.append(f"targets {name} acceptance "
+                          f"{summary['l2hmc']['accept']}")
+        ms = [r["dt"] * 1e3 for r in records]
+        out[name] = {"seconds": secs, "ms_per_train_step": ms,
+                     "summary": summary,
+                     "moment_errors_in_se": [err_mean.tolist(),
+                                             err_sd.tolist()],
+                     "exact": [mean.tolist(), sd.tolist()]}
+        log(f"[targets] {name} {secs:.1f} s: {json.dumps(out[name])}")
+    return out
+
+
+TARGETS_TAG = "[targets] result "
+
+
+def start_targets(device):
+    """Start phase 14's analytic-target runs (``sampler_check``) in a child
+    process, its output in a temporary file: ``(process, file)``."""
+    import os
+    import tempfile
+
+    code = ("import json, sys, torch, chip_smoke as C\n"
+            "failed = []\n"
+            "out = C.sampler_check(torch.device(sys.argv[1]), "
+            "C.reset_launches(), failed)\n"
+            f"print({TARGETS_TAG!r} + json.dumps("
+            "{'out': out, 'failed': failed}), flush=True)\n")
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen([sys.executable, "-c", code, str(device)],
+                            cwd=here, stdout=out, stderr=subprocess.STDOUT,
+                            text=True)
+    return proc, out
+
+
+def join_targets(targets, failed, timeout=900):
+    """Wait for the child of :func:`start_targets`, print its log and
+    return its result (its failed gates added to ``failed``)."""
+    proc, out = targets
+    rc = proc.wait(timeout=timeout)
+    out.seek(0)
+    text = out.read()
+    out.close()
+    print(text, end="", flush=True)
+    lines = [ln for ln in text.splitlines() if ln.startswith(TARGETS_TAG)]
+    if rc != 0 or not lines:
+        raise AssertionError(f"targets child: exit code {rc}, no result")
+    res = json.loads(lines[-1][len(TARGETS_TAG):])
+    failed += res["failed"]
+    return res["out"]
+
+
+def h2h_phase(device, targets):
+    """Phase 14: the head-to-head scripts and the analytic-target workload,
+    each entry point's ``main`` at full width, cut in length, launches
+    counted from 0 per script; the target runs' child (``targets``,
+    :func:`start_targets`) joined at the end."""
+    kernels = reset_launches()
+    t0 = time.perf_counter()
+    failed, out = [], {}
+    for name, check in (("trained_vs_hmc", tvh_check),
+                        ("hmc_ess_sweep", sweep_check),
+                        ("h2h_seeds", h2h_seeds_check)):
+        out[name] = check(device, kernels, failed)
+    out["targets"] = join_targets(targets, failed)
+    log(f"[h2h] phase {time.perf_counter() - t0:.1f} s (the target runs "
+        "beside phases 10-13)")
+    if failed:
+        raise AssertionError(f"h2h and targets: failed gates {failed}")
+    return out
+
+
 def main():
     name, smi = device_phase()
     device = torch.device("cuda", 0)
@@ -2695,10 +3104,19 @@ def main():
     train_err = train_check_phase(device)
     tl, train_ms, train_plain_ms = train_phase(device)
     dec = decomposition_phase(params, eps_c, cfg.num_steps, device)
-    cli = cli_phase(device)
-    ens = ensembles_phase(device)
-    flow = flow_phase(device)
-    par = parallel_phase(device)
+    # the analytic-target runs (no kernel, host-bound) beside phases 10-13,
+    # after the phases that time kernels
+    targets = start_targets(device)
+    try:
+        cli = cli_phase(device)
+        ens = ensembles_phase(device)
+        flow = flow_phase(device)
+        par = parallel_phase(device)
+        h2h = h2h_phase(device, targets)
+    finally:
+        if targets[0].poll() is None:
+            targets[0].kill()
+            targets[0].wait()
     errs["hmc_chain"] = max(errs["hmc_chain"], flow["hmc_chain_err"],
                             par["max_abs_err"]["smc"])
 
@@ -2816,6 +3234,20 @@ def main():
         f"group, {par['modes_seconds_alone']} alone; kernel vs plain "
         f"{par['max_abs_err']}; quick-start train step (ms) "
         f"{par['train_step_ms']}; on {smi}")
+    tvh = h2h["trained_vs_hmc"]["result"]
+    secs = {k: round(v["seconds"], 1) for k, v in h2h.items()
+            if k != "targets"}
+    secs.update({k: round(v["seconds"], 1)
+                 for k, v in h2h["targets"].items()})
+    targets = {k: v["summary"] for k, v in h2h["targets"].items()}
+    log(f"[result] h2h trained_vs_hmc (champion, 2048 chains, "
+        f"{tvh['config']['eval_steps']} transitions): plaquette ESS/s ratio "
+        f"eager {tvh['plaq_ess_per_s_ratio']} (per step "
+        f"{tvh['plaq_ess_per_step_ratio']}), fused "
+        f"{tvh['fused_tier']['plaq_ess_per_s_ratio']}; Q ESS/s ratio eager "
+        f"{tvh['q_ess_per_s_ratio']}, fused "
+        f"{tvh['fused_tier']['q_ess_per_s_ratio']}; phase 14 seconds "
+        f"{secs}; targets {json.dumps(targets)}; on {smi}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

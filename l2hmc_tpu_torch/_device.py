@@ -45,3 +45,14 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device: the port runs on the card by default; pass "
             "device=\"cpu\" to run on the CPU")
     return torch.device("cuda", local_rank())
+
+
+def float32_matmuls(tf32: bool = False) -> None:
+    """The port's one float32 rule, which every entry point applies first:
+    matmuls and cuDNN convolutions in full float32 (TF32 off), as the CPU
+    and the JAX package compute them.  TF32 rounds the operands to 10-bit
+    mantissas, and the training amplifies that rounding: one card with TF32
+    on parts from itself with it off by step 8 of the canonical 8x8 run.
+    ``tf32=True`` turns TF32 on, for a run that compares the two."""
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.backends.cudnn.allow_tf32 = tf32

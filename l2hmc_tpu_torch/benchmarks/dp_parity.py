@@ -33,13 +33,9 @@ METRICS = ("loss", "accept_prob", "eps", "actions", "plaqs", "charges2")
 
 
 def run(tf32: bool, argv) -> int:
-    import torch
-
     from l2hmc_tpu_torch.cli import train_gauge
 
-    torch.backends.cudnn.allow_tf32 = tf32
-    torch.backends.cuda.matmul.allow_tf32 = tf32
-    return train_gauge.main(list(argv))
+    return train_gauge.main(list(argv), tf32=tf32)
 
 
 def _records(run_dir: Path):

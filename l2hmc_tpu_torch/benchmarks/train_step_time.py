@@ -19,6 +19,7 @@ import json
 
 import torch
 
+from l2hmc_tpu_torch._device import float32_matmuls
 from l2hmc_tpu_torch.benchmarks import device_info, device_profile
 
 # the README's commands (README.md "Quick start", "The topological sampler")
@@ -97,8 +98,7 @@ def main(argv=None):
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("train_step_time needs a CUDA device")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    float32_matmuls()
     device = torch.device("cuda", 0)
     res = {name: time_command(COMMANDS[name], args.steps, args.warm, device)
            for name in args.commands}

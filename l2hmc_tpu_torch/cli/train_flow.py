@@ -132,7 +132,7 @@ def main(argv=None):
 
     import torch
 
-    from l2hmc_tpu_torch._device import resolve_device
+    from l2hmc_tpu_torch._device import float32_matmuls, resolve_device
     from l2hmc_tpu_torch.dynamics import flow as F
     from l2hmc_tpu_torch.lattice import u1
     from l2hmc_tpu_torch.train import checkpoint as ckpt
@@ -141,6 +141,7 @@ def main(argv=None):
                                           install_sigterm_handler, is_primary,
                                           log, make_run_dir, save_params_json)
 
+    float32_matmuls()
     device = resolve_device(args.device)
     if args.resume:
         run_dir = Path(args.resume)

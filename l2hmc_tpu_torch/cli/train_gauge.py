@@ -287,7 +287,10 @@ def _run_number(path: Path) -> int:
     return int(tail) if tail.isdigit() else -1
 
 
-def main(argv=None):
+def main(argv=None, tf32: bool = False):
+    """The CLI; ``tf32=True`` runs matmuls and convolutions in TF32 (an
+    explicit choice for ``benchmarks/dp_parity.py``), else float32
+    (``_device.float32_matmuls``)."""
     args = build_parser().parse_args(argv)
     _check_ported(args)
 
@@ -296,7 +299,7 @@ def main(argv=None):
 
     import torch.distributed as dist
 
-    from l2hmc_tpu_torch._device import resolve_device
+    from l2hmc_tpu_torch._device import float32_matmuls, resolve_device
     from l2hmc_tpu_torch.analysis import stats
     from l2hmc_tpu_torch.lattice import u1
     from l2hmc_tpu_torch.parallel.mesh import (
@@ -313,6 +316,7 @@ def main(argv=None):
         make_run_dir, save_params_json,
     )
 
+    float32_matmuls(tf32)
     install_sigterm_handler()
     launched = initialize_distributed(args.device)
     device = resolve_device(args.device)

@@ -131,6 +131,10 @@ class MLPNet(nn.Module):
     def from_reference_leaf(name: str, array: np.ndarray) -> np.ndarray:
         return array
 
+    @staticmethod
+    def to_reference_leaf(name: str, array: np.ndarray) -> np.ndarray:
+        return array
+
     def forward(self, v, x, t):
         bf16 = self.spec.use_bf16
         inp = torch.cat([v, x, t], dim=-1)
@@ -159,6 +163,10 @@ class ZeroNet(nn.Module):
 
     @staticmethod
     def from_reference_leaf(name: str, array: np.ndarray) -> np.ndarray:
+        return array
+
+    @staticmethod
+    def to_reference_leaf(name: str, array: np.ndarray) -> np.ndarray:
         return array
 
     def forward(self, v, x, t):
@@ -226,6 +234,10 @@ def _he_conv(generator, cout: int, cin: int, k: int, device=None):
 
 def _hwio_to_oihw(array: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(np.transpose(array, (3, 2, 0, 1)))
+
+
+def _oihw_to_hwio(array: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(np.transpose(array, (2, 3, 1, 0)))
 
 
 def to_image(flat: torch.Tensor, lt: int, lx: int) -> torch.Tensor:
@@ -328,6 +340,19 @@ class ConvNet(nn.Module):
             return np.ascontiguousarray(
                 array.reshape(self.lt2, self.lx2, f2, h)
                 .transpose(2, 0, 1, 3).reshape(-1, h))
+        return array
+
+    def to_reference_leaf(self, name: str, array: np.ndarray) -> np.ndarray:
+        """The inverse of :meth:`from_reference_leaf`."""
+        array = np.asarray(array)
+        if name.startswith("conv_") and name.endswith(".w"):
+            return _oihw_to_hwio(array)
+        if name in ("x_layer.w", "v_layer.w"):
+            f2 = 2 * self.spec.num_filters
+            h = array.shape[1]
+            return np.ascontiguousarray(
+                array.reshape(f2, self.lt2, self.lx2, h)
+                .transpose(1, 2, 0, 3).reshape(-1, h))
         return array
 
     def _stack(self, c1: _Conv, c2: _Conv, flat):
@@ -486,6 +511,10 @@ class LocalFlatNet(nn.Module):
     def from_reference_leaf(name: str, array: np.ndarray) -> np.ndarray:
         return array
 
+    @staticmethod
+    def to_reference_leaf(name: str, array: np.ndarray) -> np.ndarray:
+        return array
+
     def stencils(self):
         return [getattr(self, f"stencil_{i}")
                 for i in range(self.spec.num_layers)]
@@ -561,6 +590,13 @@ class LocalNet(nn.Module):
         array = np.asarray(array)
         if name.endswith(".w"):
             return _hwio_to_oihw(array)
+        return array
+
+    @staticmethod
+    def to_reference_leaf(name: str, array: np.ndarray) -> np.ndarray:
+        array = np.asarray(array)
+        if name.endswith(".w"):
+            return _oihw_to_hwio(array)
         return array
 
     def forward(self, v, x, t):

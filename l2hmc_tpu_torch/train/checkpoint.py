@@ -117,6 +117,20 @@ def params_from_leaves(leaves, cfg: GaugeConfig, device=None):
     return params_from_numpy(tree, cfg, device)
 
 
+def leaves_from_params(params: DynamicsParams, cfg: GaugeConfig) -> list:
+    """The inverse of :func:`params_from_leaves`: the flat numpy leaves of
+    ``params`` in the JAX pytree's flatten order and layouts (each net's
+    ``to_reference_leaf``), as the champion npz stores them."""
+    order = net_leaf_order(cfg)
+    leaves = []
+    for net in (params.xnet, params.vnet):
+        state = net.state_dict()
+        leaves += [net.to_reference_leaf(k, state[k].detach().cpu().numpy())
+                   for k in order]
+    return leaves + [params.raw_eps.detach().cpu().numpy(),
+                     params.masks.cpu().numpy()]
+
+
 def load_champion(path=CHAMPION_PATH, device=None):
     """``(GaugeConfig, DynamicsParams)`` from the shipped champion npz, on
     ``device`` (``None``: the first CUDA device)."""

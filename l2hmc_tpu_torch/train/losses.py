@@ -1,14 +1,16 @@
-"""Training losses of the gauge sampler (port of ``l2hmc_tpu/train/losses.py``
-without the VAE loss registry, which waits for ROADMAP queue A item 14).
+"""Training losses of the learned samplers (port of
+``l2hmc_tpu/train/losses.py``).
 
 - the expected-squared-jump loss with its reciprocal and auxiliary z terms,
 - the topological-charge loss on the differentiable Fourier surrogate,
-- the link-space metric zoo.
+- the link-space metric zoo,
+- the standalone loss registry (``get_loss``) of the VAE path.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+import math
+from typing import Callable, Dict
 
 import torch
 
@@ -59,3 +61,51 @@ def charge_loss(dq_x, accept_prob, dq_z, z_accept_prob,
     zq = aux_weight * (z_accept_prob * dq_z + LOSS_EPS)
     sign = -1.0 if reward else 1.0
     return sign * charge_weight * torch.mean(xq + zq)
+
+
+# ---------------------------------------------------------------------------
+# Standalone loss registry (the VAE path's)
+# ---------------------------------------------------------------------------
+
+
+def loss_vec(x, x_proposed, accept_prob, r=1.0):
+    """Per-chain squared jump times acceptance, plus 1e-4."""
+    return (torch.sum(torch.square(x - x_proposed), dim=-1) * accept_prob
+            + 1e-4)
+
+
+def loss_std(x, x_proposed, accept_prob, scale=1.0):
+    v = loss_vec(x, x_proposed, accept_prob)
+    return torch.mean(scale / v - v / scale)
+
+
+def loss_inverse(x, x_proposed, accept_prob, scale=1.0):
+    v = loss_vec(x, x_proposed, accept_prob)
+    return torch.mean(scale / v)
+
+
+def loss_logsumexp(x, x_proposed, accept_prob, scale=1.0):
+    v = loss_vec(x, x_proposed, accept_prob)
+    return torch.logsumexp((math.log(scale) - torch.log(v)).reshape(-1), 0)
+
+
+def loss_mixed(x, x_proposed, accept_prob, scale=1.0):
+    v = loss_vec(x, x_proposed, accept_prob)
+    return torch.mean(scale / v) - torch.mean(v / scale)
+
+
+LOSS_REGISTRY: Dict[str, Callable] = {
+    "standard": loss_std,
+    "inverse": loss_inverse,
+    "logsumexp": loss_logsumexp,
+    "mixed": loss_mixed,
+}
+
+
+def get_loss(name: str) -> Callable:
+    """The registry's loss of that name."""
+    try:
+        return LOSS_REGISTRY[name]
+    except KeyError:
+        raise ValueError(
+            f"loss={name!r}; expected one of {sorted(LOSS_REGISTRY)}")

@@ -142,8 +142,9 @@ def test_torch_hmc_baseline_chain_matches_jax_reference():
 def test_torch_port_imports_no_jax():
     """A fresh interpreter runs the CPU slice (champion chain with hop, HMC
     thermalizer, a short SMC ladder on the fused move, a PT round,
-    multinomial HMC and AIS) and imports neither jax nor the JAX
-    package."""
+    multinomial HMC and AIS, a sampler train step on an analytic target),
+    imports the head-to-head scripts, the sampler CLI and the examples, and
+    imports neither jax nor the JAX package."""
     code = r"""
 import sys
 before = {m for m in sys.modules if m == "jax" or m.startswith("jax.")}
@@ -176,6 +177,18 @@ links = torch.zeros(2, 16, 16, 2)
 links, plaq, _, _ = hmc_chain_u1_fused(links, g, 0.08, 4.0, 5, 2)
 out = l2hmc_chain(links, params, g, 0.125, 4.0, cfg.num_steps, 1, hop=True)
 assert all(bool(torch.isfinite(t).all()) for t in out)
+from l2hmc_tpu_torch import targets
+from l2hmc_tpu_torch.benchmarks import h2h_seeds, hmc_ess_sweep, trained_vs_hmc
+from l2hmc_tpu_torch.cli import train_sampler
+from l2hmc_tpu_torch.examples import (flow_sampler_demo, generic_hmc_demo,
+                                      mog_tunneling, scg_experiment,
+                                      u1_gauge_demo)
+from l2hmc_tpu_torch.train import sampler
+tgt = targets.gmm_axes(2, device="cpu")
+scfg = sampler.SamplerConfig(x_dim=2, num_chains=4, num_steps=2, num_hidden=4)
+st = sampler.init_sampler_state(scfg, tgt.energy, g0, device="cpu")
+st, m = sampler.make_sampler_train_chunk(scfg, tgt.energy, 2)(st, g0)
+assert bool(torch.isfinite(m["loss"]).all())
 jax_mods = {m for m in sys.modules if m == "jax" or m.startswith("jax.")}
 assert jax_mods == before, sorted(jax_mods - before)[:5]
 ref = [m for m in sys.modules if m == "l2hmc_tpu" or m.startswith("l2hmc_tpu.")]

@@ -131,7 +131,7 @@ Phases (any failure raises and the script exits non-zero):
    ``l2hmc_tpu_torch.cli.train_sampler.main`` on ``configs/scg_2d.txt``
    and ``configs/mog_2d.txt``, cut in length (``SAMPLER_ARGV``), which
    launch no kernel and are host-bound, so they run in a child process
-   from the end of phase 9 on, beside phases 10-13 (``start_targets``).
+   from the end of phase 9 on, beside phases 10-13 (``targets_child``).
    Gates:
    every plaquette within 1e-3 of I1(4)/I0(4); every acceptance above 0.05;
    one sampler's eager and fused acceptances within 5 standard errors
@@ -144,6 +144,28 @@ Phases (any failure raises and the script exits non-zero):
    eval moments within 5 standard errors of its exact mean and standard
    deviation (``moment_errors``; for the mixture, of the offset from the
    nearest mode, ``exact_moments``).
+
+15. Main path "vae and sun", launches counted from 0 (the path runs no
+   kernel: the JAX package's VAE and SU(N) modules reach no Pallas call):
+   ``l2hmc_tpu_torch.cli.train_vae.main`` on ``configs/vae_digits.txt`` as
+   written (20 epochs, batch 256, latent 8, hidden 256/256/64, K=5, MH=2,
+   then AIS with 100 rungs on 256 held-out digits and the 200-transition
+   autocovariance eval) and the AIS linear-Gaussian oracle of
+   ``tests/test_vae.py``; ``train_sun.main`` at its defaults (8x8, 32
+   chains, K=3, hidden 32, eps 0.15, 1000 eval transitions;
+   ``SUN_RUNS``): SU(2) at beta 2 and SU(3) at beta 4 with ``--hmc``,
+   SU(2) at beta 2 after 200 train steps (cut from 1000); ``train_sun
+   --dims 3 3 3 3`` SU(2) at beta 0.5 (``SUN_4D_ARGV``, 200 transitions);
+   and ``benchmarks.sun_nd_bench`` at its defaults (SU(3) 8^4, batch 8,
+   K=4, eps 0.32/L) with ``--chunks 2``.  Eager and host-bound, it runs
+   in a child process from the end of phase 9 on, beside phases 10-14
+   (``vae_sun_phase``).  Gates: the final logged ELBO above the first by more
+   than 5 nats, a finite summary, acceptance in (0.05, 1], AIS log p(x)
+   inside the JAX CLI's range over seeds 42-44 (``VAE_JAX_AIS``) widened
+   by 5 of the run's standard errors, the oracle within 0.25 nats; each
+   2-D plaquette within 5 jackknife errors (over chains) and 0.02 of the
+   Weyl-measure value (0.43313, 0.27930); 4-D within 0.012 of strong
+   coupling with acceptance above 0.6; the JSON keys of the JAX scripts.
 
 Each main path checks plaquettes against I1(4)/I0(4), the hop sampler's
 <Q^2> against the exact finite-volume value, and that its kernels were
@@ -3018,42 +3040,59 @@ def sampler_check(device, kernels, failed):
     return out
 
 
-TARGETS_TAG = "[targets] result "
+CHILD_TAG = "[child] result "
 
 
-def start_targets(device):
-    """Start phase 14's analytic-target runs (``sampler_check``) in a child
-    process, its output in a temporary file: ``(process, file)``."""
+def start_child(call, device):
+    """Run ``chip_smoke.<call>(device)`` in a child process that imports
+    chip_smoke afresh, its output in a temporary file: ``(process, file,
+    call)``."""
     import os
     import tempfile
 
     code = ("import json, sys, torch, chip_smoke as C\n"
-            "failed = []\n"
-            "out = C.sampler_check(torch.device(sys.argv[1]), "
-            "C.reset_launches(), failed)\n"
-            f"print({TARGETS_TAG!r} + json.dumps("
-            "{'out': out, 'failed': failed}), flush=True)\n")
+            f"out = C.{call}(torch.device(sys.argv[1]))\n"
+            f"print({CHILD_TAG!r} + json.dumps(out), flush=True)\n")
     here = os.path.dirname(os.path.abspath(__file__))
     out = tempfile.TemporaryFile("w+")
     proc = subprocess.Popen([sys.executable, "-c", code, str(device)],
                             cwd=here, stdout=out, stderr=subprocess.STDOUT,
                             text=True)
-    return proc, out
+    return proc, out, call
 
 
-def join_targets(targets, failed, timeout=900):
-    """Wait for the child of :func:`start_targets`, print its log and
-    return its result (its failed gates added to ``failed``)."""
-    proc, out = targets
+def join_child(child, timeout=900):
+    """Wait for a child of :func:`start_child`, print its log and return
+    its result; a child that failed raises."""
+    proc, out, call = child
     rc = proc.wait(timeout=timeout)
     out.seek(0)
     text = out.read()
     out.close()
     print(text, end="", flush=True)
-    lines = [ln for ln in text.splitlines() if ln.startswith(TARGETS_TAG)]
+    lines = [ln for ln in text.splitlines() if ln.startswith(CHILD_TAG)]
     if rc != 0 or not lines:
-        raise AssertionError(f"targets child: exit code {rc}, no result")
-    res = json.loads(lines[-1][len(TARGETS_TAG):])
+        raise AssertionError(f"{call} child: exit code {rc}, no result")
+    return json.loads(lines[-1][len(CHILD_TAG):])
+
+
+def stop_child(child):
+    if child[0].poll() is None:
+        child[0].kill()
+        child[0].wait()
+
+
+def targets_child(device):
+    """Phase 14's analytic-target runs (``sampler_check``), run in a child
+    process (:func:`start_child`) from the end of phase 9 on."""
+    failed = []
+    out = sampler_check(device, reset_launches(), failed)
+    return {"out": out, "failed": failed}
+
+
+def join_targets(targets, failed, timeout=900):
+    """The target runs' result (their failed gates added to ``failed``)."""
+    res = join_child(targets, timeout)
     failed += res["failed"]
     return res["out"]
 
@@ -3062,7 +3101,7 @@ def h2h_phase(device, targets):
     """Phase 14: the head-to-head scripts and the analytic-target workload,
     each entry point's ``main`` at full width, cut in length, launches
     counted from 0 per script; the target runs' child (``targets``,
-    :func:`start_targets`) joined at the end."""
+    :func:`targets_child`) joined at the end."""
     kernels = reset_launches()
     t0 = time.perf_counter()
     failed, out = [], {}
@@ -3075,6 +3114,247 @@ def h2h_phase(device, targets):
         "beside phases 10-13)")
     if failed:
         raise AssertionError(f"h2h and targets: failed gates {failed}")
+    return out
+
+
+# Phase 15: the VAE workload and the SU(N) family (no kernel on this path)
+VAE_ARGV = ["@configs/vae_digits.txt"]      # as written
+VAE_ELBO_GAIN = 5.0           # nats, the final ELBO over the first logged
+VAE_ORACLE_TOL = 0.25         # AIS against the exact linear-Gaussian p(x)
+VAE_SUMMARY_KEYS = {"ais_log_likelihood_mean", "ais_log_likelihood_sem",
+                    "sampler_ess_per_step", "sampler_accept_prob",
+                    "final_elbo"}
+VAE_METRICS_KEYS = {"step", "epoch", "dt", "elbo", "sampler_loss",
+                    "decoder_nll", "accept_prob", "loss"}
+# the JAX CLI's AIS log p(x) for VAE_ARGV at seeds 42, 43 and 44 (its
+# summary.json, CPU); the gate is their range widened by VAE_AIS_NSE of the
+# port run's own standard error
+VAE_JAX_AIS = (-20.895936965942383, -20.80035400390625, -20.535968780517578)
+VAE_AIS_NSE = 5.0
+# 2-D SU(N) at train_sun's defaults (8x8, 32 chains, K=3, hidden 32, eps
+# 0.15, 1000 eval transitions, the first quarter dropped), training cut
+# from 1000 steps to 200
+SUN_RUNS = {
+    "su2_b2_hmc": ["--n", "2", "--beta", "2.0", "--hmc"],
+    "su3_b4_hmc": ["--n", "3", "--beta", "4.0", "--hmc"],
+    "su2_b2_trained": ["--n", "2", "--beta", "2.0", "--train_steps", "200"],
+}
+SUN_EXACT = {"su2_b2_hmc": 0.43313, "su3_b4_hmc": 0.27930,
+             "su2_b2_trained": 0.43313}
+SUN_PLAQ_NSE, SUN_PLAQ_TOL = 5.0, 0.02
+SUN_EVAL_KEYS = {"n", "beta", "plaq", "plaq_exact", "plaq_err",
+                 "accept_prob", "esjd_plaq_trace", "mode"}
+# 4-D SU(2) at beta 0.5 (tests/test_sun_nd.py:61-77: 200 transitions, K=4,
+# eps 0.25, the first 80 dropped) with train_sun's 32 chains
+SUN_4D_ARGV = ["--dims", "3", "3", "3", "3", "--n", "2", "--beta", "0.5",
+               "--run_steps", "200", "--num_steps", "4", "--eps", "0.25",
+               "--therm_frac", "0.4"]
+SUN_4D_TOL, SUN_4D_MIN_ACCEPT = 0.012, 0.6
+SUN_4D_KEYS = {"n", "beta", "dims", "rect_c1", "plaq",
+               "plaq_strong_coupling_lo", "accept_prob", "mode"}
+# SU(3) 8^4, batch 8, K=4, eps 0.32/L; a warm and 2 timed chunks of 50
+SUN_BENCH_ARGV = ["--chunks", "2"]
+SUN_BENCH_KEYS = {"metric", "value", "config", "plaq",
+                  "plaq_strong_coupling_lo", "accept_prob",
+                  "ms_per_transition", "compile_s", "platform"}
+
+
+def ais_oracle(device):
+    """``ais_log_likelihood`` on a linear-Gaussian decoder, p(x|z) = N(x; W
+    z, sigma^2 I), z ~ N(0, I) (``tests/test_vae.py:75-120``): ``(AIS mean,
+    exact mean)`` of log p(x) over 64 points, 300 rungs."""
+    from l2hmc_tpu_torch.train.vae import VAEConfig, ais_log_likelihood
+
+    d_lat, d_obs, sigma = 2, 3, 0.8
+    rng = np.random.default_rng(0)
+    w = rng.normal(size=(d_lat, d_obs)).astype(np.float32)
+    x = (rng.normal(size=(64, d_obs)) * 1.5).astype(np.float32)
+
+    def posterior_energy(dec, x_batch):
+        def energy(z):
+            resid = x_batch - z @ dec
+            loglik = (-0.5 * torch.sum(resid * resid, dim=-1) / sigma ** 2
+                      - 0.5 * d_obs * np.log(2 * np.pi * sigma ** 2))
+            return -loglik + 0.5 * torch.sum(z * z, dim=-1)
+        return energy
+
+    class Params:
+        decoder = torch.tensor(w, device=device)
+
+    logw = ais_log_likelihood(
+        VAEConfig(data_dim=d_obs, latent_dim=d_lat),
+        {"posterior_energy": posterior_energy}, Params,
+        torch.tensor(x, device=device),
+        torch.Generator(device=device).manual_seed(0), num_betas=300,
+        eps=0.25).cpu().numpy()
+    cov = w.T @ w + sigma ** 2 * np.eye(d_obs)
+    _, logdet = np.linalg.slogdet(cov)
+    exact = (-0.5 * np.einsum("bi,ij,bj->b", x, np.linalg.inv(cov), x)
+             - 0.5 * logdet - 0.5 * d_obs * np.log(2 * np.pi))
+    return float(logw.mean()), float(exact.mean())
+
+
+def vae_check(device, kernels, failed):
+    """train_vae on configs/vae_digits.txt as written, and the AIS oracle."""
+    import tempfile
+    from pathlib import Path
+
+    from l2hmc_tpu_torch.cli import train_vae
+
+    with tempfile.TemporaryDirectory() as td:
+        _, secs = run_main(train_vae.main, VAE_ARGV + [
+            "--log_dir", td, "--device", str(device)])
+        run_dir = Path(td) / "run_1"
+        summary = json.loads((run_dir / "summary.json").read_text())
+        records = [json.loads(line) for line in
+                   (run_dir / "metrics.jsonl").read_text().splitlines()]
+    launches = phase_launches("vae train_vae", kernels, ())
+    if any(launches.values()):
+        failed.append(f"vae: launches {launches} (the path runs no kernel)")
+    key_gate(failed, "vae summary.json", summary, VAE_SUMMARY_KEYS)
+    for rec in records:
+        key_gate(failed, "vae metrics.jsonl", rec, VAE_METRICS_KEYS)
+    gain = records[-1]["elbo"] - records[0]["elbo"]
+    if not gain > VAE_ELBO_GAIN:
+        failed.append(f"vae: ELBO {records[0]['elbo']} -> "
+                      f"{records[-1]['elbo']} (gain {gain})")
+    if not all(np.isfinite(v) for v in summary.values()):
+        failed.append(f"vae: non-finite summary {summary}")
+    if not 0.05 < summary["sampler_accept_prob"] <= 1.0:
+        failed.append(f"vae: acceptance {summary['sampler_accept_prob']}")
+    sem = summary["ais_log_likelihood_sem"]
+    band = (min(VAE_JAX_AIS) - VAE_AIS_NSE * sem,
+            max(VAE_JAX_AIS) + VAE_AIS_NSE * sem)
+    ll = summary["ais_log_likelihood_mean"]
+    if not band[0] <= ll <= band[1]:
+        failed.append(f"vae: AIS log p(x) {ll} outside {band}")
+    t0 = time.perf_counter()
+    got, exact = ais_oracle(device)
+    oracle_s = time.perf_counter() - t0
+    if not abs(got - exact) < VAE_ORACLE_TOL:
+        failed.append(f"vae: AIS oracle {got} vs exact {exact}")
+    launches = phase_launches("vae AIS oracle", kernels, ())
+    if any(launches.values()):
+        failed.append(f"vae oracle: launches {launches}")
+    ms = [r["dt"] * 1e3 for r in records]
+    out = {"seconds": secs, "ms_per_train_step": ms,
+           "steps": records[-1]["step"], "elbo": [records[0]["elbo"],
+                                                  records[-1]["elbo"]],
+           "summary": summary, "ais_band": band,
+           "oracle": {"ais": got, "exact": exact, "seconds": oracle_s}}
+    log(f"[vae] {secs:.1f} s: {json.dumps(out)}")
+    return out
+
+
+MS_RE = r"\(([0-9.]+) ms/transition\)"
+
+
+def sun_cli(argv, device):
+    """``train_sun.main`` in a temporary log dir: ``(eval.json, metrics
+    records, the eval plaquette trace or None, ms per eval transition,
+    seconds)``."""
+    import contextlib
+    import re
+    import tempfile
+    from pathlib import Path
+
+    from l2hmc_tpu_torch.cli import train_sun
+
+    tee = _Tee(sys.stdout)
+    with tempfile.TemporaryDirectory() as td:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(tee):
+            rc = train_sun.main(argv + ["--log_dir", td,
+                                        "--device", str(device)])
+        secs = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"train_sun {argv}: exit code {rc}")
+        run_dir = Path(td) / "run_1"
+        ev = json.loads((run_dir / "eval.json").read_text())
+        metrics = run_dir / "metrics.jsonl"
+        records = ([json.loads(line) for line in
+                    metrics.read_text().splitlines()]
+                   if metrics.exists() else [])
+        trace = run_dir / "eval_plaq.npy"
+        trace = np.load(trace) if trace.exists() else None
+    ms = float(re.findall(MS_RE, tee.text())[-1])
+    return ev, records, trace, ms, secs
+
+
+def chain_mean_err(trace, therm_frac=0.25):
+    """The plaquette's mean and its jackknife error over chains (each
+    chain's mean after the thermalization cut; chains are independent)."""
+    from l2hmc_tpu_torch.analysis import stats
+
+    kept = trace[int(therm_frac * trace.shape[0]):]
+    means = kept.mean(axis=0)
+    return stats.jackknife(means, num_blocks=len(means))
+
+
+def sun_check(device, kernels, failed):
+    """train_sun: 2-D SU(2)/SU(3) HMC and trained SU(2) against the Weyl
+    quadrature; 4-D SU(2) against strong coupling; sun_nd_bench."""
+    from l2hmc_tpu_torch.benchmarks import sun_nd_bench
+
+    out = {}
+    for name, argv in SUN_RUNS.items():
+        ev, records, trace, ms, secs = sun_cli(argv, device)
+        key_gate(failed, f"sun {name} eval.json", ev, SUN_EVAL_KEYS)
+        mean, err = chain_mean_err(trace)
+        exact = SUN_EXACT[name]
+        if round(ev["plaq_exact"], 5) != exact:
+            failed.append(f"sun {name}: plaq_exact {ev['plaq_exact']}")
+        dev = abs(mean - ev["plaq_exact"])
+        if not (dev < SUN_PLAQ_NSE * err and dev < SUN_PLAQ_TOL):
+            failed.append(f"sun {name}: plaquette {mean} +- {err} vs "
+                          f"{ev['plaq_exact']}")
+        if not ev["accept_prob"] > MIN_ACCEPT:
+            failed.append(f"sun {name}: acceptance {ev['accept_prob']}")
+        train_ms = (1e3 * records[-1]["wall_s"] / records[-1]["step"]
+                    if records else None)
+        out[name] = {"seconds": secs, "eval": ev, "plaq_jk": [mean, err],
+                     "ms_per_eval_transition": ms,
+                     "ms_per_train_step": train_ms}
+        log(f"[sun] {name} {secs:.1f} s: {json.dumps(out[name])}")
+    ev, _, _, ms, secs = sun_cli(SUN_4D_ARGV, device)
+    key_gate(failed, "sun 4-D eval.json", ev, SUN_4D_KEYS)
+    if not (abs(ev["plaq"] - ev["plaq_strong_coupling_lo"]) < SUN_4D_TOL
+            and ev["accept_prob"] > SUN_4D_MIN_ACCEPT):
+        failed.append(f"sun 4-D: plaq {ev['plaq']} vs "
+                      f"{ev['plaq_strong_coupling_lo']}, acceptance "
+                      f"{ev['accept_prob']}")
+    out["su2_4d_b05"] = {"seconds": secs, "eval": ev,
+                         "ms_per_eval_transition": ms}
+    log(f"[sun] su2_4d_b05 {secs:.1f} s: {json.dumps(out['su2_4d_b05'])}")
+    t0 = time.perf_counter()
+    res = sun_nd_bench.main(SUN_BENCH_ARGV + ["--device", str(device)])
+    secs = time.perf_counter() - t0
+    key_gate(failed, "sun_nd_bench", res, SUN_BENCH_KEYS)
+    if not (np.isfinite(res["plaq"]) and res["accept_prob"] > MIN_ACCEPT):
+        failed.append(f"sun_nd_bench: {res}")
+    out["sun_nd_bench"] = {"seconds": secs, "result": res}
+    launches = phase_launches("sun", kernels, ())
+    if any(launches.values()):
+        failed.append(f"sun: launches {launches} (the path runs no kernel)")
+    return out
+
+
+def vae_sun_phase(device):
+    """Phase 15: the VAE workload and the SU(N) family through their
+    entry points at full width, counts of every kernel set to 0 before
+    each and read after (the path runs none).  Host-bound eager torch
+    (~160 s alone), so ``main`` runs it in a child process
+    (:func:`start_child`) from the end of phase 9 on, beside phases
+    10-14."""
+    kernels = reset_launches()
+    t0 = time.perf_counter()
+    failed = []
+    out = {"vae": vae_check(device, kernels, failed),
+           "sun": sun_check(device, kernels, failed)}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[vae-sun] phase {out['seconds']:.1f} s")
+    if failed:
+        raise AssertionError(f"vae and sun: failed gates {failed}")
     return out
 
 
@@ -3106,17 +3386,18 @@ def main():
     dec = decomposition_phase(params, eps_c, cfg.num_steps, device)
     # the analytic-target runs (no kernel, host-bound) beside phases 10-13,
     # after the phases that time kernels
-    targets = start_targets(device)
+    targets = start_child("targets_child", device)
+    vae_sun = start_child("vae_sun_phase", device)
     try:
         cli = cli_phase(device)
         ens = ensembles_phase(device)
         flow = flow_phase(device)
         par = parallel_phase(device)
         h2h = h2h_phase(device, targets)
+        vs = join_child(vae_sun)
     finally:
-        if targets[0].poll() is None:
-            targets[0].kill()
-            targets[0].wait()
+        stop_child(targets)
+        stop_child(vae_sun)
     errs["hmc_chain"] = max(errs["hmc_chain"], flow["hmc_chain_err"],
                             par["max_abs_err"]["smc"])
 
@@ -3248,6 +3529,27 @@ def main():
         f"{tvh['q_ess_per_s_ratio']}, fused "
         f"{tvh['fused_tier']['q_ess_per_s_ratio']}; phase 14 seconds "
         f"{secs}; targets {json.dumps(targets)}; on {smi}")
+    vae, sun = vs["vae"], vs["sun"]
+    log(f"[result] vae and sun (phase 15, {vs['seconds']:.1f} s; no kernel "
+        f"on this path): train_vae @configs/vae_digits.txt "
+        f"{vae['seconds']:.1f} s, {vae['steps']} train steps at "
+        f"{np.median(vae['ms_per_train_step']):.2f} ms median per step, ELBO "
+        f"{vae['elbo'][0]:.3f} -> {vae['elbo'][1]:.3f}, summary "
+        f"{json.dumps(vae['summary'])} (band {vae['ais_band']}), AIS oracle "
+        f"{vae['oracle']['ais']:.4f} vs exact {vae['oracle']['exact']:.4f}; "
+        + "; ".join(
+            f"{k} plaq {v['plaq_jk'][0]:.5f} +- {v['plaq_jk'][1]:.5f} (exact "
+            f"{v['eval']['plaq_exact']:.5f}) acc "
+            f"{v['eval']['accept_prob']:.4f}, "
+            f"{v['ms_per_eval_transition']:.3f} ms/eval transition"
+            + (f", {v['ms_per_train_step']:.3f} ms/train step"
+               if v["ms_per_train_step"] else "")
+            for k, v in sun.items() if k in SUN_RUNS)
+        + f"; 4-D SU(2) beta 0.5 plaq {sun['su2_4d_b05']['eval']['plaq']:.5f}"
+        f" (strong coupling "
+        f"{sun['su2_4d_b05']['eval']['plaq_strong_coupling_lo']:.5f}) acc "
+        f"{sun['su2_4d_b05']['eval']['accept_prob']:.4f}; sun_nd_bench "
+        f"{json.dumps(sun['sun_nd_bench']['result'])}; on {smi}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

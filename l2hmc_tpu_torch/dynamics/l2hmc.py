@@ -102,14 +102,22 @@ def make_dynamics(cfg: DynamicsConfig, potential_fn: PotentialFn):
     The conditioners are the ``params.xnet``/``params.vnet`` modules
     (``forward(v, x, t) -> (S, T, Q)``).  Returns a dict of functions:
 
-    ``transition(params, x, beta, generator) -> Transition``
-    ``transition_with(params, x, beta, v, direction, u) -> Transition``
+    ``transition(params, x, beta, generator, aux=None) -> Transition``
+    ``transition_with(params, x, beta, v, direction, u, aux=None)``
         (injected randomness: momenta ``v (B, x_dim)``, ``direction (B,)``
         in {+1,-1}, accept uniforms ``u (B,)``; with ``both_directions``
         ``direction > 0`` is the per-chain coin that keeps the forward
         trajectory)
-    ``integrate(params, x, v, beta, direction) -> (x', v', sumlogdet)``
+    ``chain_operator(params, x, beta, generator, max_compositions,
+    aux=None)`` and ``chain_operator_with(params, x, beta,
+    max_compositions, n_comp, v, direction, u, aux=None)``: ``n_comp (B,)``
+    integrations, one accept
+    ``integrate(params, x, v, beta, direction, aux=None) -> (x', v',
+    sumlogdet)``
     ``hamiltonian``, ``potential_energy``, ``kinetic_energy``, ``accept_prob``.
+
+    ``aux (B, aux_dim)`` conditions both nets (the VAE's data batch); the
+    nets must have been built with ``aux_dim``.
 
     ``cfg.remat`` wraps each leapfrog step in ``torch.utils.checkpoint``
     (non-reentrant) while autograd records, as the reference wraps it in
@@ -122,14 +130,14 @@ def make_dynamics(cfg: DynamicsConfig, potential_fn: PotentialFn):
         raise ValueError(f"group={cfg.group!r}")
 
     if cfg.hmc:
-        def zero_net(net, v, x, t):
+        def zero_net(net, v, x, t, aux):
             z = torch.zeros((v.shape[0], cfg.x_dim), dtype=v.dtype,
                             device=v.device)
             return z, z, z
         apply_net = zero_net
     else:
-        def apply_net(net, v, x, t):
-            return net(v, x, t)
+        def apply_net(net, v, x, t, aux):
+            return net(v, x, t) if aux is None else net(v, x, t, aux)
 
     def potential_energy(x, beta):
         return beta * potential_fn(x)
@@ -164,20 +172,22 @@ def make_dynamics(cfg: DynamicsConfig, potential_fn: PotentialFn):
             feats = torch.cat([mask, mask], dim=-1) * feats
         return feats
 
-    def update_v(params, x, v, g, tau, d_col, d_row, eps, factor=0.5):
+    def update_v(params, x, v, g, tau, d_col, d_row, eps, aux,
+                 factor=0.5):
         """Direction-fused momentum kick (``factor`` x eps)."""
-        s, t, q = apply_net(params.vnet, pos_features(x), g, tau)
+        s, t, q = apply_net(params.vnet, pos_features(x), g, tau, aux)
         h_s = factor * eps * s
         a = factor * eps * (torch.exp(eps * q) * g - t)
         e = torch.exp(d_col * h_s)
         v_new = torch.where(d_col > 0, v * e - a, (v + a) * e)
         return v_new, d_row * torch.sum(h_s, dim=-1)
 
-    def update_x(params, x, v, tau, hold_mask, d_col, d_row, eps):
+    def update_x(params, x, v, tau, hold_mask, d_col, d_row, eps, aux):
         """Direction-fused position step; ``hold_mask`` part stays fixed.
         'r1': ``x exp(eps s) + b`` forward, ``(x - b) exp(-eps s)``
         backward; 'u1': circle scaling and translation with wrap."""
-        s, t, q = apply_net(params.xnet, v, pos_features(x, hold_mask), tau)
+        s, t, q = apply_net(params.xnet, v, pos_features(x, hold_mask), tau,
+                            aux)
         es = eps * s
         b = eps * (torch.exp(eps * q) * v + t)
         if not periodic:
@@ -201,18 +211,18 @@ def make_dynamics(cfg: DynamicsConfig, potential_fn: PotentialFn):
         hold1 = torch.where(d_col > 0, mask, 1.0 - mask)
         return d_col, tau, hold1, 1.0 - hold1
 
-    def leapfrog_step(params, x, v, g, beta, step, d_row, eps):
+    def leapfrog_step(params, x, v, g, beta, step, d_row, eps, aux):
         """One split step: half-kick, the two X sub-updates, the force at
         the new position (returned for the next step), half-kick."""
         d_col, tau, hold1, hold2 = _step_context(params, step, d_row)
-        v, ld0 = update_v(params, x, v, g, tau, d_col, d_row, eps)
-        x, ld1 = update_x(params, x, v, tau, hold1, d_col, d_row, eps)
-        x, ld2 = update_x(params, x, v, tau, hold2, d_col, d_row, eps)
+        v, ld0 = update_v(params, x, v, g, tau, d_col, d_row, eps, aux)
+        x, ld1 = update_x(params, x, v, tau, hold1, d_col, d_row, eps, aux)
+        x, ld2 = update_x(params, x, v, tau, hold2, d_col, d_row, eps, aux)
         g = grad_potential(x, beta)
-        v, ld3 = update_v(params, x, v, g, tau, d_col, d_row, eps)
+        v, ld3 = update_v(params, x, v, g, tau, d_col, d_row, eps, aux)
         return x, v, g, ld0 + ld1 + ld2 + ld3
 
-    def leapfrog_step_merged(params, x, v, g, beta, step, d_row, eps):
+    def leapfrog_step_merged(params, x, v, g, beta, step, d_row, eps, aux):
         """One ``merge_v_halves`` step: the boundary kick (a half-kick at
         time 0, else a full kick at ``step - 1/2``), then the two X
         sub-updates and the force at the new position."""
@@ -221,10 +231,10 @@ def make_dynamics(cfg: DynamicsConfig, potential_fn: PotentialFn):
         t_fwd = 0.0 if step == 0 else step - 0.5
         t_bwd = K - 1.0 if step == 0 else K - 0.5 - step
         tau_v = time_encoding(torch.where(d_row > 0, t_fwd, t_bwd), K)
-        v, ld0 = update_v(params, x, v, g, tau_v, d_col, d_row, eps,
+        v, ld0 = update_v(params, x, v, g, tau_v, d_col, d_row, eps, aux,
                           factor=factor)
-        x, ld1 = update_x(params, x, v, tau_x, hold1, d_col, d_row, eps)
-        x, ld2 = update_x(params, x, v, tau_x, hold2, d_col, d_row, eps)
+        x, ld1 = update_x(params, x, v, tau_x, hold1, d_col, d_row, eps, aux)
+        x, ld2 = update_x(params, x, v, tau_x, hold2, d_col, d_row, eps, aux)
         return x, v, grad_potential(x, beta), ld0 + ld1 + ld2
 
     def run_step(body, *args):
@@ -233,7 +243,7 @@ def make_dynamics(cfg: DynamicsConfig, potential_fn: PotentialFn):
                               preserve_rng_state=False)
         return body(*args)
 
-    def integrate(params, x, v, beta, direction):
+    def integrate(params, x, v, beta, direction, aux=None):
         """``num_steps`` leapfrog steps; ``direction (B,)`` in {+1,-1}."""
         eps = get_eps(params, cfg)
         body = leapfrog_step_merged if cfg.merge_v_halves else leapfrog_step
@@ -241,14 +251,14 @@ def make_dynamics(cfg: DynamicsConfig, potential_fn: PotentialFn):
         sumlogdet = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
         for step in range(K):
             x, v, g, ld = run_step(body, params, x, v, g, beta, step,
-                                   direction, eps)
+                                   direction, eps, aux)
             sumlogdet = sumlogdet + ld
         if cfg.merge_v_halves:
             # closing half-kick: trajectory time K-1 forward, 0 backward
             tau_v = time_encoding(torch.where(direction > 0, K - 1.0, 0.0),
                                   K)
             v, ld = update_v(params, x, v, g, tau_v, direction[:, None],
-                             direction, eps, factor=0.5)
+                             direction, eps, aux, factor=0.5)
             sumlogdet = sumlogdet + ld
         return x, v, sumlogdet
 
@@ -272,18 +282,18 @@ def make_dynamics(cfg: DynamicsConfig, potential_fn: PotentialFn):
             sumlogdet=sumlogdet, accept_mask=accept,
             forward_frac=torch.mean(fwd.to(torch.float32)))
 
-    def transition_fused(params, x, beta, v, direction, u):
-        xp, vp, sumlogdet = integrate(params, x, v, beta, direction)
+    def transition_fused(params, x, beta, v, direction, u, aux=None):
+        xp, vp, sumlogdet = integrate(params, x, v, beta, direction, aux)
         prob = accept_prob_fn(x, v, xp, vp, sumlogdet, beta)
         xp, vp = _sanitize(x, v, xp, vp)
         return _accept(x, xp, vp, prob, sumlogdet, u, direction > 0)
 
-    def transition_both(params, x, beta, v, direction, u):
+    def transition_both(params, x, beta, v, direction, u, aux=None):
         """The reference dataflow: integrate forward AND backward from the
         same momenta, keep one per chain (``direction > 0``: forward)."""
         ones = torch.ones(x.shape[0], dtype=x.dtype, device=x.device)
-        xf, vf, ldf = integrate(params, x, v, beta, ones)
-        xb, vb, ldb = integrate(params, x, v, beta, -ones)
+        xf, vf, ldf = integrate(params, x, v, beta, ones, aux)
+        xb, vb, ldb = integrate(params, x, v, beta, -ones, aux)
         pf = accept_prob_fn(x, v, xf, vf, ldf, beta)
         pb = accept_prob_fn(x, v, xb, vb, ldb, beta)
         xf, vf = _sanitize(x, v, xf, vf)
@@ -299,22 +309,52 @@ def make_dynamics(cfg: DynamicsConfig, potential_fn: PotentialFn):
     transition_with = (transition_both if cfg.both_directions
                        else transition_fused)
 
-    def transition(params, x, beta, generator):
+    def draw(generator, x):
+        """``(v, direction, u)`` of one transition."""
         v = torch.randn(x.shape, generator=generator, dtype=x.dtype,
                         device=x.device)
         direction = torch.where(
             torch.rand((x.shape[0],), generator=generator,
                        device=x.device) > 0.5, 1.0, -1.0).to(x.dtype)
         u = torch.rand((x.shape[0],), generator=generator, device=x.device)
-        return transition_with(params, x, beta, v, direction, u)
+        return v, direction, u
 
-    def chain_operator(*args, **kwargs):
-        raise NotImplementedError(
-            "chain_operator is not ported yet (ROADMAP queue A item 14, "
-            "the VAE slice)")
+    def transition(params, x, beta, generator, aux=None):
+        return transition_with(params, x, beta, *draw(generator, x), aux=aux)
+
+    def chain_operator_with(params, x, beta, max_compositions: int, n_comp,
+                            v, direction, u, aux=None):
+        """``n_comp (B,)`` in ``[1, max_compositions]`` full integrations
+        per chain, then one MH accept.  Every chain runs
+        ``max_compositions`` integrations; a chain's state is frozen once
+        its count is spent, and the log-Jacobian sums over its active
+        compositions only."""
+        xc, vc = x, v
+        sumlogdet = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
+        for i in range(max_compositions):
+            active = n_comp > i
+            xn, vn, ldn = integrate(params, xc, vc, beta, direction, aux)
+            xc = torch.where(active[:, None], xn, xc)
+            vc = torch.where(active[:, None], vn, vc)
+            sumlogdet = sumlogdet + torch.where(active, ldn,
+                                                torch.zeros_like(ldn))
+        prob = accept_prob_fn(x, v, xc, vc, sumlogdet, beta)
+        xp, vp = _sanitize(x, v, xc, vc)
+        return _accept(x, xp, vp, prob, sumlogdet, u, direction > 0)
+
+    def chain_operator(params, x, beta, generator, max_compositions: int,
+                       aux=None):
+        """Compose a random number ``n_comp ~ U{1..max_compositions}`` per
+        chain of full leapfrog integrations before ONE MH accept (the
+        reference's ``random_lf_composition``)."""
+        n_comp = torch.randint(1, max_compositions + 1, (x.shape[0],),
+                               generator=generator, device=x.device)
+        return chain_operator_with(params, x, beta, max_compositions, n_comp,
+                                   *draw(generator, x), aux=aux)
 
     return {
         "chain_operator": chain_operator,
+        "chain_operator_with": chain_operator_with,
         "transition": transition,
         "transition_with": transition_with,
         "integrate": integrate,

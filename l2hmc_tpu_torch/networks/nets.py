@@ -7,7 +7,8 @@ Port of ``l2hmc_tpu/networks/nets.py``:
   head matmul split into ``scale = tanh(.) * exp(coeff_scale)``,
   ``translation``, ``transformation = [tanh](.) * exp(coeff_transformation)``.
   Parameters keep the reference's names and ``(in, out)`` layouts, so a JAX
-  pytree loads with a copy: ``in_w`` rows ``[v | x-features | t]``,
+  pytree loads with a copy: ``in_w`` rows ``[v | x-features | t | aux]``
+  (``aux`` with ``aux_dim > 0``: the VAE's conditioning on its data),
   ``head_w`` columns ``[S | T | Q]``, ``h_layer.w``/``h_layer.b``.
   ``use_bf16`` rounds each matmul's two operands to bfloat16 and takes the
   product in float32 (the reference's bf16 operands with float32
@@ -99,16 +100,15 @@ class MLPNetSpec:
 
 
 class MLPNet(nn.Module):
-    """The fused GenericNet-parity MLP: ``forward(v, x, t) -> (S, T, Q)``."""
+    """The fused GenericNet-parity MLP: ``forward(v, x, t, aux=None) ->
+    (S, T, Q)``.  With ``spec.aux_dim > 0`` the conditioning input ``aux
+    (B, aux_dim)`` (the VAE's data batch) is required; its rows are the
+    trailing ``aux_dim`` rows of ``in_w``."""
 
     def __init__(self, spec: MLPNetSpec, generator=None, device=None):
         super().__init__()
-        if spec.aux_dim:
-            raise NotImplementedError(
-                "MLPNetSpec.aux_dim: aux conditioning comes with the VAE "
-                "slice (ROADMAP queue A item 14)")
         self.spec = spec
-        d, h = spec.x_dim, spec.num_hidden
+        d, h, da = spec.x_dim, spec.num_hidden, spec.aux_dim
         dv = spec.v_in_dim or d
         dx = spec.x_in_dim or d
         g = generator
@@ -116,7 +116,8 @@ class MLPNet(nn.Module):
             _variance_scaling(g, (dv, h), 1.0 / 3.0, device),
             _variance_scaling(g, (dx, h), spec.factor / 3.0, device),
             _variance_scaling(g, (2, h), 1.0 / 3.0, device),
-        ], dim=0))
+        ] + ([_variance_scaling(g, (da, h), 1.0 / 3.0, device)] if da > 0
+             else []), dim=0))
         self.in_b = nn.Parameter(torch.zeros(h, device=device))
         self.h_layer = Dense(h, h, 1.0, g, device)
         self.head_w = nn.Parameter(torch.cat([
@@ -135,9 +136,16 @@ class MLPNet(nn.Module):
     def to_reference_leaf(name: str, array: np.ndarray) -> np.ndarray:
         return array
 
-    def forward(self, v, x, t):
+    def forward(self, v, x, t, aux=None):
         bf16 = self.spec.use_bf16
-        inp = torch.cat([v, x, t], dim=-1)
+        parts = [v, x, t]
+        if self.spec.aux_dim > 0:
+            if aux is None:
+                raise ValueError(
+                    f"this net has aux_dim={self.spec.aux_dim}: pass the "
+                    "conditioning input aux (B, aux_dim)")
+            parts.append(aux)
+        inp = torch.cat(parts, dim=-1)
         hh = torch.relu(matmul(inp, self.in_w, bf16) + self.in_b)
         hh = torch.relu(self.h_layer(hh, bf16))
         heads = matmul(hh, self.head_w, bf16) + self.head_b

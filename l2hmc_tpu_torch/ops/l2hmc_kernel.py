@@ -107,7 +107,8 @@ def pack_weights(params, x_dim: int,
     order, detached (the chain is sampling-only): float32, except the
     :data:`MATMUL_WEIGHTS` under ``precision='bf16'``, which are bfloat16.
     The bf16 chain is still an exact MH sampler: the forward map and its
-    log-Jacobian use the same rounded S, T and Q.
+    log-Jacobian use the same rounded S, T and Q.  A net with an aux input
+    (``aux_dim > 0``, the VAE's) raises: the chain has no slot for it.
     """
     if precision not in PRECISIONS:
         raise ValueError(f"precision must be one of {PRECISIONS}: "
@@ -115,6 +116,10 @@ def pack_weights(params, x_dim: int,
     d2 = x_dim
     vals = {}
     for p, net in (("x", params.xnet), ("v", params.vnet)):
+        if getattr(getattr(net, "spec", None), "aux_dim", 0):
+            raise ValueError(
+                f"the {p}net takes an aux input (aux_dim="
+                f"{net.spec.aux_dim}): the fused chain has no aux slot")
         in_w = net.in_w.detach()
         a0, a1 = _deinterleave_rows(in_w[:d2], d2)
         b0, b1 = _deinterleave_rows(in_w[d2:2 * d2], d2)

@@ -242,15 +242,32 @@ def test_torch_dynamics_helpers():
     {"chain_operator": 2}, {"aux_dim": 8}, {"profile": True}])
 def test_torch_unported_settings_raise(kw):
     """What the port still leaves out raises and names its ROADMAP item:
-    the VAE's chain operator and aux conditioning (A14), and the CLI's
-    --profile (A16; --autotune is ported, tests/test_torch_cli.py)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if "chain_operator" in kw:
-            _, dyn = tgauge.build_dynamics(_gauge_cfg())
-            dyn["chain_operator"](None, None, 1.0, None, kw["chain_operator"])
-        elif "aux_dim" in kw:
-            make_mlp_net(MLPNetSpec(32, 16, aux_dim=kw["aux_dim"]))
-        else:
+    the CLI's --profile (A16; --autotune is ported,
+    tests/test_torch_cli.py).  The VAE's chain operator and aux
+    conditioning (A14) are ported since: the chain operator runs on the
+    gauge dynamics, and an aux net refuses a call without its aux input
+    (their parity with JAX: tests/test_torch_vae.py)."""
+    if "chain_operator" in kw:
+        _, dyn = tgauge.build_dynamics(_gauge_cfg())
+        params = tgauge.init_params(_gauge_cfg(),
+                                    torch.Generator().manual_seed(0),
+                                    device="cpu")
+        g = torch.Generator().manual_seed(1)
+        x = tu1.random_links(g, 3, tu1.LatticeShape(LT, LX), device="cpu")
+        with torch.no_grad():
+            out = dyn["chain_operator"](params, x, 2.0, g,
+                                        kw["chain_operator"])
+        assert out.x_out.shape == x.shape
+        assert bool(((out.accept_prob >= 0) & (out.accept_prob <= 1)).all())
+    elif "aux_dim" in kw:
+        net = make_mlp_net(MLPNetSpec(32, 16, aux_dim=kw["aux_dim"]))
+        z = torch.zeros(2, 32)
+        with pytest.raises(ValueError, match="aux_dim=8"):
+            net(z, z, torch.zeros(2, 2))
+        assert net(z, z, torch.zeros(2, 2), torch.zeros(2, 8))[0].shape == (
+            2, 32)
+    else:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
             from l2hmc_tpu_torch.cli.train_gauge import main
             main(["--profile", "--device", "cpu"])
 

@@ -68,10 +68,10 @@ Phases (any failure raises and the script exits non-zero):
 10. Main path "cli": the README's commands through
    ``l2hmc_tpu_torch.cli.train_gauge.main`` in a temporary log dir, cut in
    length (``CLI_RUNS``): the canonical 8x8 command (200 train steps with
-   checkpoints, then ``--restore`` to 300 and 4000 eval transitions per
+   checkpoints, then ``--restore`` to 300 and 3000 eval transitions per
    beta), the tuned-HMC baseline (16x16, K=4, eps 0.079, beta 5,
    Metropolis warm start, 500 transitions) and the topological quick start
-   (16x16 MLP h64, 100 train steps, 500 eval transitions with a hop each
+   (16x16 MLP h64, 100 train steps, 300 eval transitions with a hop each
    after 500 Metropolis sweeps).  Gates on the eval files the CLI wrote:
    plaquette within 1e-3 of I1/I0 at beta_final and beta_final - 1 (its
    jackknife error printed beside it), acceptance above 0.05, the
@@ -86,14 +86,14 @@ Phases (any failure raises and the script exits non-zero):
    ``hmc_chain`` launch per rung plus the thermalization); replica
    exchange (``benchmarks/pt_vs_hop.py``'s ladder: 5 rungs beta 5 -> 2,
    eps 0.079 sqrt(5/beta), K=4, 512 chains per rung, 1500 Metropolis
-   sweeps each, 1000 rounds; gates: each rung's plaquette within 1e-3,
+   sweeps each (one batched run), 1000 rounds; gates: each rung's plaquette within 1e-3,
    every active pair's swap rate inside (0, 1), no off-parity swap); AIS
    (8x8, uniform links -> beta=2 on the Wilson kernels by autograd; gate:
    log Z against the exact value); multinomial HMC (16x16 beta=4, 256
    chains, dual-averaging warmup; gate: plaquette within 1e-3); the
    autotuner (``tune_hmc`` over its default grid at 16x16 beta=4, probes
    on ``hmc_chain``: gate the DA eps at K=5 near 0.0822/0.85; then
-   ``tune_l2hmc`` at the quick-start config, K = 4, 250 probe-train
+   ``tune_l2hmc`` at the quick-start config, K = 4, 100 probe-train
    steps, probes on ``l2hmc_chain``: gate eps = lambda*/K and finite
    positive scores).
 
@@ -123,10 +123,10 @@ Phases (any failure raises and the script exits non-zero):
    checks are the CPU tests).
 14. Main path "h2h and targets", each script's launches counted from 0:
    ``l2hmc_tpu_torch.benchmarks.trained_vs_hmc.main`` on the shipped
-   champion at 2048 chains, 600 transitions, both tiers (``TVH_ARGV``: the
+   champion at 2048 chains, 300 transitions, both tiers (``TVH_ARGV``: the
    eager harness on the Wilson kernels, the fused tier on ``l2hmc_chain``
    and ``hmc_chain``); ``hmc_ess_sweep.main`` on (K=5, eps 0.08) and (5,
-   0.10) at 2048 chains; ``h2h_seeds.main`` with 2 seeds of 100 train
+   0.10) at 2048 chains; ``h2h_seeds.main`` with 1 seed of 50 train
    steps and 500 interleaved transitions at 512 chains; and
    ``l2hmc_tpu_torch.cli.train_sampler.main`` on ``configs/scg_2d.txt``
    and ``configs/mog_2d.txt``, cut in length (``SAMPLER_ARGV``), which
@@ -167,6 +167,35 @@ Phases (any failure raises and the script exits non-zero):
    Weyl-measure value (0.43313, 0.27930); 4-D within 0.012 of strong
    coupling with acceptance above 0.6; the JSON keys of the JAX scripts.
 
+16. Main path "topological and volume drivers", each driver's launches
+   counted from 0: ``l2hmc_tpu_torch.benchmarks.<name>.main`` at the
+   widths of its defaults, cut in length (the ``*_ARGV`` constants).  In
+   the main process the fused ones: ``fused_hop --champion`` (16x16, 2048
+   chains, beta 4: ``hmc_chain`` and the champion's ``l2hmc_chain``, plain
+   and with the fused hop), ``local64_h2h --seeds 1`` without the eager
+   tier (a 2-step local_flat c4L1 training on the Wilson kernels, then
+   ``l2hmc_local_chain`` against ``hmc_chain`` at 64x64, 512 chains) and
+   ``scaling`` on a one-rank NCCL group.  In a child process from the end
+   of phase 9 on, beside phases 10-15 (``drivers_child``), the host-bound
+   ones on the eager harness: ``topo_ensemble`` (HMC, HMC+hop and
+   champion+hop at 2048 chains), ``charge_mixing`` (50 of 5000 conv
+   train steps), ``pt_vs_hop`` (the 5-rung ladder at beta 5),
+   ``freeze_line`` at 16:5.0 (``tune_hmc`` then topo_ensemble),
+   ``beta_campaign`` at 16x16, beta 3 (both tuners, HMC's K grid cut to
+   (4, 5) and the probe trainings to 50 steps, then ``h2h_seeds``), ``local_cost_sweep`` (nine
+   samplers at 64x64, 1024 chains) and ``volume_sweep`` (L = 8-64).
+   Gates: every plaquette within 1e-3 of I1/I0 at its beta, or within 5 of
+   the run's own standard errors (from the trace's ESS) where that is
+   larger; the hop samplers' <Q^2> within 10% of exact; fused_hop's hop
+   tunneling per step at least 10x the plain chain's, for HMC and the
+   champion; every acceptance above 0.05, but local64's barely trained
+   sampler, held to its plain version's on the same warm-start links
+   within 5 standard errors, and charge_mixing's 50-step conv sampler,
+   which accepts ~0 (not gated); launches as derived from the code; the
+   JSON keys of the JAX scripts (listed from their sources); PT's swap
+   rates in (0, 1); the sweeps' rates and volume_sweep's fit finite and
+   positive; scaling's two topology checks on the group.
+
 Each main path checks plaquettes against I1(4)/I0(4), the hop sampler's
 <Q^2> against the exact finite-volume value, and that its kernels were
 launched (counts set to 0 just before the path and read just after); it
@@ -183,13 +212,16 @@ kernel's least possible time ``bound_ms`` from this run's shapes: for
 ``l2hmc_chain`` the conditioner's products at the tensor-core rate, 3 TF32
 passes for float32, beside the rest at 67 TFLOP/s; ``library_ms`` of
 ``l2hmc_chain`` is its ten conditioner products per transition as float32
-``torch.matmul``, a yardstick the port never calls) and the
+``torch.matmul``, of ``l2hmc_local_chain`` its 13 conditioner calls per
+transition as float32 ``conv2d`` (a 3x3 convolution per stencil layer and
+the 1x1 head), yardsticks the port never calls) and the
 ``{"ok": true, "device": ...}`` line.  The script needs a CUDA device; it
 never falls back to the CPU.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -902,6 +934,50 @@ def conditioner_matmul_ms(params, K, device, reps=5):
     return times[reps // 2]
 
 
+def conditioner_conv_ms(params, K, device, reps=5):
+    """Yardstick for ``l2hmc_local_chain`` (library_ms; never called by the
+    port): ms of one transition's conditioner calls (K+1 VNet and 2K XNet)
+    as float32 ``torch.nn.functional.conv2d`` (TF32 off) at L64_CHAINS
+    chains of L64_SIDE x L64_SIDE: per call each stencil layer as a 3x3
+    convolution (the 5-point cross's support) with ReLU and the 1x1 head,
+    the channels of each net's own weights.  Captured in a CUDA graph, its
+    replay timed (median of ``reps``, CUDA events), as
+    :func:`conditioner_matmul_ms`."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=device).manual_seed(12)
+    layers = {}
+    for name in ("v", "x"):
+        net = getattr(params, name + "net")
+        ws = [torch.randn((s.w.shape[2], s.w.shape[1], 3, 3), generator=gen,
+                          device=device) for s in net.stencils()]
+        head = torch.randn((6, net.head.w.shape[0], 1, 1), generator=gen,
+                           device=device)
+        inp = torch.randn((L64_CHAINS, ws[0].shape[1], L64_SIDE, L64_SIDE),
+                          generator=gen, device=device)
+        layers[name] = (inp, ws, head)
+    nets = ["v" if i % 3 == 0 else "x" for i in range(3 * K + 1)]
+
+    def run():
+        for n in nets:
+            y, ws, head = layers[n]
+            for w in ws:
+                y = torch.relu(F.conv2d(y, w, padding=1))
+            F.conv2d(y, head)
+
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        run()
+    graph.replay()
+    times = sorted(timed(graph.replay)[1] for _ in range(reps))
+    return times[reps // 2]
+
+
 def weight_stream_bytes(b, lt, lx, h, K, precision="f32"):
     """Bytes ``csrc/l2hmc_chain.cu`` streams from L2 per transition: every
     block reads its net's packed chunks once per MLP call."""
@@ -1466,14 +1542,15 @@ README_HMC_BASELINE = ["--time_size", "16", "--space_size", "16",
                        "--beta_final", "5.0", "--train_steps", "0",
                        "--eval_init", "metropolis"]
 # Each command cut in length.  The canonical one trains 200 steps with
-# checkpoints and no eval, then resumes to 300 and evaluates 4000
+# checkpoints and no eval, then resumes to 300 and evaluates 3000
 # transitions per beta, so that the plaquette's jackknife error comes near
 # 2e-4 (the 1e-3 gate at ~5 sigma): at 128 chains of 8x8 it was 4.2-6.2e-4
 # after 500 transitions, 1.9e-4 (beta=4) / 2.3e-4 (beta=3) after 4000 and
 # 2.2e-4 / 1.6e-4 after 8000 (NVIDIA H100 80GB HBM3, 700.00 W): 300 train
 # steps leave a slowly mixing sampler (acceptance ~0.35 at beta=4), whose
 # error no affordable length takes reliably below 2e-4, so 8000 bought
-# nothing over 4000 but ~170 s of the script's time limit.  The HMC line is the
+# nothing over 4000 but ~170 s of the script's time limit (and 4000 nothing
+# measurable over 3000, which phase 16's time took).  The HMC line is the
 # README's tuned baseline (K=4, eps 0.079 fixed, beta 5, Metropolis warm
 # start): its plain-HMC line (README_HMC, eps 0.2921 trainable) accepts
 # ~0.01 at beta=4 on 16x16 and ESJD training raises eps further.  The
@@ -1484,11 +1561,11 @@ CLI_RUNS = {
                                      "100", "--run_steps", "0"],
     "canonical-restore": README_CANONICAL + [
         "--restore", "--train_steps", "300", "--save_steps", "100",
-        "--run_steps", "4000"],
+        "--run_steps", "3000"],
     "hmc": README_HMC_BASELINE + ["--run_steps", "500",
                                   "--eval_therm_sweeps", "500"],
     "topo": README_TOPO + ["--train_steps", "100", "--eval_hops", "1",
-                           "--run_steps", "500", "--eval_init", "metropolis",
+                           "--run_steps", "300", "--eval_init", "metropolis",
                            "--eval_therm_sweeps", "500"],
 }
 
@@ -2079,6 +2156,22 @@ TUNE_DA_EPS_K5 = 0.0822 / 0.85
 TUNE_DA_TOL = 0.004
 TUNE_L2_K = (4,)
 TUNE_L2_TRAIN_STEPS = 250
+TUNE_L2_TRAIN_CHUNK = 100      # the probe training's steps (250 in JAX)
+
+
+@contextlib.contextmanager
+def train_chunks_of(n):
+    """``train.gauge.make_train_chunk`` building chunks of ``n`` steps
+    whatever its caller asks: cuts the tuner's probe trainings (chunks of
+    250) in length."""
+    from l2hmc_tpu_torch.train import gauge
+
+    make = gauge.make_train_chunk
+    gauge.make_train_chunk = lambda cfg, _, *a, **k: make(cfg, n, *a, **k)
+    try:
+        yield
+    finally:
+        gauge.make_train_chunk = make
 
 
 def phase_launches(path, kernels, needed):
@@ -2148,12 +2241,16 @@ def pt_check(device, kernels):
     shape = u1.LatticeShape(SIDE, SIDE)
     cfg = PTConfig(betas=PT_BETAS, eps=PT_EPS, num_steps=PT_K)
     gen = torch.Generator(device=device).manual_seed(1102)
-    x, ms_th = timed(lambda: torch.stack([thermalize(
-        gen, u1.random_links(gen, PT_CHAINS, shape, device=device), shape, b,
-        PT_THERM_SWEEPS) for b in PT_BETAS]))
+    # every rung warm-started by one batched Metropolis run, each chain at
+    # its rung's beta
+    r = len(PT_BETAS)
+    betas = torch.tensor(PT_BETAS, device=device).repeat_interleave(
+        PT_CHAINS)[:, None, None]
+    x, ms_th = timed(lambda: thermalize(
+        gen, u1.random_links(gen, r * PT_CHAINS, shape, device=device), shape,
+        betas, PT_THERM_SWEEPS).reshape(r, PT_CHAINS, -1))
     reset_launches()
     pot = make_potential_fn(shape)
-    r = len(PT_BETAS)
     plaqs, q0, acc = [], [], []
     swaps = torch.zeros((2, r - 1), dtype=torch.float64, device=device)
     tries = torch.zeros_like(swaps)
@@ -2293,10 +2390,11 @@ def tune_check(device, kernels):
                            ("hmc_chain", "wilson_force"))
     cfg_l2 = dataclasses.replace(train_cfg(), beta_final=BETA)
     t0 = time.perf_counter()
-    l2_opt = tune_l2hmc(cfg_l2, gen, hmc_opt, k_grid=TUNE_L2_K,
-                        probe_train_steps=TUNE_L2_TRAIN_STEPS,
-                        eps_grid=(1.0,), probe_chains=TUNE_PROBE_CHAINS,
-                        device=device)
+    with train_chunks_of(TUNE_L2_TRAIN_CHUNK):
+        l2_opt = tune_l2hmc(cfg_l2, gen, hmc_opt, k_grid=TUNE_L2_K,
+                            probe_train_steps=TUNE_L2_TRAIN_STEPS,
+                            eps_grid=(1.0,), probe_chains=TUNE_PROBE_CHAINS,
+                            device=device)
     secs_l2 = time.perf_counter() - t0
     l_l2 = phase_launches("tune: l2hmc", kernels,
                           ("l2hmc_chain", "wilson_force"))
@@ -2724,10 +2822,10 @@ TVH_ARGV = ["--arch", "mlp", "--num_hidden", "64", "--num_steps", "3",
             "--merge_v", "--eps_init", "0.125", "--eps_fixed",
             "--charge_reward", "--params_from",
             "benchmarks/champion_16x16.npz", "--eval_chains", "2048",
-            "--tier", "both", "--eval_steps", "600"]
+            "--tier", "both", "--eval_steps", "300"]
 SWEEP_GRID = {5: (0.08, 0.10)}         # HMC's optimum and one neighbour
 SWEEP_ARGV = ["--record", "1000"]
-H2H_ARGV = ["--seeds", "2", "--train_steps", "100", "--eval_steps", "500",
+H2H_ARGV = ["--seeds", "1", "--train_steps", "50", "--eval_steps", "500",
             "--eval_chains", "512"]
 SAMPLER_ARGV = {
     "scg": ["@configs/scg_2d.txt", "--train_steps", "100",
@@ -3358,6 +3456,671 @@ def vae_sun_phase(device):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the topological and volume drivers
+# ---------------------------------------------------------------------------
+
+# Each driver's main at the widths of its defaults (lattice, chains, nets,
+# rungs), cut in length only.  The fused drivers run in the main process:
+FHOP_ARGV = ["--champion", "--calls", "1"]
+L64H_ARGV = ["--seeds", "1", "--train_steps", "2", "--eval_steps", "500",
+             "--no_xla_tier"]
+SCALING_ARGV = ["--repeats", "2", "--chunk", "20"]
+# the host-bound ones in a child process (drivers_child), beside phases
+# 10-15
+TOPO_ARGV = ["--reps", "1", "--eval_steps", "400", "--chunk_size", "200"]
+CM_ARGV = ["--train_steps", "50", "--eval_steps", "100"]
+PTH_ARGV = ["--reps", "1", "--eval_steps", "400", "--chunk_size", "200"]
+FREEZE_ARGV = ["--points", "16:5.0", "--reps", "1", "--eval_steps", "1000"]
+BETA_ARGV = ["--seeds", "1", "--train_steps", "100", "--eval_steps", "200",
+             "--probe_train_steps", "250", "--probe_seeds", "1",
+             "--hmc_k_grid", "4,5", "--l2hmc_k_grid", "3"]
+BETA_TRAIN_CHUNK = 50          # tune_l2hmc's probe trainings (250 in JAX)
+LCS_ARGV = ["--steps", "3"]
+VOL_ARGV = ["--chunk", "5"]
+PLAQ_NSE = 5.0
+L64H_ACCEPT_N = 200            # transitions of the kernel-vs-plain acceptance
+# the JSON keys of the JAX scripts (benchmarks/<name>.py), from their
+# sources: topo_ensemble :242-304, fused_hop :95-169, charge_mixing
+# :67-170, pt_vs_hop :205-270, freeze_line :125-150, beta_campaign
+# :178-195, local64_h2h :209-262, local_cost_sweep :114-135,
+# volume_sweep :78-109, scaling :80-85 and :163-175
+TOPO_KEYS = {"benchmark", "config", "plaq_exact", "q2_exact", "per_rep",
+             "summary"}
+TOPO_CONFIG_KEYS = {"size", "beta", "reps", "eval_steps", "eval_chains",
+                    "hmc", "n_hops", "nu_max"}
+TOPO_REC_KEYS = {"plaq", "charge", "steps_per_s", "tunneling_per_s",
+                 "tunneling_per_step", "accept", "plaq_mean", "q2_mean",
+                 "ratio_plaq_ess_per_s", "ratio_q_ess_per_s",
+                 "ratio_q_ess_per_s_pooled", "ratio_tunneling_per_s"}
+TOPO_CHARGE_KEYS = STATS_KEYS | {"tau_pooled", "tau_pooled_reliable",
+                                 "eff_samples_per_s_pooled"}
+TOPO_SUMMARY_KEYS = {"ratio_plaq_ess_per_s", "ratio_q_ess_per_s",
+                     "ratio_q_ess_per_s_pooled", "ratio_tunneling_per_s",
+                     "q2_mean", "q2_err", "plaq_mean"}
+FHOP_RES_KEYS = {"lf_steps_per_s", "us_per_transition", "tunneling_per_step",
+                 "tunneling_per_s", "q_tau_pooled", "q_tau_reliable",
+                 "q_ess_per_s_pooled", "plaq_mean", "q2_mean"}
+FHOP_KEYS = ({"benchmark", "config", "plaq_exact", "q2_exact",
+              "hop_cost_pct", "tunneling_ratio", "q_ess_ratio_pooled",
+              "champ_hop_tunneling_vs_hmc", "champ_hop_q_ess_vs_hmc_pooled",
+              "champ_hop_cost_pct"}
+             | {f"{k}_{t}" for k in FHOP_RES_KEYS
+                for t in ("plain", "hop", "champ", "champ_hop")})
+FHOP_CONFIG_KEYS = {"size", "beta", "chains", "hmc", "transitions"}
+CM_KEYS = {"benchmark", "config", "q2_exact", "l2hmc", "hmc",
+           "tunneling_speedup_per_step", "Q_ess_per_s_speedup"}
+CM_SAMPLER_KEYS = {"sampler", "tunneling_rate_per_step", "tau_int_Q",
+                   "tau_int_reliable_frac", "Q_ess_ratio", "Q_ess_per_s",
+                   "steps_per_s", "susceptibility", "accept_prob"}
+PTH_CONFIG_KEYS = {"size", "beta", "reps", "ladder", "hmc", "eval_steps"}
+PTH_LADDER_KEYS = {"betas", "eps", "K", "chains_per_rung"}
+PTH_REC_KEYS = {"plaq", "plaq_mean", "q2_mean", "q_tau_pooled",
+                "q_tau_pooled_reliable", "q_ess_per_s_pooled",
+                "tunneling_per_s_per_chain", "tunneling_per_step",
+                "usable_chains", "ratio_q_ess_per_s_pooled",
+                "ratio_plaq_ess_per_s"}
+PTH_SUMMARY_KEYS = {"ratio_q_ess_per_s_pooled", "ratio_plaq_ess_per_s",
+                    "q_tau_pooled", "q2_mean"}
+FREEZE_KEYS = {"benchmark", "protocol", "rows"}
+FREEZE_ROW_KEYS = {"size", "beta", "hmc", "hop_accept",
+                   "ratio_tunneling_per_s", "ratio_q_ess_per_s_pooled",
+                   "ratio_plaq_ess_per_s", "hmc_tunneling_per_step",
+                   "hop_tunneling_per_step", "q2_hop", "q2_hmc", "q2_exact",
+                   "detail"}
+BETA_KEYS = {"benchmark", "size", "beta", "arch", "train_hops",
+             "retrain_acc", "lr_init", "hmc_opt", "trained_cell",
+             "h2h_summary", "h2h_per_seed", "plaq_exact"}
+BETA_CELL_KEYS = {"K", "eps", "accept", "accept_train_end", "score",
+                  "seed_scores"}
+L64H_KEYS = {"benchmark", "config", "plaq_exact", "per_seed", "summary"}
+L64H_CONFIG_KEYS = {"size", "beta", "seeds", "trained", "hmc",
+                    "train_steps", "eval_steps", "eval_chains"}
+L64H_SEED_KEYS = {"seed", "end_accept", "eps", "train_s", "trained_fused",
+                  "hmc_fused", "vs_fused"}
+L64H_SAMPLER_KEYS = {"plaq", "plaq_mean", "accept", "q_tau_pooled",
+                     "q_tau_pooled_reliable", "q_ess_per_s_pooled",
+                     "tunneling_per_s", "us_per_transition"}
+L64H_TIER_KEYS = {"ratio_plaq_ess_per_s", "ratio_ess_per_step",
+                  "ratio_q_ess_per_s_pooled"}
+LCS_KEYS = {"benchmark", "config", "variants", "note"}
+LCS_TAGS = {"hmc_K8", "mlp_h64", "local_c8_L2_k3", "local_c8_L1_k3",
+            "local_c4_L1_k3", "local_c8_L1_k5", "local_c16_L1_k3",
+            "localflat_c8_L2", "localflat_c8_L1"}
+LCS_ROW_KEYS = {"steps_per_s", "us_per_transition", "thr_vs_hmc"}
+VOL_KEYS = {"metric", "exponent_b", "coeff_a_ms", "rows", "platform"}
+VOL_ROW_KEYS = {"l", "x_dim", "ms_per_transition", "accept"}
+SCALING_TOPO_KEYS = {"psum_topology_ok", "devices_checked", "processes"}
+SCALING_RATE_KEYS = {"devices", "chains", "processes", "transitions_per_s"}
+
+
+def flag(argv, name, parser):
+    """The value of ``--name`` that ``parser`` parses from ``argv``."""
+    return getattr(parser.parse_args(argv), name)
+
+
+def plaq_gate(failed, what, plaq, beta, side, ess_ratio=None, samples=0):
+    """``plaq`` within PLAQ_TOL of I1/I0(beta), or within PLAQ_NSE of the
+    run's own standard errors where that error is larger: the
+    one-plaquette variance 1 - p/beta - p^2 (p = I1/I0) over the side^2
+    plaquettes of a config, over ``ess_ratio x samples`` effective
+    samples."""
+    from l2hmc_tpu_torch.lattice.u1 import u1_plaq_exact
+
+    p = u1_plaq_exact(beta)
+    se = 0.0
+    if ess_ratio is not None:
+        var = (1.0 - p / beta - p * p) / (side * side)
+        se = float(np.sqrt(var / max(ess_ratio * samples, 1.0)))
+    tol = max(PLAQ_TOL, PLAQ_NSE * se)
+    if not abs(plaq - p) < tol:
+        failed.append(f"{what} plaquette {plaq} against {p:.6f} (tolerance "
+                      f"{tol:.2e})")
+
+
+def q2_gate(failed, what, q2, q2_exact):
+    if not abs(q2 - q2_exact) <= Q2_RTOL * q2_exact:
+        failed.append(f"{what} <Q^2> {q2} not within {Q2_RTOL:.0%} of "
+                      f"{q2_exact}")
+
+
+def accept_gate(failed, what, acc):
+    if not acc > MIN_ACCEPT:
+        failed.append(f"{what} acceptance {acc}")
+
+
+def launch_gate(failed, what, launches, want):
+    got = {k: launches[k] for k in want}
+    if got != want:
+        failed.append(f"{what} launches {got}, derived {want}")
+    return got
+
+
+def wilson_launches(transitions, steps=()):
+    """Wilson launches of eager transitions ``[(n, K)]`` and train steps
+    ``[(n, K)]`` (``wilson_launches_per_transition``,
+    ``wilson_launches_per_step``)."""
+    out = dict.fromkeys(wilson_launches_per_transition(1), 0)
+    for n, k in transitions:
+        for name, v in wilson_launches_per_transition(k).items():
+            out[name] += n * v
+    for n, k in steps:
+        for name, v in wilson_launches_per_step(k).items():
+            out[name] += n * v
+    return out
+
+
+def chunked(steps, chunk):
+    """Transitions of a warm chunk and ``steps // chunk`` timed ones."""
+    return chunk + (steps // chunk) * chunk
+
+
+def fused_hop_check(device, kernels, failed):
+    """fused_hop --champion: HMC (#2) and the champion (#3), plain and with
+    the fused hop, at 16x16, 2048 chains."""
+    from l2hmc_tpu_torch.benchmarks import fused_hop
+
+    p = fused_hop.build_parser()
+    (res,), secs = run_main(fused_hop.main,
+                            FHOP_ARGV + ["--device", str(device)])
+    launches = phase_launches("drivers fused_hop", kernels,
+                              ("hmc_chain", "l2hmc_chain"))
+    key_gate(failed, "fused_hop", res, FHOP_KEYS)
+    key_gate(failed, "fused_hop config", res["config"], FHOP_CONFIG_KEYS)
+    beta, side = flag(FHOP_ARGV, "beta", p), flag(FHOP_ARGV, "size", p)
+    for tag in ("plain", "hop", "champ", "champ_hop"):
+        plaq_gate(failed, f"fused_hop {tag}", res[f"plaq_mean_{tag}"], beta,
+                  side)
+    for tag in ("hop", "champ_hop"):
+        q2_gate(failed, f"fused_hop {tag}", res[f"q2_mean_{tag}"],
+                res["q2_exact"])
+    for hop, plain in (("hop", "plain"), ("champ_hop", "champ")):
+        a, b = (res[f"tunneling_per_step_{hop}"],
+                res[f"tunneling_per_step_{plain}"])
+        if not a >= Q_HOP_RATIO * b:
+            failed.append(f"fused_hop {hop} tunneling/step {a} under "
+                          f"{Q_HOP_RATIO}x {plain}'s {b}")
+    nt, calls = flag(FHOP_ARGV, "nt", p), flag(FHOP_ARGV, "calls", p)
+    calls_c = fused_hop.champion_calls(nt, calls)[1]
+    # a warm and `calls` timed calls per variant
+    got = launch_gate(failed, "fused_hop", launches, {
+        "hmc_chain": 2 * (1 + calls), "l2hmc_chain": 2 * (1 + calls_c),
+        **wilson_launches([])})
+    log(f"[drivers] fused_hop {secs:.1f} s: {json.dumps(res)}")
+    return {"seconds": secs, "launches": got, "result": res}
+
+
+def local64_h2h_check(device, kernels, failed):
+    """local64_h2h --seeds 1, the fused tiers: a local_flat c4L1 training
+    (eager, the Wilson kernels), then the stencil chain (#4) against HMC
+    (#2) at 64x64, 512 chains.  The cut training leaves the sampler near
+    its init, which accepts ~0.002 (250 steps take it to 0.54, too long
+    for the time limit), so its acceptance is held to its plain version's
+    on the same warm-start links (phase 5's rule), over L64H_ACCEPT_N
+    transitions: enough that the band of 5 standard errors stays well
+    clear of 0."""
+    from l2hmc_tpu_torch.benchmarks import local64_h2h
+    from l2hmc_tpu_torch.lattice import metropolis
+    from l2hmc_tpu_torch.ops.l2hmc_kernel import (
+        draw_l2hmc_randomness, l2hmc_chain_reference, l2hmc_local_chain)
+    from l2hmc_tpu_torch.train import gauge
+
+    p = local64_h2h.build_parser()
+    seen = {}
+    train, therm = gauge.train_to_convergence, metropolis.thermalize
+
+    def recording_train(*a, **k):
+        out = train(*a, **k)
+        seen["params"] = out[0].params
+        return out
+
+    def recording_therm(*a, **k):
+        out = therm(*a, **k)
+        seen["x0"] = out
+        return out
+
+    gauge.train_to_convergence = recording_train
+    metropolis.thermalize = recording_therm
+    try:
+        (res,), secs = run_main(local64_h2h.main,
+                                L64H_ARGV + ["--device", str(device)])
+    finally:
+        gauge.train_to_convergence, metropolis.thermalize = train, therm
+    launches = phase_launches("drivers local64_h2h", kernels,
+                              ("l2hmc_local_chain", "hmc_chain",
+                               "wilson_force"))
+    key_gate(failed, "local64_h2h", res, L64H_KEYS)
+    key_gate(failed, "local64_h2h config", res["config"], L64H_CONFIG_KEYS)
+    key_gate(failed, "local64_h2h summary", res["summary"], {"vs_fused"})
+    key_gate(failed, "local64_h2h summary vs_fused",
+             res["summary"]["vs_fused"], L64H_TIER_KEYS)
+    beta, side = flag(L64H_ARGV, "beta", p), flag(L64H_ARGV, "size", p)
+    chunk, steps = flag(L64H_ARGV, "chunk", p), flag(L64H_ARGV, "eval_steps",
+                                                      p)
+    n_rounds = steps // chunk
+    n_tr = flag(L64H_ARGV, "trace_chains", p)
+    for rec in res["per_seed"]:
+        key_gate(failed, "local64_h2h per_seed", rec, L64H_SEED_KEYS)
+        key_gate(failed, "local64_h2h vs_fused", rec["vs_fused"],
+                 L64H_TIER_KEYS)
+        for s in ("trained_fused", "hmc_fused"):
+            key_gate(failed, f"local64_h2h {s}", rec[s], L64H_SAMPLER_KEYS)
+            key_gate(failed, f"local64_h2h {s} plaq", rec[s]["plaq"],
+                     STATS_KEYS)
+            plaq_gate(failed, f"local64_h2h {s}", rec[s]["plaq_mean"], beta,
+                      side, rec[s]["plaq"]["ess_ratio"],
+                      n_rounds * chunk * n_tr)
+        accept_gate(failed, "local64_h2h hmc_fused",
+                    rec["hmc_fused"]["accept"])
+    seeds = flag(L64H_ARGV, "seeds", p)
+    k = flag(L64H_ARGV, "k", p)
+    train_steps = flag(L64H_ARGV, "train_steps", p)
+    got = launch_gate(failed, "local64_h2h", launches, {
+        "l2hmc_local_chain": seeds * (1 + n_rounds),
+        "hmc_chain": seeds * (1 + n_rounds),
+        **wilson_launches([], [(seeds * train_steps, k)])})
+    # the trained sampler's acceptance, kernel against plain, on the
+    # Metropolis warm-start links (launches not counted: read above)
+    from l2hmc_tpu_torch.lattice import u1
+
+    params, layers = seen["params"], flag(L64H_ARGV, "layers", p)
+    eps = res["per_seed"][-1]["eps"]
+    links = u1.to_links(seen["x0"], u1.LatticeShape(side, side)).contiguous()
+    gen = torch.Generator(device=device).manual_seed(16064)
+    n, b, d = L64H_ACCEPT_N, links.shape[0], side * side
+    with torch.no_grad():
+        out_k = l2hmc_local_chain(links, params, gen, eps, beta, k, n, layers)
+        r = draw_l2hmc_randomness(gen, n, b, d, False, device)
+        out_p = l2hmc_chain_reference(links, params, *r[:4], eps, beta, k,
+                                      local_layers=layers)
+    acc_k, acc_p = accept_stats(out_k[3]), accept_stats(out_p[3])
+    try:
+        accept_vs_plain("drivers local64_h2h", {"trained_fused": {
+            "accept": acc_k[0], "accept_se": acc_k[1]}},
+            {"trained_fused": acc_p}, ("trained_fused",))
+    except AssertionError as e:
+        failed.append(str(e))
+    log(f"[drivers] local64_h2h {secs:.1f} s: {json.dumps(res)}")
+    return {"seconds": secs, "launches": got, "result": res,
+            "accept_kernel_plain": [acc_k, acc_p]}
+
+
+def scaling_check(device, kernels, failed):
+    """scaling on a one-rank NCCL group (file:// rendezvous): the topology
+    checks and the rate line."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from l2hmc_tpu_torch.benchmarks import scaling
+
+    p = scaling.build_parser()
+    with tempfile.TemporaryDirectory() as td:
+        dist.init_process_group(
+            "nccl" if torch.device(device).type == "cuda" else "gloo",
+            init_method=f"file://{td}/rdv", rank=0, world_size=1)
+        try:
+            lines, secs = run_main(scaling.main,
+                                   SCALING_ARGV + ["--device", str(device)])
+        finally:
+            dist.destroy_process_group()
+    launches = phase_launches("drivers scaling", kernels, ("wilson_force",))
+    topo, rate = lines
+    key_gate(failed, "scaling topology", topo, SCALING_TOPO_KEYS)
+    key_gate(failed, "scaling rate", rate, SCALING_RATE_KEYS)
+    if topo != {"psum_topology_ok": True, "devices_checked": 1,
+                "processes": 1}:
+        failed.append(f"scaling topology checks {topo}")
+    if not (np.isfinite(rate["transitions_per_s"])
+            and rate["transitions_per_s"] > 0):
+        failed.append(f"scaling rate {rate}")
+    runs = 1 + flag(SCALING_ARGV, "repeats", p)
+    got = launch_gate(failed, "scaling", launches, wilson_launches(
+        [(runs * flag(SCALING_ARGV, "chunk", p),
+          flag(SCALING_ARGV, "num_steps", p))]))
+    log(f"[drivers] scaling {secs:.1f} s: {json.dumps(lines)}")
+    return {"seconds": secs, "launches": got, "result": lines}
+
+
+def topo_ensemble_check(device, kernels, failed):
+    """topo_ensemble: HMC, HMC+hop and the champion+hop on the eager
+    harness at 16x16, 2048 chains, beta 4."""
+    from l2hmc_tpu_torch.benchmarks import topo_ensemble
+
+    p = topo_ensemble.build_parser()
+    (res,), secs = run_main(topo_ensemble.main,
+                            TOPO_ARGV + ["--device", str(device)])
+    launches = phase_launches("drivers topo_ensemble", kernels,
+                              ("wilson_force", "wilson_action_only"))
+    key_gate(failed, "topo_ensemble", res, TOPO_KEYS)
+    key_gate(failed, "topo_ensemble config", res["config"], TOPO_CONFIG_KEYS)
+    beta, side = flag(TOPO_ARGV, "beta", p), flag(TOPO_ARGV, "size", p)
+    steps, chunk = (flag(TOPO_ARGV, "eval_steps", p),
+                    flag(TOPO_ARGV, "chunk_size", p))
+    n_tr = flag(TOPO_ARGV, "trace_chains", p)
+    tags = ("hmc", "hmc+hop", "champ+hop")
+    key_gate(failed, "topo_ensemble summary", res["summary"], tags)
+    for tag in tags:
+        key_gate(failed, f"topo_ensemble summary {tag}", res["summary"][tag],
+                 TOPO_SUMMARY_KEYS)
+        for rep in res["per_rep"]:
+            r = rep[tag]
+            key_gate(failed, f"topo_ensemble {tag}", r, TOPO_REC_KEYS | (
+                {"hop_accept"} if "hop" in tag else set()))
+            key_gate(failed, f"topo_ensemble {tag} plaq", r["plaq"],
+                     STATS_KEYS)
+            key_gate(failed, f"topo_ensemble {tag} charge", r["charge"],
+                     TOPO_CHARGE_KEYS)
+            plaq_gate(failed, f"topo_ensemble {tag}", r["plaq_mean"], beta,
+                      side, r["plaq"]["ess_ratio"],
+                      (steps // chunk) * chunk * n_tr)
+            accept_gate(failed, f"topo_ensemble {tag}", r["accept"])
+            if "hop" in tag:
+                q2_gate(failed, f"topo_ensemble {tag}", r["q2_mean"],
+                        res["q2_exact"])
+    reps = flag(TOPO_ARGV, "reps", p)
+    n = reps * chunked(steps, chunk)
+    k_h = flag(TOPO_ARGV, "hmc_num_steps", p)
+    got = launch_gate(failed, "topo_ensemble", launches, wilson_launches(
+        [(2 * n, k_h), (n, 3)]))
+    log(f"[drivers] topo_ensemble {secs:.1f} s: {json.dumps(res)}")
+    return {"seconds": secs, "launches": got, "result": res}
+
+
+def charge_mixing_check(device, kernels, failed):
+    """charge_mixing: the conv sampler's annealed training (beta 2 -> 4),
+    then charge statistics of it and of HMC at 16x16, 128 chains."""
+    from l2hmc_tpu_torch.benchmarks import charge_mixing
+
+    p = charge_mixing.build_parser()
+    (res,), secs = run_main(charge_mixing.main,
+                            CM_ARGV + ["--device", str(device)])
+    launches = phase_launches("drivers charge_mixing", kernels,
+                              ("wilson_force", "wilson_double_backward"))
+    key_gate(failed, "charge_mixing", res, CM_KEYS)
+    for s in ("l2hmc", "hmc"):
+        key_gate(failed, f"charge_mixing {s}", res[s], CM_SAMPLER_KEYS)
+        if not 0.0 <= res[s]["accept_prob"] <= 1.0:
+            failed.append(f"charge_mixing {s} acceptance {res[s]}")
+    accept_gate(failed, "charge_mixing hmc", res["hmc"]["accept_prob"])
+    train, steps = (flag(CM_ARGV, "train_steps", p),
+                    flag(CM_ARGV, "eval_steps", p))
+    k = flag(CM_ARGV, "num_steps", p)
+    tc, ec = min(250, train), min(500, steps)
+    n = ec + -(-steps // ec) * ec
+    got = launch_gate(failed, "charge_mixing", launches, wilson_launches(
+        [(2 * n, k)], [((train // tc) * tc, k)]))
+    log(f"[drivers] charge_mixing {secs:.1f} s: {json.dumps(res)}")
+    return {"seconds": secs, "launches": got, "result": res}
+
+
+def pt_vs_hop_check(device, kernels, failed):
+    """pt_vs_hop: HMC, HMC+hop and the 5-rung PT ladder (one flat batch on
+    the Wilson force) at 16x16, beta 5."""
+    from l2hmc_tpu_torch.benchmarks import pt_vs_hop
+
+    p = pt_vs_hop.build_parser()
+    (res,), secs = run_main(pt_vs_hop.main,
+                            PTH_ARGV + ["--device", str(device)])
+    launches = phase_launches("drivers pt_vs_hop", kernels,
+                              ("wilson_force", "wilson_action_only"))
+    key_gate(failed, "pt_vs_hop", res, TOPO_KEYS)
+    key_gate(failed, "pt_vs_hop config", res["config"], PTH_CONFIG_KEYS)
+    key_gate(failed, "pt_vs_hop ladder", res["config"]["ladder"],
+             PTH_LADDER_KEYS)
+    beta, side = flag(PTH_ARGV, "beta", p), flag(PTH_ARGV, "size", p)
+    steps, chunk = (flag(PTH_ARGV, "eval_steps", p),
+                    flag(PTH_ARGV, "chunk_size", p))
+    n_tr = flag(PTH_ARGV, "trace_chains", p)
+    extra = {"hmc": set(), "hmc+hop": {"hop_accept"},
+             "pt": {"swap_rate_per_pair"}}
+    key_gate(failed, "pt_vs_hop summary", res["summary"], extra)
+    for tag in extra:
+        key_gate(failed, f"pt_vs_hop summary {tag}", res["summary"][tag],
+                 PTH_SUMMARY_KEYS)
+        for rep in res["per_rep"]:
+            r = rep[tag]
+            key_gate(failed, f"pt_vs_hop {tag}", r, PTH_REC_KEYS | extra[tag])
+            key_gate(failed, f"pt_vs_hop {tag} plaq", r["plaq"], STATS_KEYS)
+            plaq_gate(failed, f"pt_vs_hop {tag}", r["plaq_mean"], beta, side,
+                      r["plaq"]["ess_ratio"],
+                      (steps // chunk) * chunk * n_tr)
+    for rep in res["per_rep"]:
+        q2_gate(failed, "pt_vs_hop hmc+hop", rep["hmc+hop"]["q2_mean"],
+                res["q2_exact"])
+        sw = rep["pt"]["swap_rate_per_pair"]
+        if not all(0.0 < s < 1.0 for s in sw):
+            failed.append(f"pt_vs_hop swap rates {sw}")
+    reps, k = flag(PTH_ARGV, "reps", p), flag(PTH_ARGV, "hmc_num_steps", p)
+    n = reps * chunked(steps, chunk)
+    want = wilson_launches([(2 * n, k)])
+    # a PT round: one flat HMC transition of all rungs (K+1 forces, two
+    # action-only Hamiltonians) and the swap phase's action-only pass
+    want["wilson_force"] += n * (k + 1)
+    want["wilson_action_only"] += n * 3
+    got = launch_gate(failed, "pt_vs_hop", launches, want)
+    log(f"[drivers] pt_vs_hop {secs:.1f} s: {json.dumps(res)}")
+    return {"seconds": secs, "launches": got, "result": res}
+
+
+def freeze_line_check(device, kernels, failed):
+    """freeze_line at the single point 16:5.0: tune_hmc (probes on
+    hmc_chain), then topo_ensemble at the tuned point."""
+    import tempfile
+    from pathlib import Path
+
+    from l2hmc_tpu_torch.benchmarks import freeze_line, topo_ensemble
+
+    p = freeze_line.build_parser()
+    with tempfile.TemporaryDirectory() as td:
+        lines, secs = run_main(freeze_line.main, FREEZE_ARGV + [
+            "--out_dir", td, "--device", str(device)])
+        files = sorted(x.name for x in Path(td).iterdir())
+    launches = phase_launches("drivers freeze_line", kernels,
+                              ("hmc_chain", "wilson_force"))
+    res = lines[-1]
+    key_gate(failed, "freeze_line", res, FREEZE_KEYS)
+    (size, beta), = freeze_line.parse_points(flag(FREEZE_ARGV, "points", p))
+    if files != [f"freeze_{size}_{beta:g}.json", "freeze_line.json"]:
+        failed.append(f"freeze_line files {files}")
+    steps = flag(FREEZE_ARGV, "eval_steps", p)
+    chunk = topo_ensemble.build_parser().get_default("chunk_size")
+    n_tr = flag(FREEZE_ARGV, "trace_chains", p)
+    point = lines[0]
+    for row in res["rows"]:
+        key_gate(failed, "freeze_line row", row, FREEZE_ROW_KEYS)
+        q2_gate(failed, "freeze_line hmc+hop", row["q2_hop"],
+                row["q2_exact"])
+        if not 0.0 < row["hop_accept"] <= 1.0:
+            failed.append(f"freeze_line hop acceptance {row['hop_accept']}")
+    for tag in ("hmc", "hmc+hop"):
+        for rep in point["per_rep"]:
+            plaq_gate(failed, f"freeze_line {tag}", rep[tag]["plaq_mean"],
+                      beta, size, rep[tag]["plaq"]["ess_ratio"],
+                      (steps // chunk) * chunk * n_tr)
+            accept_gate(failed, f"freeze_line {tag}", rep[tag]["accept"])
+    k_t = int(res["rows"][0]["hmc"].split()[0][2:])
+    # tune_hmc's default grid: 300 dual-averaging transitions per K, then 3
+    # eps cells per K of a warm and 5 timed hmc_chain calls
+    grid = (3, 4, 5, 6, 8)
+    reps = flag(FREEZE_ARGV, "reps", p)
+    want = wilson_launches([(300, kk) for kk in grid]
+                           + [(2 * reps * chunked(steps, chunk), k_t)])
+    got = launch_gate(failed, "freeze_line", launches, {
+        "hmc_chain": len(grid) * 3 * 6, **want})
+    log(f"[drivers] freeze_line {secs:.1f} s: {json.dumps(lines)}")
+    return {"seconds": secs, "launches": got, "result": res}
+
+
+def beta_campaign_check(device, kernels, failed):
+    """beta_campaign at 16x16, beta 3: tune_hmc and tune_l2hmc (its probe
+    trainings cut to BETA_TRAIN_CHUNK steps), then h2h_seeds at the tuned
+    cells."""
+    import tempfile
+    from pathlib import Path
+
+    from l2hmc_tpu_torch.benchmarks import beta_campaign
+    from l2hmc_tpu_torch.train import autotune
+
+    p = beta_campaign.build_parser()
+    tune_l2 = autotune.tune_l2hmc
+
+    def cut_tune_l2hmc(*a, **k):
+        with train_chunks_of(BETA_TRAIN_CHUNK):
+            return tune_l2(*a, **k)
+
+    autotune.tune_l2hmc = cut_tune_l2hmc
+    try:
+        with tempfile.TemporaryDirectory() as td:
+            lines, secs = run_main(beta_campaign.main, BETA_ARGV + [
+                "--out", str(Path(td) / "b.json"), "--device", str(device)])
+    finally:
+        autotune.tune_l2hmc = tune_l2
+    launches = phase_launches("drivers beta_campaign", kernels,
+                              ("hmc_chain", "l2hmc_chain", "wilson_force"))
+    res = lines[-1]
+    key_gate(failed, "beta_campaign", res, BETA_KEYS)
+    key_gate(failed, "beta_campaign hmc_opt", res["hmc_opt"],
+             {"K", "eps", "accept"})
+    key_gate(failed, "beta_campaign trained_cell", res["trained_cell"],
+             {"K", "eps", "cells"})
+    for c in res["trained_cell"]["cells"]:
+        key_gate(failed, "beta_campaign cell", c, BETA_CELL_KEYS)
+        if not (np.isfinite(c["score"]) and c["score"] > 0):
+            failed.append(f"beta_campaign cell {c}: score")
+    key_gate(failed, "beta_campaign h2h_summary", res["h2h_summary"],
+             H2H_SUMMARY_KEYS)
+    beta, side = flag(BETA_ARGV, "beta", p), flag(BETA_ARGV, "size", p)
+    steps = flag(BETA_ARGV, "eval_steps", p)
+    for rec in res["h2h_per_seed"]:
+        key_gate(failed, "beta_campaign h2h_per_seed", rec, H2H_SEED_KEYS)
+        for s in ("trained", "hmc"):
+            key_gate(failed, f"beta_campaign {s}", rec[s], H2H_SAMPLER_KEYS)
+            plaq_gate(failed, f"beta_campaign {s}", rec[s]["plaq_mean"],
+                      beta, side, rec[s]["plaq"]["ess_ratio"], steps * 64)
+            accept_gate(failed, f"beta_campaign {s}", rec[s]["accept"])
+    k_grid = [int(k) for k in flag(BETA_ARGV, "l2hmc_k_grid", p).split(",")]
+    hmc_grid = [int(k) for k in flag(BETA_ARGV, "hmc_k_grid", p).split(",")]
+    seeds, train = flag(BETA_ARGV, "seeds", p), flag(BETA_ARGV, "train_steps",
+                                                     p)
+    pseeds = flag(BETA_ARGV, "probe_seeds", p)
+    probe_chunks = max(flag(BETA_ARGV, "probe_train_steps", p) // 250, 1)
+    k_t, k_h = res["trained_cell"]["K"], res["hmc_opt"]["K"]
+    cells = [(kk, 3) for kk in k_grid] + [(k_t, 2)]    # + the refine pass
+    ec = min(1000, steps)
+    want = wilson_launches(
+        [(300, kk) for kk in hmc_grid]
+        + [(seeds * chunked(steps, ec), k_t), (seeds * chunked(steps, ec),
+                                               k_h)],
+        [(n * pseeds * probe_chunks * BETA_TRAIN_CHUNK, kk)
+         for kk, n in cells] + [(seeds * train, k_t)])
+    got = launch_gate(failed, "beta_campaign", launches, {
+        "hmc_chain": len(hmc_grid) * 3 * 6,
+        "l2hmc_chain": sum(n for _, n in cells) * pseeds * 6, **want})
+    log(f"[drivers] beta_campaign {secs:.1f} s: {json.dumps(res)}")
+    return {"seconds": secs, "launches": got, "result": res}
+
+
+def local_cost_sweep_check(device, kernels, failed):
+    """local_cost_sweep at 64x64, 1024 chains: nine samplers' eager
+    transition rates."""
+    from l2hmc_tpu_torch.benchmarks import local_cost_sweep
+
+    p = local_cost_sweep.build_parser()
+    (res,), secs = run_main(local_cost_sweep.main,
+                            LCS_ARGV + ["--device", str(device)])
+    launches = phase_launches("drivers local_cost_sweep", kernels,
+                              ("wilson_force",))
+    key_gate(failed, "local_cost_sweep", res, LCS_KEYS)
+    key_gate(failed, "local_cost_sweep variants", res["variants"], LCS_TAGS)
+    for tag, row in res["variants"].items():
+        key_gate(failed, f"local_cost_sweep {tag}", row, LCS_ROW_KEYS)
+        if not all(np.isfinite(v) and v > 0 for v in row.values()):
+            failed.append(f"local_cost_sweep {tag} rates {row}")
+    steps = flag(LCS_ARGV, "steps", p)
+    k, k_h = flag(LCS_ARGV, "num_steps", p), flag(LCS_ARGV, "hmc_num_steps",
+                                                  p)
+    n = 4 * steps                     # a warm and three timed chunks
+    got = launch_gate(failed, "local_cost_sweep", launches, wilson_launches(
+        [(n, k_h), (n * (len(LCS_TAGS) - 1), k)]))
+    log(f"[drivers] local_cost_sweep {secs:.1f} s: {json.dumps(res)}")
+    return {"seconds": secs, "launches": got, "result": res}
+
+
+def volume_sweep_check(device, kernels, failed):
+    """volume_sweep: conv transitions at L = 8, 16, 32, 64, 128 chains, and
+    the power-law fit."""
+    from l2hmc_tpu_torch.benchmarks import volume_sweep
+
+    p = volume_sweep.build_parser()
+    (res,), secs = run_main(volume_sweep.main,
+                            VOL_ARGV + ["--device", str(device)])
+    launches = phase_launches("drivers volume_sweep", kernels,
+                              ("wilson_force",))
+    key_gate(failed, "volume_sweep", res, VOL_KEYS)
+    for row in res["rows"]:
+        key_gate(failed, "volume_sweep row", row, VOL_ROW_KEYS)
+        if not row["ms_per_transition"] > 0:
+            failed.append(f"volume_sweep row {row}")
+        accept_gate(failed, f"volume_sweep L={row['l']}", row["accept"])
+    if not (np.isfinite(res["exponent_b"]) and np.isfinite(res["coeff_a_ms"])
+            and res["coeff_a_ms"] > 0):
+        failed.append(f"volume_sweep fit b={res['exponent_b']} "
+                      f"a={res['coeff_a_ms']}")
+    if res["platform"] != "gpu":
+        failed.append(f"volume_sweep platform {res['platform']}")
+    sizes, chunk = flag(VOL_ARGV, "sizes", p), flag(VOL_ARGV, "chunk", p)
+    got = launch_gate(failed, "volume_sweep", launches, wilson_launches(
+        [(len(sizes) * 4 * chunk, 3)]))
+    log(f"[drivers] volume_sweep {secs:.1f} s: {json.dumps(res)}")
+    return {"seconds": secs, "launches": got, "result": res}
+
+
+HOST_DRIVERS = (("topo_ensemble", topo_ensemble_check),
+                ("charge_mixing", charge_mixing_check),
+                ("pt_vs_hop", pt_vs_hop_check),
+                ("freeze_line", freeze_line_check),
+                ("beta_campaign", beta_campaign_check),
+                ("local_cost_sweep", local_cost_sweep_check),
+                ("volume_sweep", volume_sweep_check))
+
+
+def drivers_child(device):
+    """Phase 16's host-bound drivers, each launch count from 0, run in a
+    child process (:func:`start_child`) from the end of phase 9 on."""
+    kernels = reset_launches()
+    failed, out = [], {}
+    for name, check in HOST_DRIVERS:
+        try:
+            out[name] = check(device, kernels, failed)
+        except Exception as e:            # a driver that raised: a gate
+            failed.append(f"{name} raised {type(e).__name__}: {e}")
+            reset_launches()
+    return {"out": out, "failed": failed}
+
+
+def drivers_phase(device, child):
+    """Phase 16: the topological and volume drivers, each ``main`` at the
+    widths of its defaults, cut in length, launches counted from 0 per
+    driver; the fused ones here, the host-bound ones in ``child``
+    (:func:`drivers_child`), joined at the end."""
+    kernels = reset_launches()
+    t0 = time.perf_counter()
+    failed, out = [], {}
+    for name, check in (("fused_hop", fused_hop_check),
+                        ("local64_h2h", local64_h2h_check),
+                        ("scaling", scaling_check)):
+        out[name] = check(device, kernels, failed)
+    res = join_child(child)
+    failed += res["failed"]
+    out.update(res["out"])
+    log(f"[drivers] phase {time.perf_counter() - t0:.1f} s (the host-bound "
+        "drivers beside phases 10-15)")
+    if failed:
+        raise AssertionError(f"drivers: failed gates {failed}")
+    return out
+
+
 def main():
     name, smi = device_phase()
     device = torch.device("cuda", 0)
@@ -3388,6 +4151,7 @@ def main():
     # after the phases that time kernels
     targets = start_child("targets_child", device)
     vae_sun = start_child("vae_sun_phase", device)
+    drivers = start_child("drivers_child", device)
     try:
         cli = cli_phase(device)
         ens = ensembles_phase(device)
@@ -3395,9 +4159,11 @@ def main():
         par = parallel_phase(device)
         h2h = h2h_phase(device, targets)
         vs = join_child(vae_sun)
+        drv = drivers_phase(device, drivers)
     finally:
         stop_child(targets)
         stop_child(vae_sun)
+        stop_child(drivers)
     errs["hmc_chain"] = max(errs["hmc_chain"], flow["hmc_chain_err"],
                             par["max_abs_err"]["smc"])
 
@@ -3429,9 +4195,17 @@ def main():
     log(f"[result] l2hmc_local_chain c{L64_CHANNELS}L{L64_LAYERS}: "
         f"conditioner-input sincosf per transition {trig[0]:,} "
         f"(rebuilding them at each use: {trig[1]:,})")
+    local_params = init_params(local_cfg(L64_LAYERS),
+                               torch.Generator().manual_seed(640),
+                               device=device)
     local_b = l2hmc_chain_bound(
-        L64_CHAINS * L64_SIDE * L64_SIDE, L64_K, stencil_macs(
-            init_params(local_cfg(L64_LAYERS), device="cpu").xnet))
+        L64_CHAINS * L64_SIDE * L64_SIDE, L64_K,
+        stencil_macs(local_params.xnet))
+    local_lib_ms = conditioner_conv_ms(local_params, L64_K, device)
+    log(f"[result] l2hmc_local_chain c{L64_CHANNELS}L{L64_LAYERS}: its "
+        f"{3 * L64_K + 1} conditioner calls per transition as float32 "
+        f"conv2d (TF32 off, {L64_CHAINS} chains at {L64_SIDE}x{L64_SIDE}) "
+        f"{1e3 * local_lib_ms:.1f} us/transition (one CUDA graph)")
     kernels = [
         {"name": "hmc_chain", "route": "cuda",
          "source": "l2hmc_tpu_torch/ops/csrc/hmc_chain.cu",
@@ -3456,7 +4230,8 @@ def main():
          "max_abs_err": errs["l2hmc_local_chain"],
          "ms": r64["local"]["us_per_transition"] * 1e-3,
          "plain_ms": p64["local"],
-         "bound_ms": local_b[0], "bound_by": local_b[1], "library_ms": None},
+         "bound_ms": local_b[0], "bound_by": local_b[1],
+         "library_ms": local_lib_ms},
     ]
     for kname, w in werrs.items():
         kernels.append({
@@ -3494,8 +4269,9 @@ def main():
         f"(the cheap probe at {RATE_SHAPES[0]}, m={RATE_M[0]}); launches are"
         f" the main paths' (Wilson: the train path's; the modes and "
         f"issue_rates: the decomposition path's); library_ms: l2hmc_chain's "
-        f"ten conditioner products as torch.matmul (a yardstick for part of "
-        f"its work), null elsewhere: no single PyTorch call computes these "
+        f"ten conditioner products as torch.matmul and l2hmc_local_chain's "
+        f"13 conditioner calls as conv2d (yardsticks for part of their "
+        f"work), null elsewhere: no single PyTorch call computes these "
         f"functions.  Train step {train_ms:.3f} "
         f"ms (plain potential {train_plain_ms:.3f} ms); train-step check "
         f"max rel err {train_err:.3e}; on {smi}")
@@ -3550,6 +4326,10 @@ def main():
         f"{sun['su2_4d_b05']['eval']['plaq_strong_coupling_lo']:.5f}) acc "
         f"{sun['su2_4d_b05']['eval']['accept_prob']:.4f}; sun_nd_bench "
         f"{json.dumps(sun['sun_nd_bench']['result'])}; on {smi}")
+    for driver, r in drv.items():
+        log(f"[result] drivers {driver} ({r['seconds']:.1f} s, launches "
+            f"{json.dumps(r['launches'])}): {json.dumps(r['result'])}; on "
+            f"{smi}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -48,11 +48,14 @@ def _trace(msg):
           flush=True)
 
 
-def stream_generator(seed: int, stream: int, device) -> torch.Generator:
-    """A generator on ``device`` seeded from ``(seed, stream)`` (numpy's
-    ``SeedSequence`` of the pair): distinct streams of one seed, and one
-    stream across seeds, draw independently."""
-    s = np.random.SeedSequence([seed, stream]).generate_state(1, np.uint64)
+def stream_generator(seed: int, stream: int, device,
+                     *substreams: int) -> torch.Generator:
+    """A generator on ``device`` seeded from ``(seed, stream, *substreams)``
+    (numpy's ``SeedSequence`` of the tuple; a substream stands for a second
+    ``fold_in``): distinct streams of one seed, and one stream across
+    seeds, draw independently."""
+    s = np.random.SeedSequence([seed, stream, *substreams]).generate_state(
+        1, np.uint64)
     return torch.Generator(device=device).manual_seed(int(s[0]))
 
 

@@ -6,8 +6,9 @@ Usage::
 
 Reads metrics.jsonl and eval_*.npz from the run dir (of either package's
 training CLI) and writes analysis.json (jackknife stats, IAT/ESS, charge
-histograms, tunneling rates).  ``--plots`` is not ported (ROADMAP queue A
-item 16) and raises.
+histograms, tunneling rates); with ``--plots``, the plot families under
+``<run_dir>/plots/`` (``analysis/plots.py``; needs matplotlib, which the
+card's machine lacks: there ``--plots`` raises an ``ImportError``).
 """
 
 from __future__ import annotations
@@ -24,11 +25,6 @@ def main(argv=None):
     p.add_argument("--beta", type=float, default=None,
                    help="beta for the exact-plaquette reference line")
     args = p.parse_args(argv)
-
-    if args.plots:
-        raise NotImplementedError(
-            "--plots is not ported yet (ROADMAP queue A item 16: the plot "
-            "families need matplotlib)")
 
     from l2hmc_tpu_torch.analysis.observables import analyze_run
 
@@ -62,6 +58,17 @@ def main(argv=None):
                     f"hop_dq = {section['hop_dq']['mean']:.4f}"
                 )
 
+    if args.plots:
+        from l2hmc_tpu_torch.analysis.plots import make_run_plots
+
+        exact = None
+        if args.beta is not None:
+            from l2hmc_tpu_torch.lattice import u1
+
+            exact = float(u1.u1_plaq_exact(args.beta))
+        written = make_run_plots(args.run_dir, exact)
+        print(f"wrote {len(written)} plots under "
+              f"{Path(args.run_dir) / 'plots'}")
     return 0
 
 

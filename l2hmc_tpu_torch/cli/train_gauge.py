@@ -46,8 +46,12 @@ chains (``parallel/mesh.py``); only global rank 0 writes the run dir, the
 checkpoints (the full state, gathered) and the eval files, and logs.  With
 no launcher nothing changes.
 
-Not ported: ``--profile`` / ``--profile_every`` (ROADMAP queue A item 16)
-raise ``NotImplementedError``.
+``--profile`` traces the first logging chunk with ``torch.profiler``
+(``<run_dir>/profile/trace.json.gz``) and writes its op table to
+``<run_dir>/profile_top_ops.txt`` (``analysis/profile_digest.py``: device
+time on the card, CPU self time on the CPU); with ``--profile_every N``
+every N-th chunk too, into ``<run_dir>/timeline_<step>/``, as the JAX CLI
+does.
 """
 
 from __future__ import annotations
@@ -194,8 +198,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "step, written into every metrics.jsonl record "
                         "(reference _create_summaries, gauge_model.py:853-886)")
     p.add_argument("--profile", action="store_true",
-                   help="profiler trace of steps 10-20 (not ported: ROADMAP "
-                        "queue A item 16)")
+                   help="torch.profiler trace of the first logging chunk "
+                        "and its op digest (profile_top_ops.txt)")
     p.add_argument("--profile_every", type=int, default=0,
                    help="with --profile: re-trace one chunk every N "
                         "logging chunks into timeline_<step>/ dirs — the "
@@ -239,13 +243,6 @@ def flags_to_config(a):
         eps_target_accept=a.eps_target_accept,
         grad_summaries=a.grad_summaries,
     )
-
-
-def _check_ported(args):
-    if args.profile or args.profile_every:
-        raise NotImplementedError(
-            "--profile/--profile_every are not ported yet (ROADMAP queue A "
-            "item 16, a torch.profiler trace digest)")
 
 
 def _autotune(cfg, args, device):
@@ -292,7 +289,6 @@ def main(argv=None, tf32: bool = False):
     explicit choice for ``benchmarks/dp_parity.py``), else float32
     (``_device.float32_matmuls``)."""
     args = build_parser().parse_args(argv)
-    _check_ported(args)
 
     import numpy as np
     import torch
@@ -414,7 +410,26 @@ def main(argv=None, tf32: bool = False):
                 attempts = [a for a in attempts if a["attempt"] != attempt]
             end_acc = float("nan")
             for c in range(n_chunks):
-                state, metrics = train_chunk(state, gen)
+                if args.profile and (c == 0 or (args.profile_every > 0
+                                                and c % args.profile_every
+                                                == 0)):
+                    # the JAX CLI's traced chunks: the first into profile/
+                    # (digest in the run dir), every profile_every-th into
+                    # timeline_<step>/ with its digest
+                    from l2hmc_tpu_torch.analysis import profile_digest
+
+                    tdir = run_dir / ("profile" if c == 0
+                                      else f"timeline_{int(state.step)}")
+                    with profile_digest.trace(tdir, device,
+                                              is_primary()) as prof:
+                        state, metrics = train_chunk(state, gen)
+                    if is_primary():
+                        digest = profile_digest.write_digest(
+                            prof, run_dir if c == 0 else tdir)
+                        if digest is not None:
+                            log(f"profile digest: {digest}")
+                else:
+                    state, metrics = train_chunk(state, gen)
                 gen_state = gen.get_state()
                 metrics = {k: v.cpu().numpy() for k, v in metrics.items()}
                 step = int(state.step)

@@ -232,6 +232,13 @@ def wilson_loop(links: torch.Tensor, r: int, t: int) -> torch.Tensor:
     return torch.mean(torch.cos(wilson_loop_sums(links, r, t)), dim=(-2, -1))
 
 
+def creutz_ratio(w_rt, w_r1t1, w_r1t, w_rt1):
+    """Creutz ratio ``chi = -log(W(R,T) W(R-1,T-1) / (W(R-1,T) W(R,T-1)))``:
+    the string tension, exactly ``-log(I1/I0)`` per unit area in 2-D U(1).
+    Tensors or floats (``torch.log`` of a float tensor of them)."""
+    return -torch.log(torch.as_tensor(w_rt * w_r1t1 / (w_r1t * w_rt1)))
+
+
 def observables(x: torch.Tensor, shape: LatticeShape, beta=None):
     """{actions, plaqs, charges[, plaqs_exact]} from one plaquette pass."""
     p = plaq_sums(to_links(x, shape))

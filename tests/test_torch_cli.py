@@ -17,6 +17,7 @@ import dataclasses
 import importlib.util
 import json
 import os
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -207,8 +208,16 @@ def test_torch_analyze_run_matches_jax(cli_runs, tmp_path):
     got = json.loads((full / "analysis.json").read_text())
     assert got == want
     assert {"training", "eval_beta4", "eval_beta3"} <= set(got)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_analyze.main([str(full), "--plots"])
+    # --plots: the plot families under plots/, JAX's file names, in a copy
+    # of the run dir for each CLI
+    for name, main in (("jax", jmod.main), ("torch", t_analyze.main)):
+        shutil.copytree(full, tmp_path / name)
+        assert main([str(tmp_path / name), "--plots", "--beta", "4"]) == 0
+    names = {d: sorted(p.name for p in (tmp_path / d / "plots").iterdir())
+             for d in ("jax", "torch")}
+    assert names["torch"] == names["jax"]
+    assert {"train_plaqs.png", "eval_beta4_charges.png",
+            "eval_beta4_plaqs_autocorr.png"} <= set(names["torch"])
 
 
 def test_torch_cli_imports_no_jax(tmp_path):

@@ -240,13 +240,13 @@ def test_torch_dynamics_helpers():
 
 @pytest.mark.parametrize("kw", [
     {"chain_operator": 2}, {"aux_dim": 8}, {"profile": True}])
-def test_torch_unported_settings_raise(kw):
-    """What the port still leaves out raises and names its ROADMAP item:
-    the CLI's --profile (A16; --autotune is ported,
-    tests/test_torch_cli.py).  The VAE's chain operator and aux
-    conditioning (A14) are ported since: the chain operator runs on the
-    gauge dynamics, and an aux net refuses a call without its aux input
-    (their parity with JAX: tests/test_torch_vae.py)."""
+def test_torch_unported_settings_raise(kw, tmp_path):
+    """Settings that once raised for want of a port, each now run: the
+    VAE's chain operator and aux conditioning (A14) and the CLI's
+    --profile (A16).  The chain operator runs on the gauge dynamics, an
+    aux net refuses a call without its aux input (their parity with JAX:
+    tests/test_torch_vae.py), and --profile writes the op digest
+    (tests/test_torch_leftovers.py)."""
     if "chain_operator" in kw:
         _, dyn = tgauge.build_dynamics(_gauge_cfg())
         params = tgauge.init_params(_gauge_cfg(),
@@ -267,14 +267,21 @@ def test_torch_unported_settings_raise(kw):
         assert net(z, z, torch.zeros(2, 2), torch.zeros(2, 8))[0].shape == (
             2, 32)
     else:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            from l2hmc_tpu_torch.cli.train_gauge import main
-            main(["--profile", "--device", "cpu"])
+        from l2hmc_tpu_torch.cli.train_gauge import main
+
+        assert main(["--profile", "--device", "cpu", "--time_size", "4",
+                     "--space_size", "4", "--num_samples", "4",
+                     "--num_hidden", "8", "--train_steps", "2",
+                     "--logging_steps", "2", "--run_steps", "4",
+                     "--log_dir", str(tmp_path)]) == 0
+        assert (tmp_path / "run_1" / "profile_top_ops.txt").exists()
 
 
 def test_torch_unported_builders_raise():
     """The builders take every arch, group and action of the reference
-    and refuse an unknown one as it does."""
+    and refuse an unknown one as it does.  (The CLI's --profile, once
+    checked here to raise, is ported: test_torch_unported_settings_raise
+    and tests/test_torch_leftovers.py run it.)"""
     for arch in ("conv", "local", "local_flat", "mlp", "zero"):
         for group in ("u1", "r1"):
             xnet, vnet = tgauge.build_networks(
@@ -287,9 +294,6 @@ def test_torch_unported_builders_raise():
         tgauge.build_networks(_gauge_cfg(network_arch="resnet"))
     with pytest.raises(ValueError, match="action"):
         tgauge.build_dynamics(_gauge_cfg(action="clover"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        from l2hmc_tpu_torch.cli.train_gauge import main
-        main(["--profile", "--device", "cpu"])
 
 
 # ---------------------------------------------------------------------------

@@ -142,8 +142,9 @@ def test_torch_hmc_baseline_chain_matches_jax_reference():
 def test_torch_port_imports_no_jax():
     """A fresh interpreter runs the CPU slice (champion chain with hop, HMC
     thermalizer, a short SMC ladder on the fused move, a PT round,
-    multinomial HMC and AIS, a sampler train step on an analytic target),
-    imports the head-to-head scripts, the sampler CLI and the examples, and
+    multinomial HMC and AIS, a sampler train step on an analytic target, an
+    Ising chain), imports the head-to-head, topological and volume drivers,
+    the sampler CLI, the examples, the plots and the profile digest, and
     imports neither jax nor the JAX package."""
     code = r"""
 import sys
@@ -189,6 +190,16 @@ scfg = sampler.SamplerConfig(x_dim=2, num_chains=4, num_steps=2, num_hidden=4)
 st = sampler.init_sampler_state(scfg, tgt.energy, g0, device="cpu")
 st, m = sampler.make_sampler_train_chunk(scfg, tgt.energy, 2)(st, g0)
 assert bool(torch.isfinite(m["loss"]).all())
+from l2hmc_tpu_torch.analysis import plots, profile_digest
+from l2hmc_tpu_torch.benchmarks import (beta_campaign, charge_mixing,
+                                        freeze_line, fused_hop, local64_h2h,
+                                        local_cost_sweep, pt_vs_hop, scaling,
+                                        topo_ensemble, volume_sweep)
+from l2hmc_tpu_torch.examples import ising_demo
+from l2hmc_tpu_torch.lattice import creutz_ratio, ising
+from l2hmc_tpu_torch.utils import dtypes
+e, mag = ising.ising_chain(g0, 4, 0.5, 3, batch=2, device="cpu")
+assert e.shape == (3, 2) and float(creutz_ratio(0.5, 0.8, 0.6, 0.7)) > 0
 jax_mods = {m for m in sys.modules if m == "jax" or m.startswith("jax.")}
 assert jax_mods == before, sorted(jax_mods - before)[:5]
 ref = [m for m in sys.modules if m == "l2hmc_tpu" or m.startswith("l2hmc_tpu.")]

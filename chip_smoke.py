@@ -114,13 +114,28 @@ Phases (any failure raises and the script exits non-zero):
    the Wilson kernels against the same step on the plain action: loss
    within 1e-5, every gradient within 1e-3 of its largest entry.
 13. Main path "parallel" (``parallel/``), launches counted from 0: a
-   one-rank NCCL group (``file://`` rendezvous) running the dry run's
-   modes 1, 2, 4, 5 and 6 (``parallel/dryrun.run_modes``; the Wilson
-   kernels in modes 1 and 4, ``hmc_chain`` in mode 5, launches as
-   derived), each held against the same run with no group and to the JAX
-   dry run's assertions; then 10 quick-start train steps per turn on the
-   group and alone (NCCL cannot put two ranks on one card: the multi-rank
-   checks are the CPU tests).
+   one-rank NCCL group (``file://`` rendezvous) running the dry run's six
+   modes (``parallel/dryrun.run_modes``; the Wilson kernels in modes 1 and
+   4, their slab route in mode 3 (dp x sp under ``lattice_sharding``),
+   ``hmc_chain`` in mode 5, launches as derived), each held against the
+   same run with no group and to the JAX dry run's assertions, modes 1, 3,
+   4 and 5 on the kernels against their plain versions; then 10
+   quick-start train steps per turn on the group and alone, and the same
+   steps under ``lattice_sharding`` on the group (every Wilson call on the
+   slab route, its halos wrapped on the one rank; launches as derived,
+   none of the whole-lattice route) against the unsharded steps (x within
+   1e-4), and one such step on the slab route's kernels against the same
+   step on its plain versions (phase 7's gates); then each slab kernel
+   against its plain version at the main path's extended slab (128, 18,
+   16, 2) (S and the rest to 1e-5 relative, sin P to 1e-6, the backward
+   exactly; the kernels line's ``max_abs_err``), and the slab route on a
+   16x16 lattice of 2048 chains cut into 4
+   slabs on the card (halo rows from the neighbours): the slab actions'
+   sum, the slab forces, and the backward and double backward with their
+   halo rows added into their owners against the whole lattice's kernels,
+   and each slab against its plain versions (1e-5; the backward from the
+   same sin P exactly), launches as derived.  NCCL cannot put two ranks on
+   one card: the multi-rank checks are the CPU tests and a four-card call.
 14. Main path "h2h and targets", each script's launches counted from 0:
    ``l2hmc_tpu_torch.benchmarks.trained_vs_hmc.main`` on the shipped
    champion at 2048 chains, 300 transitions, both tiers (``TVH_ARGV``: the
@@ -689,6 +704,13 @@ def reset_launches():
                "wilson_force": (W.wilson_force, "launches"),
                "wilson_double_backward": (W.wilson_double_backward,
                                           "launches"),
+               "wilson_slab_forward": (W.wilson_slab_forward, "launches"),
+               "wilson_slab_action_only": (W.wilson_slab_action_only,
+                                           "launches"),
+               "wilson_slab_backward": (W.wilson_slab_backward, "launches"),
+               "wilson_slab_force": (W.wilson_slab_force, "launches"),
+               "wilson_slab_double_backward": (
+                   W.wilson_slab_double_backward, "launches"),
                "issue_rates": (probe_chain, "launches")}
     for fn, attr in kernels.values():
         setattr(fn, attr, 0)
@@ -1240,17 +1262,11 @@ PARAM_G_REL, PARAM_G_ABS = 1e-3, 1e-5
 
 
 def train_cfg():
-    """The README quick-start training recipe (README.md, "The topological
-    sampler"): 16x16, 128 chains, K=4, fixed eps 0.079, MLP h64,
-    merge_v_halves, charge_reward, train_hops, beta 2 -> 5 over 12000
-    steps; the rest at GaugeConfig's defaults."""
-    from l2hmc_tpu_torch.train.gauge import GaugeConfig
+    """The README quick-start training recipe
+    (``train.gauge.quickstart_config``)."""
+    from l2hmc_tpu_torch.train.gauge import quickstart_config
 
-    return GaugeConfig(
-        time_size=16, space_size=16, num_chains=128, num_steps=4,
-        eps_init=0.079, eps_trainable=False, network_arch="mlp",
-        num_hidden=64, merge_v_halves=True, charge_reward=True,
-        train_hops=True, beta_init=2.0, beta_final=5.0, train_steps=12000)
+    return quickstart_config()
 
 
 def wilson_launches_per_step(K, remat=True):
@@ -1278,6 +1294,14 @@ def wilson_launches_per_transition(K):
             "wilson_double_backward": 0}
 
 
+def slab_launches_per_step(K, remat=True):
+    """Slab-route launches of one dp x sp train step
+    (``lattice_sharding``): :func:`wilson_launches_per_step`, every Wilson
+    call of the step on its slab form."""
+    return {k.replace("wilson_", "wilson_slab_"): v
+            for k, v in wilson_launches_per_step(K, remat).items()}
+
+
 def train_check_phase(device):
     """Phase 7: one train step through the Wilson kernels against the same
     step on the plain potential, at the quick-start config and at the
@@ -1297,15 +1321,20 @@ def canonical_cfg():
         README_CANONICAL + ["--device", "cuda"]))
 
 
-def train_check(cfg, device, label, bump):
+def train_check(cfg, device, label, bump, sharding=None):
     """One train step of ``cfg`` through the Wilson kernels against the same
     step on the plain potential, same state (nets perturbed by N(0,
     bump^2), optimizer past the lr warmup, near-equilibrium links) and the
     same injected draws.  The conv nets' heads start ~0.003 wide, so they
-    take a smaller bump than the MLP's to keep the sampler accepting."""
+    take a smaller bump than the MLP's to keep the sampler accepting.
+    With a ``sharding`` (``lattice_sharding`` of a one-rank mesh), the dp
+    x sp step on the slab route's kernels against the same step on the
+    slab route's plain versions."""
     from l2hmc_tpu_torch.dynamics.topo import instanton_hop_with
     from l2hmc_tpu_torch.lattice import u1
-    from l2hmc_tpu_torch.ops.wilson import make_plain_potential_fn
+    from l2hmc_tpu_torch.ops.wilson import (make_plain_potential_fn,
+                                            make_slab_potential_fn)
+    from l2hmc_tpu_torch.parallel.mesh import shard_train_state
     from l2hmc_tpu_torch.train import gauge as tg
     from l2hmc_tpu_torch.train.schedules import beta_schedule
 
@@ -1324,15 +1353,18 @@ def train_check(cfg, device, label, bump):
                                 device=device))
     state = state._replace(x=x, step=count,
                            opt_state=state.opt_state._replace(count=count))
-    draws = tg.draw_train_randomness(gen, b, d, cfg.train_hops, device)
+    state = shard_train_state(state, None, sharding)
+    draws = tg.draw_train_randomness(gen, b, d, cfg.train_hops, device,
+                                     sharding=sharding)
     beta = beta_schedule(count, cfg.train_steps, cfg.beta_init,
                          cfg.beta_final)
+    plain_pot = (make_plain_potential_fn(cfg.shape) if sharding is None
+                 else make_slab_potential_fn(cfg.shape, sharding, plain=True))
     res = {}
-    for name, pot in (("kernel", None),
-                      ("plain", make_plain_potential_fn(cfg.shape))):
+    for name, pot in (("kernel", None), ("plain", plain_pot)):
         st = tg.clone_train_state(state)
-        _, dyn = tg.build_dynamics(cfg, pot)
-        _, loss_with = tg.make_loss_fn(cfg, dyn)
+        _, dyn = tg.build_dynamics(cfg, pot, sharding=sharding)
+        _, loss_with = tg.make_loss_fn(cfg, dyn, sharding)
         leaves = tg.named_leaves(st.params)
         wrt = [k for k, v in leaves.items() if v.requires_grad]
         loss, _ = loss_with(st.params, st.x, beta, draws)
@@ -1343,8 +1375,12 @@ def train_check(cfg, device, label, bump):
                                         draws.d_x, draws.u_x)
             hop_prob = (instanton_hop_with(
                 u1.wrap(tr.x_out), beta, draws.nu, draws.u_hop,
-                cfg.shape).accept_prob if cfg.train_hops else None)
-        new, m = tg.make_train_step(cfg, pot)[1](st, draws)
+                cfg.shape, sharding).accept_prob if cfg.train_hops
+                else None)
+        new, m = tg.make_train_step(cfg, pot, sharding=sharding)[1](st,
+                                                                     draws)
+        if sharding is not None:
+            new = new._replace(x=sharding.gather(new.x))
         res[name] = dict(loss=float(loss.detach()), grads=grads, state=new,
                          m=m, prob=tr.accept_prob, hop_prob=hop_prob)
     k, p = res["kernel"], res["plain"]
@@ -1603,8 +1639,16 @@ def cli_run(name, argv, log_dir, kernels, device):
     secs = time.perf_counter() - t0
     if rc != 0:
         raise AssertionError(f"cli {name}: exit code {rc}")
-    wilson = {k: v for k, v in launch_counts(kernels).items()
-              if k.startswith("wilson_")}
+    # the whole-lattice route; the CLI runs unsharded, so its slab-route
+    # counts (wilson_slab_*) stay 0 and are checked so
+    counts = launch_counts(kernels)
+    wilson = {k: v for k, v in counts.items()
+              if k.startswith("wilson_") and not k.startswith("wilson_slab")}
+    slab = {k: v for k, v in counts.items()
+            if k.startswith("wilson_slab") and v}
+    if slab:
+        raise AssertionError(f"cli {name}: slab-route launches {slab} on "
+                             f"an unsharded run")
     runs = sorted(log_dir.glob("run_*"), key=lambda p: int(p.name[4:]))
     log(f"[cli] {name}: {secs:.1f} s; Wilson launches {wilson}")
     return runs[-1], tee.text(), wilson, secs
@@ -2681,10 +2725,12 @@ PAR_STEPS = 10                 # train steps per timed turn, group vs none
 
 def parallel_launches():
     """Launches of ``run_modes(1)``: mode 1 one train step at K=2
-    (``wilson_launches_per_step``), mode 4 one reverse-KL loss and
-    gradient (forward, backward), mode 5 five rungs of one fused move each
-    and one action-only forward each (the reweighting)."""
+    (``wilson_launches_per_step``), mode 3 the same step on the slab route
+    (``slab_launches_per_step``), mode 4 one reverse-KL loss and gradient
+    (forward, backward), mode 5 five rungs of one fused move each and one
+    action-only forward each (the reweighting)."""
     want = wilson_launches_per_step(2)
+    want.update(slab_launches_per_step(2))
     want["wilson_forward"] += 1
     want["wilson_backward"] += 1
     want["wilson_action_only"] += 5
@@ -2696,19 +2742,25 @@ def modes_kernel_err(kernel, plain):
     """``{mode: (error, tolerance)}`` of the dry run's modes 1, 4 and 5 on
     the kernels against the same modes on the plain versions
     (``run_modes(moves="injected")`` against ``moves="plain"``): the train
-    step's links, acceptance, loss and updated parameters; the flow step's
+    steps' links, acceptance, loss and updated parameters (mode 1's and
+    mode 3's, on the slab route); the flow step's
     loss and gradient; the SMC ladder's particles, log Z and ESS."""
     def rel(a, b):
         return float((a - b).abs().max() / b.abs().max().clamp_min(1e-12))
 
-    tr, tp = kernel["train_step"], plain["train_step"]
+    def step_err(tr, tp):
+        return max(angle_err(tr["x"], tp["x"]),
+                   abs(tr["accept_prob"] - tp["accept_prob"]),
+                   abs(tr["loss"] - tp["loss"]) / abs(tp["loss"]),
+                   rel(tr["params"], tp["params"]))
+
     fk, fp = kernel["flow"], plain["flow"]
     sk, sp = kernel["smc"], plain["smc"]
     return {
-        "train_step": (max(angle_err(tr["x"], tp["x"]),
-                           abs(tr["accept_prob"] - tp["accept_prob"]),
-                           abs(tr["loss"] - tp["loss"]) / abs(tp["loss"]),
-                           rel(tr["params"], tp["params"])), ATOL),
+        "train_step": (step_err(kernel["train_step"], plain["train_step"]),
+                       ATOL),
+        "lattice_step": (step_err(kernel["lattice_step"],
+                                  plain["lattice_step"]), ATOL),
         "flow": (max(abs(fk["loss"] - fp["loss"]) / abs(fp["loss"]),
                      rel(fk["grads"], fp["grads"])), FLOW_GRAD_RTOL),
         "smc": (max(angle_err(sk["x"], sp["x"]),
@@ -2717,24 +2769,311 @@ def modes_kernel_err(kernel, plain):
     }
 
 
+SLAB_SHAPE = (2048, 16, 16)     # chains, Lt, Lx of the slab route check
+SLAB_CUTS = 4                   # slabs cut from one lattice on the card
+# the slab route against the whole lattice's kernels and the slab's plain
+# versions: S and dg to 1e-5 of the sum of their terms' magnitudes (the
+# slabs' partial sums added in another order), forces and gradients to
+# 1e-5 of their largest entry (a halo row's gradient added into its owner's
+# is a sum in another order), the backward from the same sin P exactly
+SLAB_RTOL = 1e-5
+
+
+def slab_bounds(b, e, lx):
+    """``{kernel: (bound_ms, bound_by)}`` of the slab route on extended
+    slabs ``(b, e, lx, 2)`` (``e - 2`` owned rows): the forward reads the
+    slab and writes sin P and S (7 operations per owned site), the
+    action-only forward reads the slab and writes S (6), the backward reads
+    sin P and g and writes the gradient on the extended slab (4 per site),
+    the force reads the slab and g and writes the owned force (8 per owned
+    site), the double backward (the force's) reads the slab, g and the
+    owned cotangent and writes the extended gradient and dg (14 per
+    site)."""
+    s, own = b * e * lx, b * (e - 2) * lx
+    return {"wilson_slab_forward": bound(s * 8 + s * 4 + b * 4, 7 * own),
+            "wilson_slab_action_only": bound(s * 8 + b * 4, 6 * own),
+            "wilson_slab_backward": bound(s * 4 + b * 4 + s * 8, 4 * s),
+            "wilson_slab_force": bound(s * 8 + b * 4 + own * 8, 8 * own),
+            "wilson_slab_double_backward": bound(
+                s * 8 + b * 8 + own * 8 + s * 8, 14 * s)}
+
+
+def slab_errors(W, links, g, w, n):
+    """The slab route on ``n`` slabs cut from ``links`` (halo rows from the
+    neighbours) against the whole lattice's kernels and against the slab
+    plain versions: ``({kernel: max abs error}, failures, text)``."""
+    lt = links.shape[1]
+    k = lt // n
+    exts = W.cut_slabs(links, n)
+    wext = W.cut_slabs(w, n)
+    s_w, sinp_w = W.wilson_forward(links)
+    force_w = W.wilson_force(links, g)
+    bwd_w = W.wilson_backward(sinp_w, g)
+    dl_w, dg_w = W.wilson_double_backward(links, g, w)
+    got = {"S": [], "S_only": [], "sinp": [], "bwd": [], "force": [],
+           "dext": [], "dg": [], "adext": [], "adg": []}
+    plain = {key: [] for key in got}
+    for c, (e, we) in enumerate(zip(exts, wext)):
+        w_own = w[:, c * k:(c + 1) * k].contiguous()
+        sk, sinpk = W.wilson_slab_forward(e)
+        sp, sinpp = W.wilson_slab_forward_reference(e)
+        for dst, fns in ((got, (W.wilson_slab_backward,
+                                W.wilson_slab_force,
+                                W.wilson_slab_double_backward)),
+                         (plain, (W.wilson_slab_backward_reference,
+                                  W.wilson_slab_force_reference,
+                                  W.wilson_slab_double_backward_reference))):
+            bwd, force, dbl = fns
+            dst["bwd"].append(bwd(sinpp, g))
+            dst["force"].append(force(e, g))
+            dext, dg = dbl(e, g, w_own, 0, 1)
+            dst["dext"].append(dext)
+            dst["dg"].append(dg)
+            adext, adg = dbl(e, g, we, 1, 0)
+            dst["adext"].append(adext)
+            dst["adg"].append(adg)
+        got["S"].append(sk)
+        got["S_only"].append(W.wilson_slab_action_only(e))
+        got["sinp"].append(sinpk)
+        plain["S"].append(sp)
+        plain["S_only"].append(sp)
+        plain["sinp"].append(sinpp)
+    torch.cuda.synchronize()
+    p = W._plaq_sums(links[..., 0], links[..., 1])
+    s_scale = torch.sum(1.0 - torch.cos(p), dim=(1, 2))
+    r = (w[..., 0] - torch.roll(w[..., 0], -1, -1) - w[..., 1]
+         + torch.roll(w[..., 1], -1, -2))
+    dg_scale = torch.sum(torch.abs(r * torch.sin(p)), dim=(1, 2))
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    def rel_sum(a, b, scale):
+        return float(((a - b).abs() / scale).max())
+
+    whole = {
+        "S": rel_sum(sum(got["S"]), s_w, s_scale),
+        "S_only": rel_sum(sum(got["S_only"]), s_w, s_scale),
+        "force": rel(torch.cat(got["force"], dim=1), force_w),
+        "bwd": rel(W.join_slab_grads(got["bwd"], lt), bwd_w),
+        "dext": rel(W.join_slab_grads(got["dext"], lt), dl_w),
+        "dg": rel_sum(sum(got["dg"]), dg_w, dg_scale),
+    }
+    vs_plain = {key: max(rel(a, b) for a, b in zip(got[key], plain[key]))
+                for key in ("force", "dext", "adext")}
+    vs_plain["S"] = max(rel_sum(a, b, s_scale)
+                        for a, b in zip(got["S"], plain["S"]))
+    vs_plain["S_only"] = max(rel_sum(a, b, s_scale)
+                             for a, b in zip(got["S_only"], plain["S"]))
+    vs_plain["dg"] = max(rel_sum(a, b, dg_scale)
+                         for a, b in zip(got["dg"], plain["dg"]))
+    vs_plain["adg"] = max(rel(a, b) for a, b in zip(got["adg"],
+                                                    plain["adg"]))
+    bwd_exact = max(float((a - b).abs().max())
+                    for a, b in zip(got["bwd"], plain["bwd"]))
+    sin_err = max(float((a - b).abs().max())
+                  for a, b in zip(got["sinp"], plain["sinp"]))
+    fails = [f"{key} vs whole" for key, v in whole.items()
+             if not v <= SLAB_RTOL]
+    fails += [f"{key} vs plain" for key, v in vs_plain.items()
+              if not v <= SLAB_RTOL]
+    if bwd_exact != 0.0:
+        fails.append("backward vs plain (exact)")
+    if not sin_err <= SINP_ATOL:
+        fails.append("sin P vs plain")
+
+    def abs_err(key):
+        return max(float((a - b).abs().max())
+                   for a, b in zip(got[key], plain[key]))
+
+    errs = {"wilson_slab_forward": max(abs_err("S"), sin_err),
+            "wilson_slab_action_only": abs_err("S_only"),
+            "wilson_slab_backward": bwd_exact,
+            "wilson_slab_force": abs_err("force"),
+            "wilson_slab_double_backward": max(abs_err("dext"),
+                                               abs_err("dg"),
+                                               abs_err("adext"),
+                                               abs_err("adg"))}
+    txt = (f"vs the whole lattice's kernels (rel) "
+           + ", ".join(f"{k} {v:.3e}" for k, v in whole.items())
+           + "; vs the slab plain versions (rel) "
+           + ", ".join(f"{k} {v:.3e}" for k, v in vs_plain.items())
+           + f", sin P max|d| {sin_err:.3e}, backward max|d| "
+           f"{bwd_exact:.3e}")
+    return errs, fails, txt
+
+
+def slab_check(device, kernels):
+    """(c) The slab route of the Wilson kernel: one 16x16 lattice of 2048
+    chains cut into 4 slabs on the card, each slab's kernels against the
+    whole lattice's kernels (the slab sums added, the halo rows' gradients
+    added into their owners) and against the slab plain versions, uniform
+    and near-equilibrium links; the launches of the check against the
+    derived count."""
+    from l2hmc_tpu_torch.lattice.u1 import typical_links
+    from l2hmc_tpu_torch.ops import wilson as W
+
+    b, lt, lx = SLAB_SHAPE
+    rng = np.random.default_rng(1314)
+    worst, fails = {}, []
+    reset_launches()
+    for kind in ("typical", "uniform"):
+        a = (typical_links(rng, b, lt, lx, sigma=0.3) if kind == "typical"
+             else rng.uniform(-np.pi, np.pi, (b, lt, lx, 2)))
+        links = torch.tensor(a, dtype=torch.float32, device=device)
+        g = torch.full((b,), BETA, device=device)
+        w = torch.tensor(rng.standard_normal((b, lt, lx, 2)),
+                         dtype=torch.float32, device=device)
+        errs, f, txt = slab_errors(W, links, g, w, SLAB_CUTS)
+        log(f"[parallel] slab route ({b}, {lt}, {lx}, 2) in {SLAB_CUTS} "
+            f"slabs, {kind} links: {txt}")
+        fails += [f"{kind} {x}" for x in f]
+        worst = {k: max(v, worst.get(k, 0.0)) for k, v in errs.items()}
+    got = {k: v for k, v in launch_counts(kernels).items()
+           if k.startswith("wilson_slab")}
+    per = {"wilson_slab_forward": 1, "wilson_slab_action_only": 1,
+           "wilson_slab_backward": 1, "wilson_slab_force": 1,
+           "wilson_slab_double_backward": 2}
+    want = {k: 2 * SLAB_CUTS * v for k, v in per.items()}
+    if got != want:
+        fails.append(f"slab check launches {got}, derived {want}")
+    reset_launches()
+    return worst, fails
+
+
+def slab_vs_plain(W, ext, g, w, sinp):
+    """Each slab-route kernel against its plain version on the same
+    extended slab ``ext (b, e, lx, 2)``, owned-row cotangent ``w`` and
+    plain ``sinp``: ``({kernel: max abs error}, failures, text)``.  S to
+    SLAB_RTOL of itself (a sum of non-negative terms), sin P to SINP_ATOL,
+    the backward from the same sin P exactly, the forces, gradients and dg
+    to SLAB_RTOL of their largest entry."""
+    b = ext.shape[0]
+    w_ext = torch.cat([torch.zeros_like(ext[:, :1]), w,
+                       torch.zeros_like(ext[:, :1])], dim=1)
+    s_k, sinp_k = W.wilson_slab_forward(ext)
+    s_p, sinp_p = W.wilson_slab_forward_reference(ext)
+    pairs = {
+        "S": (s_k, s_p), "sinp": (sinp_k, sinp_p),
+        "S_only": (W.wilson_slab_action_only(ext), s_p),
+        "bwd": (W.wilson_slab_backward(sinp, g),
+                W.wilson_slab_backward_reference(sinp, g)),
+        "force": (W.wilson_slab_force(ext, g),
+                  W.wilson_slab_force_reference(ext, g)),
+    }
+    for tag, cot, a, c in (("", w, 0, 1), ("a", w_ext, 1, 0)):
+        dk = W.wilson_slab_double_backward(ext, g, cot, a, c)
+        dp = W.wilson_slab_double_backward_reference(ext, g, cot, a, c)
+        pairs[tag + "dext"] = (dk[0], dp[0])
+        pairs[tag + "dg"] = (dk[1], dp[1])
+    torch.cuda.synchronize()
+    absd = {k: float((a - p).abs().max()) for k, (a, p) in pairs.items()}
+    rel = {k: absd[k] / max(float(p.abs().max()), 1e-30)
+           for k, (a, p) in pairs.items()}
+    rel["S"] = float(((s_k - s_p).abs() / s_p).max())
+    rel["S_only"] = float(((pairs["S_only"][0] - s_p).abs() / s_p).max())
+    fails = [k for k, v in rel.items()
+             if k not in ("sinp", "bwd") and not v <= SLAB_RTOL]
+    if not absd["sinp"] <= SINP_ATOL:
+        fails.append("sinp")
+    if absd["bwd"] != 0.0:
+        fails.append("bwd (exact)")
+    errs = {"wilson_slab_forward": max(absd["S"], absd["sinp"]),
+            "wilson_slab_action_only": absd["S_only"],
+            "wilson_slab_backward": absd["bwd"],
+            "wilson_slab_force": absd["force"],
+            "wilson_slab_double_backward": max(
+                absd[k] for k in ("dext", "dg", "adext", "adg"))}
+    txt = (f"({b}, {ext.shape[1]}, {ext.shape[2]}, 2) kernels vs plain "
+           f"(rel) " + ", ".join(f"{k} {v:.3e}" for k, v in rel.items())
+           + f"; max|d| {errs}")
+    return errs, fails, txt
+
+
+def slab_times(device, b, e, lx):
+    """Each slab-route kernel against its plain version on extended slabs
+    ``(b, e, lx, 2)`` (:func:`slab_vs_plain`), then the device time per
+    launch of each and of its plain version (torch.profiler, inputs cycled
+    through copies larger than twice the L2)."""
+    from l2hmc_tpu_torch.benchmarks import device_profile
+    from l2hmc_tpu_torch.ops import wilson as W
+
+    gen = torch.Generator(device=device).manual_seed(1315)
+    copies = max(2, int(2 * 50e6 // (b * e * lx * 8 * 3)) + 1)
+    sets = []
+    for _ in range(copies):
+        ext = (torch.rand((b, e, lx, 2), generator=gen, device=device)
+               * 2 * np.pi - np.pi)
+        w = torch.randn((b, e - 2, lx, 2), generator=gen, device=device)
+        sinp = W.wilson_slab_forward_reference(ext)[1]
+        sets.append((ext, torch.full((b,), BETA, device=device), w, sinp))
+    errs, fails, txt = slab_vs_plain(W, *sets[0])
+    log(f"[parallel] slab route at the main path's shape: {txt}")
+    runs = {
+        "wilson_slab_forward": (
+            lambda x, g, w, s: W.wilson_slab_forward(x),
+            lambda x, g, w, s: W.wilson_slab_forward_reference(x)),
+        "wilson_slab_action_only": (
+            lambda x, g, w, s: W.wilson_slab_action_only(x),
+            lambda x, g, w, s: W.wilson_slab_forward_reference(x)[0]),
+        "wilson_slab_backward": (
+            lambda x, g, w, s: W.wilson_slab_backward(s, g),
+            lambda x, g, w, s: W.wilson_slab_backward_reference(s, g)),
+        "wilson_slab_force": (
+            lambda x, g, w, s: W.wilson_slab_force(x, g),
+            lambda x, g, w, s: W.wilson_slab_force_reference(x, g)),
+        "wilson_slab_double_backward": (
+            lambda x, g, w, s: W.wilson_slab_double_backward(x, g, w, 0, 1),
+            lambda x, g, w, s: W.wilson_slab_double_backward_reference(
+                x, g, w, 0, 1)),
+    }
+    out = {}
+    for name, pair in runs.items():
+        ms = []
+        for fn in pair:
+            it = iter(range(1 << 30))
+
+            def call(fn=fn, it=it):
+                fn(*sets[next(it) % len(sets)])
+
+            call()
+            # the profiler occasionally drops a window's kernels: up to
+            # four windows before the host-timed fallback (reported so)
+            prof = device_profile(call, WILSON_PROFILE_REPS, tries=4)
+            if prof is None:
+                _, t = timed(lambda: [call() for _ in range(WILSON_REPS)])
+                ms.append((t / WILSON_REPS, "call"))
+            else:
+                ms.append((prof[0], "device"))
+        out[name] = {"ms": ms[0][0], "plain_ms": ms[1][0],
+                     "timed_by": f"{ms[0][1]}, plain {ms[1][1]}"}
+    return out, errs, fails
+
+
 def parallel_phase(device):
-    """Phase 13: the dry run's modes 1, 2, 4, 5 and 6 on a one-rank NCCL
-    group (``file://`` rendezvous), held against the same run with no
-    group; modes 1, 4 and 5 with no group on the kernels (mode 5's chain on
-    injected draws) against their plain versions; a train step on the
-    group against the same step alone."""
+    """Phase 13: the dry run's six modes on a one-rank NCCL group
+    (``file://`` rendezvous), held against the same run with no group;
+    modes 1, 3, 4 and 5 with no group on the kernels (mode 5's chain on
+    injected draws) against their plain versions; a quick-start train step
+    on the group against the same step alone; the same step under
+    ``lattice_sharding`` (the slab route of the Wilson kernel, every halo
+    wrapped on the one rank) against the step with no sharding; the slab
+    route on four slabs cut from one lattice against the whole lattice's
+    kernels and its plain versions."""
     import tempfile
 
     import torch.distributed as dist
 
     from l2hmc_tpu_torch.parallel import dryrun
-    from l2hmc_tpu_torch.parallel.mesh import get_mesh, shard_train_state
+    from l2hmc_tpu_torch.parallel.mesh import (get_mesh, lattice_sharding,
+                                               shard_train_state)
     from l2hmc_tpu_torch.train.gauge import (init_train_state,
                                              make_train_step)
 
     kernels = reset_launches()
     t0 = time.perf_counter()
     failed = []
+    cfg = train_cfg()
     with tempfile.TemporaryDirectory() as td:
         dist.init_process_group(
             "nccl" if torch.device(device).type == "cuda" else "gloo",
@@ -2742,26 +3081,39 @@ def parallel_phase(device):
         try:
             grouped = dryrun.run_modes(1, device, td)
             launches = phase_launches("parallel", kernels,
-                                      ("wilson_force", "hmc_chain"))
+                                      ("wilson_force", "wilson_slab_force",
+                                       "hmc_chain"))
             mesh = get_mesh(device=device)
-            cfg = train_cfg()
 
-            def steps(m):
+            def steps(m, sharded=False):
                 gen = torch.Generator(device=device).manual_seed(1301)
+                sp = lattice_sharding(m, cfg.shape) if sharded else None
                 state = shard_train_state(init_train_state(cfg, gen, device),
-                                          m)
-                step, _ = make_train_step(cfg, mesh=m)
+                                          m, sp)
+                step, _ = make_train_step(cfg, mesh=m, sharding=sp)
                 state, _ = step(state, gen)
                 torch.cuda.synchronize(device)
                 t = time.perf_counter()
                 for _ in range(PAR_STEPS):
                     state, metrics = step(state, gen)
                 torch.cuda.synchronize(device)
-                return 1e3 * (time.perf_counter() - t) / PAR_STEPS, state.x
+                x = state.x if sp is None else sp.gather(state.x)
+                return 1e3 * (time.perf_counter() - t) / PAR_STEPS, x
 
             turns = [(name, steps(m)) for name, m in (
                 ("nccl", mesh), ("alone", None), ("alone", None),
                 ("nccl", mesh))]
+            # the main path of the slab route: the quick-start step under
+            # lattice_sharding, launches counted from 0
+            reset_launches()
+            sharded = steps(mesh, sharded=True)
+            slab_path = phase_launches("parallel lattice_sharding", kernels,
+                                       ("wilson_slab_force",))
+            # the same step on the slab route's plain versions, phase 7's
+            # gates
+            sharded_vs_plain = train_check(
+                cfg, device, "16x16 mlp merged, lattice_sharding", 0.02,
+                lattice_sharding(mesh, cfg.shape))
         finally:
             dist.destroy_process_group()
     alone = dryrun.run_modes(1, device)
@@ -2795,6 +3147,35 @@ def parallel_phase(device):
     x_diff = float((turns[0][1][1] - turns[1][1][1]).abs().max())
     if x_diff > 1e-4:
         failed.append(f"parallel train step, group vs alone: x {x_diff}")
+    sharded_x_diff = float((sharded[1] - turns[1][1][1]).abs().max())
+    if sharded_x_diff > 1e-4:
+        failed.append(f"parallel lattice_sharding step vs no sharding: x "
+                      f"{sharded_x_diff}")
+    want_slab = {k: v * (PAR_STEPS + 1)
+                 for k, v in slab_launches_per_step(cfg.num_steps).items()}
+    got_slab = {k: slab_path[k] for k in want_slab}
+    whole_in_slab = {k: v for k, v in slab_path.items()
+                     if v and k not in want_slab}
+    if got_slab != want_slab or whole_in_slab:
+        failed.append(f"parallel lattice_sharding launches {got_slab} and "
+                      f"{whole_in_slab}, derived {want_slab} and none")
+    slab_err, slab_fails = slab_check(device, kernels)
+    failed += [f"slab route {f}" for f in slab_fails]
+    e = cfg.time_size + 2
+    times, main_err, main_fails = slab_times(device, cfg.num_chains, e,
+                                             cfg.space_size)
+    failed += [f"slab route at the main path's shape: {f}"
+               for f in main_fails]
+    bounds = slab_bounds(cfg.num_chains, e, cfg.space_size)
+    # max_abs_err: kernel against plain on the main path's extended slabs
+    slab = {name: {"launches": got_slab[name],
+                   "max_abs_err": main_err[name],
+                   "max_abs_err_4_slabs": slab_err[name],
+                   "ms": times[name]["ms"],
+                   "plain_ms": times[name]["plain_ms"],
+                   "timed_by": times[name]["timed_by"],
+                   "bound_ms": bounds[name][0], "bound_by": bounds[name][1]}
+            for name in want_slab}
     line = {"modes_seconds_nccl": {k: v["seconds"]
                                    for k, v in grouped.items()},
             "modes_seconds_alone": {k: v["seconds"]
@@ -2803,10 +3184,17 @@ def parallel_phase(device):
             "max_abs_err": {k: v[0] for k, v in errs.items()},
             "train_step_ms": [(name, r[0]) for name, r in turns],
             "train_step_x_diff": x_diff,
+            "lattice_sharding_step_ms": sharded[0],
+            "lattice_sharding_x_diff": sharded_x_diff,
+            "lattice_sharding_vs_plain": sharded_vs_plain,
+            "slab_route": slab,
             "smc_log_z": [grouped["smc"]["log_z"],
                           grouped["smc"]["log_z_exact"]]}
-    log(f"[parallel] one-rank NCCL group, modes 1, 2, 4, 5, 6 and "
-        f"{PAR_STEPS} quick-start train steps per turn: {json.dumps(line)}")
+    log(f"[parallel] one-rank NCCL group, the six modes, {PAR_STEPS} "
+        f"quick-start train steps per turn, and the same under "
+        f"lattice_sharding; the slab route timed at ({cfg.num_chains}, "
+        f"{e}, {cfg.space_size}, 2) (device time per launch by "
+        f"torch.profiler, inputs cycled): {json.dumps(line)}")
     log(f"[parallel] phase {time.perf_counter() - t0:.1f} s")
     if failed:
         raise AssertionError(f"parallel: failed gates {failed}")
@@ -4242,6 +4630,17 @@ def main():
             "ms": w["ms"], "plain_ms": w["plain_ms"],
             "bound_ms": w["bound_ms"], "bound_by": w["bound_by"],
             "library_ms": None})
+    # the slab route of the same kernel (dp x sp, lattice_sharding): its
+    # launches are the sharded quick-start path's (phase 13)
+    for kname, w in par["slab_route"].items():
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": "l2hmc_tpu_torch/ops/csrc/wilson.cu",
+            "replaces": "l2hmc_tpu/ops/wilson.py:95",
+            "launches": w["launches"], "max_abs_err": w["max_abs_err"],
+            "ms": w["ms"], "plain_ms": w["plain_ms"],
+            "bound_ms": w["bound_ms"], "bound_by": w["bound_by"],
+            "library_ms": None})
     sources = {"issue_rates": ("issue_rates.cu",
                                "benchmarks/vpu_roofline.py:208"),
                "l2hmc_chain[ablate]": ("l2hmc_chain.cu",
@@ -4265,10 +4664,14 @@ def main():
         f" and l2hmc_local_chain ({L64_CHAINS} chains at {L64_SIDE}x"
         f"{L64_SIDE}, c={L64_CHANNELS} L={L64_LAYERS} K={L64_K}) and their "
         f"[ablate]/[bf16] modes, per launch for the Wilson kernels at (128, "
-        f"16, 16, 2) (device time by torch.profiler) and for issue_rates "
+        f"16, 16, 2) and their slab route at (128, 18, 16, 2) (the "
+        f"quick-start lattice extended by its halo rows; device time by "
+        f"torch.profiler) and for issue_rates "
         f"(the cheap probe at {RATE_SHAPES[0]}, m={RATE_M[0]}); launches are"
-        f" the main paths' (Wilson: the train path's; the modes and "
-        f"issue_rates: the decomposition path's); library_ms: l2hmc_chain's "
+        f" the main paths' (Wilson: the train path's; its slab route: the "
+        f"quick-start train path's under lattice_sharding, {PAR_STEPS + 1} "
+        f"steps; the modes and issue_rates: the decomposition path's); "
+        f"library_ms: l2hmc_chain's "
         f"ten conditioner products as torch.matmul and l2hmc_local_chain's "
         f"13 conditioner calls as conv2d (yardsticks for part of their "
         f"work), null elsewhere: no single PyTorch call computes these "
@@ -4290,7 +4693,10 @@ def main():
     log(f"[result] parallel: modes (s) {par['modes_seconds_nccl']} on the "
         f"group, {par['modes_seconds_alone']} alone; kernel vs plain "
         f"{par['max_abs_err']}; quick-start train step (ms) "
-        f"{par['train_step_ms']}; on {smi}")
+        f"{par['train_step_ms']}, under lattice_sharding "
+        f"{par['lattice_sharding_step_ms']:.3f} (x within "
+        f"{par['lattice_sharding_x_diff']:.3e} of the unsharded step); "
+        f"on {smi}")
     tvh = h2h["trained_vs_hmc"]["result"]
     secs = {k: round(v["seconds"], 1) for k, v in h2h.items()
             if k != "targets"}

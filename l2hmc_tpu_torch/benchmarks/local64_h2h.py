@@ -83,6 +83,21 @@ def build_parser():
     return p
 
 
+def train_config(args):
+    """The trained cell's ``GaugeConfig`` from the parsed flags: ``local_flat``
+    nets, ``merge_v_halves``, fixed eps, ``charge_reward``."""
+    from l2hmc_tpu_torch.train import gauge as G
+
+    return G.GaugeConfig(
+        time_size=args.size, space_size=args.size,
+        num_chains=args.train_chains, num_steps=args.k,
+        network_arch="local_flat", num_filters=args.channels,
+        local_layers=args.layers, merge_v_halves=True,
+        eps_init=args.eps, eps_trainable=False, lr_init=args.lr_init,
+        train_steps=args.train_steps, beta_final=args.beta,
+        charge_reward=True, charge_weight=1.0)
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
 
@@ -105,14 +120,7 @@ def main(argv=None):
     shape = u1.LatticeShape(args.size, args.size)
     n_tr = args.trace_chains
 
-    tcfg = G.GaugeConfig(
-        time_size=args.size, space_size=args.size,
-        num_chains=args.train_chains, num_steps=args.k,
-        network_arch="local_flat", num_filters=args.channels,
-        local_layers=args.layers, merge_v_halves=True,
-        eps_init=args.eps, eps_trainable=False, lr_init=args.lr_init,
-        train_steps=args.train_steps, beta_final=args.beta,
-        charge_reward=True, charge_weight=1.0)
+    tcfg = train_config(args)
     dyn_cfg, _ = G.build_dynamics(tcfg)
 
     _trace(f"Metropolis warm start ({args.therm_sweeps} sweeps)...")

@@ -13,6 +13,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from l2hmc_tpu_torch.lattice.u1 import chain_total
 from l2hmc_tpu_torch.ops import leapfrog as fused
 
 PotentialFn = Callable[[torch.Tensor], torch.Tensor]
@@ -51,21 +52,31 @@ def leapfrog(potential_fn: PotentialFn, x, v, beta, eps, num_steps: int):
 def hmc_transition(potential_fn: PotentialFn, x: torch.Tensor, beta, eps,
                    num_steps: int, generator: Optional[torch.Generator] = None,
                    v: Optional[torch.Tensor] = None,
-                   u: Optional[torch.Tensor] = None) -> HMCOut:
+                   u: Optional[torch.Tensor] = None,
+                   sharding=None) -> HMCOut:
     """One HMC transition for a batch of chains.
 
     Momenta ``v (B, d)`` and accept uniforms ``u (B,)`` are drawn from
-    ``generator`` unless injected.
+    ``generator`` unless injected.  With a ``sharding``
+    (``parallel/spatial.py``), ``x`` and ``v`` are this rank's slab
+    columns, ``potential_fn`` a slab potential (``ops/wilson.py
+    make_slab_potential_fn``), the kinetic energy is added over 'space',
+    and drawn momenta are the global draw's slab columns.
     """
     if v is None:
-        v = torch.randn(x.shape, generator=generator, dtype=x.dtype,
+        shape = x.shape if sharding is None else (
+            x.shape[0], sharding.shape.x_dim)
+        v = torch.randn(shape, generator=generator, dtype=x.dtype,
                         device=x.device)
+        if sharding is not None:
+            v = sharding.columns(v).contiguous()
     if u is None:
         u = torch.rand((x.shape[0],), generator=generator, dtype=x.dtype,
                        device=x.device)
 
     def hamiltonian(x, v):
-        return beta * potential_fn(x) + 0.5 * torch.sum(v * v, dim=-1)
+        kinetic = chain_total(torch.sum(v * v, dim=-1), sharding)
+        return beta * potential_fn(x) + 0.5 * kinetic
 
     xp, vp = leapfrog(potential_fn, x, v, beta, eps, num_steps)
     dh = hamiltonian(x, v) - hamiltonian(xp, vp)
@@ -95,19 +106,20 @@ def hmc_chain_u1_fused(links: torch.Tensor, generator: torch.Generator,
 def hmc_chain(potential_fn: PotentialFn, x0: torch.Tensor, beta,
               generator: Optional[torch.Generator], eps, num_leapfrog: int,
               num_samples: int, wrap_fn: Optional[Callable] = None,
-              draws=None):
+              draws=None, sharding=None):
     """Run ``num_samples`` HMC transitions from ``x0 (B, d)``.
 
     Returns ``(samples (T, B, d), accept_probs (T, B))``; each sample is
     the state after its transition (and ``wrap_fn``).  ``draws``, a
-    sequence of ``(v, u)`` per transition, replaces the generator's.
+    sequence of ``(v, u)`` per transition, replaces the generator's;
+    ``sharding``: see :func:`hmc_transition`.
     """
     x = x0
     xs, probs = [], []
     for t in range(num_samples):
         v, u = draws[t] if draws is not None else (None, None)
         out = hmc_transition(potential_fn, x, beta, eps, num_leapfrog,
-                             generator, v=v, u=u)
+                             generator, v=v, u=u, sharding=sharding)
         x = out.x_out if wrap_fn is None else wrap_fn(out.x_out)
         xs.append(x)
         probs.append(out.accept_prob)

@@ -27,6 +27,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from l2hmc_tpu_torch.lattice.u1 import chain_total
 from l2hmc_tpu_torch.lattice.u1 import wrap as _wrap
 from l2hmc_tpu_torch.ops.l2hmc_kernel import _circle_scale as circle_scale
 
@@ -96,7 +97,8 @@ def get_eps(params: DynamicsParams, cfg: DynamicsConfig) -> torch.Tensor:
     return eps
 
 
-def make_dynamics(cfg: DynamicsConfig, potential_fn: PotentialFn):
+def make_dynamics(cfg: DynamicsConfig, potential_fn: PotentialFn,
+                  sharding=None):
     """Build the transition functions for a target potential.
 
     The conditioners are the ``params.xnet``/``params.vnet`` modules
@@ -122,19 +124,40 @@ def make_dynamics(cfg: DynamicsConfig, potential_fn: PotentialFn):
     ``cfg.remat`` wraps each leapfrog step in ``torch.utils.checkpoint``
     (non-reentrant) while autograd records, as the reference wraps it in
     ``jax.checkpoint``: the step's activations are recomputed in the
-    backward pass instead of kept, which re-runs the step's forces.
+    backward pass instead of kept, which re-runs the step's forces (and,
+    sharded, their halo exchanges, in the same order on every rank).
+
+    ``sharding`` (``parallel/spatial.py``, bound to the lattice): ``x``,
+    ``v`` and every per-link tensor are this rank's slab columns, the nets
+    run their ``forward_sharded``, ``potential_fn`` must be a slab
+    potential (the whole lattice's action per chain), and the per-chain
+    sums (kinetic energy, log-dets, the finite test) are added over
+    'space'; ``u``, ``direction`` and every per-chain output are
+    replicated over it.  ``draw`` draws the global momenta and keeps the
+    slab's columns, so a sharded run repeats the one-process run.
     """
     K = cfg.num_steps
+    sp = sharding
+    x_dim = cfg.x_dim if sp is None else sp.x_dim
+
+    def chain_sum(t):
+        """Per-chain sum over the last axis, whole-lattice when sharded."""
+        return chain_total(torch.sum(t, dim=-1), sp)
     periodic = cfg.group == "u1"
     if cfg.group not in ("u1", "r1"):
         raise ValueError(f"group={cfg.group!r}")
 
     if cfg.hmc:
         def zero_net(net, v, x, t, aux):
-            z = torch.zeros((v.shape[0], cfg.x_dim), dtype=v.dtype,
+            z = torch.zeros((v.shape[0], x_dim), dtype=v.dtype,
                             device=v.device)
             return z, z, z
         apply_net = zero_net
+    elif sp is not None:
+        def apply_net(net, v, x, t, aux):
+            if aux is None:
+                return net.forward_sharded(v, x, t, sp)
+            return net.forward_sharded(v, x, t, sp, aux)
     else:
         def apply_net(net, v, x, t, aux):
             return net(v, x, t) if aux is None else net(v, x, t, aux)
@@ -143,7 +166,7 @@ def make_dynamics(cfg: DynamicsConfig, potential_fn: PotentialFn):
         return beta * potential_fn(x)
 
     def kinetic_energy(v):
-        return 0.5 * torch.sum(v * v, dim=-1)
+        return 0.5 * chain_sum(v * v)
 
     def hamiltonian(x, v, beta):
         return potential_energy(x, beta) + kinetic_energy(v)
@@ -180,7 +203,7 @@ def make_dynamics(cfg: DynamicsConfig, potential_fn: PotentialFn):
         a = factor * eps * (torch.exp(eps * q) * g - t)
         e = torch.exp(d_col * h_s)
         v_new = torch.where(d_col > 0, v * e - a, (v + a) * e)
-        return v_new, d_row * torch.sum(h_s, dim=-1)
+        return v_new, d_row * chain_sum(h_s)
 
     def update_x(params, x, v, tau, hold_mask, d_col, d_row, eps, aux):
         """Direction-fused position step; ``hold_mask`` part stays fixed.
@@ -194,12 +217,12 @@ def make_dynamics(cfg: DynamicsConfig, potential_fn: PotentialFn):
             e = torch.exp(d_col * es)
             upd = torch.where(d_col > 0, x * e + b, (x - b) * e)
             x_new = hold_mask * x + (1.0 - hold_mask) * upd
-            return x_new, d_row * torch.sum((1.0 - hold_mask) * es, dim=-1)
+            return x_new, d_row * chain_sum((1.0 - hold_mask) * es)
         u = torch.where(d_col > 0, x, _wrap(x - b))
         y, ld = circle_scale(u, d_col * es)
         upd = torch.where(d_col > 0, _wrap(y + b), y)
         x_new = hold_mask * x + (1.0 - hold_mask) * upd
-        return x_new, torch.sum((1.0 - hold_mask) * ld, dim=-1)
+        return x_new, chain_sum((1.0 - hold_mask) * ld)
 
     def _step_context(params, step, d_row):
         """Each chain reads masks/time at ``step`` (forward) or ``K-1-step``
@@ -207,7 +230,8 @@ def make_dynamics(cfg: DynamicsConfig, potential_fn: PotentialFn):
         d_col = d_row[:, None]
         idx = torch.where(d_row > 0, step, K - 1 - step).to(torch.int64)
         tau = time_encoding(idx, K)
-        mask = params.masks[idx]
+        masks = params.masks if sp is None else sp.columns(params.masks)
+        mask = masks[idx]
         hold1 = torch.where(d_col > 0, mask, 1.0 - mask)
         return d_col, tau, hold1, 1.0 - hold1
 
@@ -246,6 +270,8 @@ def make_dynamics(cfg: DynamicsConfig, potential_fn: PotentialFn):
     def integrate(params, x, v, beta, direction, aux=None):
         """``num_steps`` leapfrog steps; ``direction (B,)`` in {+1,-1}."""
         eps = get_eps(params, cfg)
+        if sp is not None:
+            eps = sp.enter(eps)
         body = leapfrog_step_merged if cfg.merge_v_halves else leapfrog_step
         g = grad_potential(x, beta)
         sumlogdet = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
@@ -270,8 +296,10 @@ def make_dynamics(cfg: DynamicsConfig, potential_fn: PotentialFn):
 
     def _sanitize(x, v, xp, vp):
         """Replace non-finite proposals with the initial state."""
-        ok = torch.all(torch.isfinite(xp) & torch.isfinite(vp), dim=-1,
-                       keepdim=True)
+        ok = torch.all(torch.isfinite(xp) & torch.isfinite(vp), dim=-1)
+        if sp is not None:
+            ok = sp.all_chains(ok)      # finite on every slab or on none
+        ok = ok[:, None]
         return torch.where(ok, xp, x), torch.where(ok, vp, v)
 
     def _accept(x, xp, vp, prob, sumlogdet, u, fwd):
@@ -310,9 +338,13 @@ def make_dynamics(cfg: DynamicsConfig, potential_fn: PotentialFn):
                        else transition_fused)
 
     def draw(generator, x):
-        """``(v, direction, u)`` of one transition."""
-        v = torch.randn(x.shape, generator=generator, dtype=x.dtype,
+        """``(v, direction, u)`` of one transition (sharded: the global
+        momenta's slab columns)."""
+        shape = x.shape if sp is None else (x.shape[0], cfg.x_dim)
+        v = torch.randn(shape, generator=generator, dtype=x.dtype,
                         device=x.device)
+        if sp is not None:
+            v = sp.columns(v).contiguous()
         direction = torch.where(
             torch.rand((x.shape[0],), generator=generator,
                        device=x.device) > 0.5, 1.0, -1.0).to(x.dtype)

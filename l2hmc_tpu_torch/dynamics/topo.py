@@ -26,26 +26,34 @@ TWO_PI = 2.0 * np.pi
 
 
 def winding_field(shape: u1.LatticeShape, nu: int = 1,
-                  device=None) -> torch.Tensor:
+                  device=None, sharding=None) -> torch.Tensor:
     """Flat link field ``w (num_links,)`` of winding number ``nu``:
     ``w1(t, x) = delta t``, ``w0(Lt-1, x) = -delta Lt x`` (the seam row),
     ``delta = 2 pi nu / (Lt Lx)``.  Built in numpy as the reference builds
-    it, on ``device`` (``None``: the first CUDA device)."""
+    it, on ``device`` (``None``: the first CUDA device); with a
+    ``sharding``, the slab's columns (global ``t``; the seam row lies in
+    the last 'space' rank's slab)."""
     lt, lx = shape.time_size, shape.space_size
     delta = TWO_PI * nu / (lt * lx)
     w = np.zeros((lt, lx, 2), dtype=np.float32)
     w[:, :, 1] = delta * np.arange(lt, dtype=np.float32)[:, None]
     w[lt - 1, :, 0] = -delta * lt * np.arange(lx, dtype=np.float32)
-    return torch.tensor(w.reshape(-1), device=resolve_device(device))
+    w = w.reshape(-1)
+    if sharding is not None:
+        w = w[sharding.cols]
+    return torch.tensor(w, device=resolve_device(device))
 
 
 def hop_delta_s(x: torch.Tensor, shape: u1.LatticeShape,
-                nu: torch.Tensor) -> torch.Tensor:
+                nu: torch.Tensor, sharding=None) -> torch.Tensor:
     """Exact ``S(x + nu w) - S(x)`` per sample from one plaquette pass;
-    ``x (..., num_links)``, ``nu`` broadcasting against the batch."""
-    p = u1.plaq_sums(u1.to_links(x, shape))
-    sum_cos = torch.sum(torch.cos(p), dim=(-2, -1))
-    sum_sin = torch.sum(torch.sin(p), dim=(-2, -1))
+    ``x (..., num_links)``, ``nu`` broadcasting against the batch; with a
+    ``sharding``, ``x (B, x_dim / n)`` is this rank's slab and the sums
+    are added over 'space'."""
+    p = u1.state_plaqs(x, shape, sharding)
+    sum_cos, sum_sin = u1.chain_total(torch.stack([
+        torch.sum(torch.cos(p), dim=(-2, -1)),
+        torch.sum(torch.sin(p), dim=(-2, -1))]), sharding)
     d = TWO_PI * nu.to(x.dtype) / shape.num_plaquettes
     return (1.0 - torch.cos(d)) * sum_cos + torch.sin(d) * sum_sin
 
@@ -58,15 +66,17 @@ class HopOut(NamedTuple):
 
 
 def instanton_hop_with(x: torch.Tensor, beta, nu: torch.Tensor,
-                       u: torch.Tensor, shape: u1.LatticeShape) -> HopOut:
+                       u: torch.Tensor, shape: u1.LatticeShape,
+                       sharding=None) -> HopOut:
     """One Metropolis winding hop with injected draws: ``nu (batch,)``
-    signed windings, ``u (batch,)`` accept uniforms."""
+    signed windings, ``u (batch,)`` accept uniforms; with a ``sharding``,
+    on this rank's slabs (the draws replicated over 'space')."""
     nu = nu.to(x.dtype)
-    ds = hop_delta_s(x, shape, nu)
+    ds = hop_delta_s(x, shape, nu, sharding)
     prob = torch.exp(torch.clamp(-beta * ds, max=0.0))
     prob = torch.where(torch.isfinite(prob), prob, torch.zeros_like(prob))
     accept = (u < prob).to(x.dtype)
-    w1 = winding_field(shape, 1, x.device)
+    w1 = winding_field(shape, 1, x.device, sharding)
     x_prop = u1.wrap(x + nu[..., None] * w1[None, :])
     x_out = accept[..., None] * x_prop + (1.0 - accept[..., None]) * x
     return HopOut(x_out=x_out, accept_prob=prob, accept_mask=accept,

@@ -104,18 +104,31 @@ def topological_charge_approx(links: torch.Tensor,
     return torch.sum(project_angle_approx(p, n_terms), dim=(-2, -1)) / TWO_PI
 
 
+def _charge(x, shape, proj, sharding):
+    """``Q = sum proj(P) / 2pi`` per chain of flat states (sharded: of the
+    whole lattice, from this rank's slabs)."""
+    q = torch.sum(proj(state_plaqs(x, shape, sharding)), dim=(-2, -1))
+    return chain_total(q, sharding) / TWO_PI
+
+
 def charge_diff(x1: torch.Tensor, x2: torch.Tensor,
-                shape: LatticeShape) -> torch.Tensor:
-    """``|Q(x1) - Q(x2)|`` of flat states with the exact projection."""
-    return torch.abs(topological_charge(to_links(x1, shape))
-                     - topological_charge(to_links(x2, shape)))
+                shape: LatticeShape, sharding=None) -> torch.Tensor:
+    """``|Q(x1) - Q(x2)|`` of flat states with the exact projection; with
+    a ``sharding`` (``parallel/spatial.py``), of this rank's slabs."""
+    return torch.abs(_charge(x1, shape, project_angle, sharding)
+                     - _charge(x2, shape, project_angle, sharding))
 
 
 def charge_diff_approx(x1: torch.Tensor, x2: torch.Tensor,
-                       shape: LatticeShape, n_terms: int = 5) -> torch.Tensor:
-    """``|Q(x1) - Q(x2)|`` with the differentiable surrogate (loss path)."""
-    return torch.abs(topological_charge_approx(to_links(x1, shape), n_terms)
-                     - topological_charge_approx(to_links(x2, shape), n_terms))
+                       shape: LatticeShape, n_terms: int = 5,
+                       sharding=None) -> torch.Tensor:
+    """``|Q(x1) - Q(x2)|`` with the differentiable surrogate (loss path);
+    with a ``sharding``, of this rank's slabs (differentiable)."""
+    def proj(p):
+        return project_angle_approx(p, n_terms)
+
+    return torch.abs(_charge(x1, shape, proj, sharding)
+                     - _charge(x2, shape, proj, sharding))
 
 
 def wrap(x: torch.Tensor) -> torch.Tensor:
@@ -157,10 +170,20 @@ def improved_action(links: torch.Tensor, c1: float = -1.0 / 12.0
     return s
 
 
-def make_improved_potential_fn(shape: LatticeShape, c1: float = -1.0 / 12.0):
+def make_improved_potential_fn(shape: LatticeShape, c1: float = -1.0 / 12.0,
+                               sharding=None):
     """``U(x) -> per-sample improved action`` on flat states.  It has no
     ``force``: the dynamics differentiate it by autograd, as the reference
-    does with ``jax.grad``."""
+    does with ``jax.grad``.  With a ``sharding``, ``x`` is this rank's slab
+    and ``U`` the whole lattice's action (:func:`improved_action_slab`)."""
+    if sharding is not None:
+        sharding.check_shape(shape)
+
+        def slab_potential(x: torch.Tensor) -> torch.Tensor:
+            return improved_action_slab(slab_links(x, sharding), sharding,
+                                        c1)
+
+        return slab_potential
 
     def potential(x: torch.Tensor) -> torch.Tensor:
         return improved_action(to_links(x, shape), c1)
@@ -227,9 +250,17 @@ def wilson_loop_sums(links: torch.Tensor, r: int, t: int) -> torch.Tensor:
     return box
 
 
-def wilson_loop(links: torch.Tensor, r: int, t: int) -> torch.Tensor:
-    """Per-sample ``<W(t x r)> = <cos(loop angle)>``."""
-    return torch.mean(torch.cos(wilson_loop_sums(links, r, t)), dim=(-2, -1))
+def wilson_loop(links: torch.Tensor, r: int, t: int,
+                sharding=None) -> torch.Tensor:
+    """Per-sample ``<W(t x r)> = <cos(loop angle)>``; with a ``sharding``,
+    ``links`` is this rank's slab and the mean the whole lattice's."""
+    if sharding is None:
+        loops = wilson_loop_sums(links, r, t)
+    else:
+        loops = wilson_loop_sums_slab(links, r, t, sharding)
+    n = loops.shape[-2] * loops.shape[-1] * (sharding.n if sharding else 1)
+    return chain_total(torch.sum(torch.cos(loops), dim=(-2, -1)),
+                       sharding) / n
 
 
 def creutz_ratio(w_rt, w_r1t1, w_r1t, w_rt1):
@@ -239,19 +270,116 @@ def creutz_ratio(w_rt, w_r1t1, w_r1t, w_rt1):
     return -torch.log(torch.as_tensor(w_rt * w_r1t1 / (w_r1t * w_rt1)))
 
 
-def observables(x: torch.Tensor, shape: LatticeShape, beta=None):
-    """{actions, plaqs, charges[, plaqs_exact]} from one plaquette pass."""
-    p = plaq_sums(to_links(x, shape))
+def observables(x: torch.Tensor, shape: LatticeShape, beta=None,
+                sharding=None):
+    """{actions, plaqs, charges[, plaqs_exact]} from one plaquette pass;
+    with a ``sharding``, ``x`` is this rank's slab and each value the whole
+    lattice's."""
+    p = state_plaqs(x, shape, sharding)
     cos_p = torch.cos(p)
-    out = {
-        "actions": torch.sum(1.0 - cos_p, dim=(-2, -1)),
-        "plaqs": torch.mean(cos_p, dim=(-2, -1)),
-        "charges": torch.round(
-            torch.sum(project_angle(p), dim=(-2, -1)) / TWO_PI),
-    }
+    sums = chain_total(torch.stack([
+        torch.sum(1.0 - cos_p, dim=(-2, -1)),
+        torch.sum(cos_p, dim=(-2, -1)),
+        torch.sum(project_angle(p), dim=(-2, -1))]), sharding)
+    out = {"actions": sums[0], "plaqs": sums[1] / shape.num_plaquettes,
+           "charges": torch.round(sums[2] / TWO_PI)}
     if beta is not None:
         out["plaqs_exact"] = u1_plaq_exact(beta)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Slab forms: one 'space' rank's time rows (parallel/spatial.py)
+# ---------------------------------------------------------------------------
+#
+# ``sharding`` is a ``parallel.spatial.LatticeSharding`` bound to the
+# lattice: this rank holds the time rows ``[t0, t0 + lt_blk)``.  Each form
+# computes over the plaquettes (or loops) based in the owned rows, fetching
+# the rows after the slab by a halo exchange, and adds its per-chain sums
+# over 'space'.
+
+
+def slab_links(x: torch.Tensor, sharding) -> torch.Tensor:
+    """A flat slab ``(B, x_dim / n)`` as links ``(B, lt_blk, Lx, 2)``."""
+    return x.reshape(x.shape[0], sharding.lt_blk, sharding.lx, 2)
+
+
+def slab_plaq_sums(links: torch.Tensor, sharding,
+                   extra: int = 0) -> torch.Tensor:
+    """:func:`plaq_sums` of the owned plaquette rows and ``extra`` rows
+    after them, ``(B, lt_blk + extra, Lx)``; the rows after the slab are
+    the next slab's (a halo of ``extra + 1`` link rows; differentiable)."""
+    ext = sharding.halo(links, 1, 0, extra + 1)
+    u0, u1 = ext[:, :-1, :, 0], ext[..., 1]
+    return u0 - u1[:, :-1] - torch.roll(u0, -1, dims=-1) + u1[:, 1:]
+
+
+def state_links(x: torch.Tensor, shape: LatticeShape,
+                sharding=None) -> torch.Tensor:
+    """Flat states as links: the whole lattice's, or with a ``sharding``
+    this rank's slab."""
+    return to_links(x, shape) if sharding is None else slab_links(x,
+                                                                  sharding)
+
+
+def state_plaqs(x: torch.Tensor, shape: LatticeShape,
+                sharding=None) -> torch.Tensor:
+    """The plaquettes of flat states: all of them, or with a ``sharding``
+    those based in this rank's rows."""
+    links = state_links(x, shape, sharding)
+    if sharding is None:
+        return plaq_sums(links)
+    return slab_plaq_sums(links, sharding)
+
+
+def chain_total(t: torch.Tensor, sharding=None) -> torch.Tensor:
+    """Per-chain sums of the whole lattice from this rank's: ``t`` itself,
+    or with a ``sharding`` added over 'space' (differentiable)."""
+    return t if sharding is None else sharding.space_sum(t)
+
+
+def slab_rect_sums(links: torch.Tensor, sharding):
+    """:func:`rect_sums` of the rectangles based in the owned rows (a halo
+    of two rows after the slab)."""
+    n = links.shape[1]
+    ext = sharding.halo(links, 1, 0, 2)
+    u0, u1 = ext[..., 0], ext[..., 1]
+
+    def r(a, st, sx):
+        return torch.roll(a[:, st:st + n], shifts=-sx, dims=-1)
+
+    rect_t = (r(u0, 0, 0) + r(u0, 1, 0) + r(u1, 2, 0) - r(u0, 1, 1)
+              - r(u0, 0, 1) - r(u1, 0, 0))
+    rect_x = (r(u0, 0, 0) + r(u1, 1, 0) + r(u1, 1, 1) - r(u0, 0, 2)
+              - r(u1, 0, 1) - r(u1, 0, 0))
+    return rect_t, rect_x
+
+
+def improved_action_slab(links: torch.Tensor, sharding,
+                         c1: float = -1.0 / 12.0) -> torch.Tensor:
+    """:func:`improved_action` of the whole lattice per chain from this
+    rank's slab ``links (B, lt_blk, Lx, 2)`` (differentiable)."""
+    c0 = 1.0 - 8.0 * c1
+    s = c0 * torch.sum(1.0 - torch.cos(slab_plaq_sums(links, sharding)),
+                       dim=(-2, -1))
+    if c1 != 0.0:
+        rect_t, rect_x = slab_rect_sums(links, sharding)
+        s = s + c1 * (torch.sum(1.0 - torch.cos(rect_t), dim=(-2, -1))
+                      + torch.sum(1.0 - torch.cos(rect_x), dim=(-2, -1)))
+    return chain_total(s, sharding)
+
+
+def wilson_loop_sums_slab(links: torch.Tensor, r: int, t: int,
+                          sharding) -> torch.Tensor:
+    """:func:`wilson_loop_sums` of the loops based in the owned rows (their
+    plaquettes reach ``t - 1`` rows past the slab)."""
+    n = links.shape[1]
+    p = slab_plaq_sums(links, sharding, t - 1)
+    box = torch.zeros_like(p[:, :n])
+    for i in range(t):
+        for j in range(r):
+            box = box + torch.roll(p[:, i:i + n], shifts=-j, dims=-1)
+    return box
 
 
 # ---------------------------------------------------------------------------

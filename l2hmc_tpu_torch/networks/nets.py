@@ -33,6 +33,15 @@ Port of ``l2hmc_tpu/networks/nets.py``:
 Every module has ``from_reference_leaf(name, array)``: the reference leaf
 at the dotted ``name`` in the module's own layout (the identity but for the
 image nets).
+
+Every module also has ``forward_sharded(v, x, t, sharding)``: the same
+function on one 'space' rank's slab of the lattice (``parallel/spatial.py``;
+the inputs and S/T/Q are this rank's columns).  The dense nets row-split
+their input matrix over the slab and add the partial products over 'space';
+the layers after that sum are replicated, and the heads are column-split to
+the slab.  The image nets take the rows around the slab by halo exchanges
+before each periodic conv.  A parameter used on the slab goes through
+``sharding.enter``, so its gradient comes out whole on every rank.
 """
 
 from __future__ import annotations
@@ -67,6 +76,29 @@ def matmul(x, w, bf16: bool = False):
     if bf16:
         return x.bfloat16().float() @ w.bfloat16().float()
     return x @ w
+
+
+def _split_heads(heads, coeff_scale, coeff_transformation, bounded_q):
+    """``(scale, translation, transformation)`` of the fused head outputs
+    ``[S | T | Q]``."""
+    s_raw, translation, q_raw = torch.chunk(heads, 3, dim=-1)
+    scale = torch.tanh(s_raw) * torch.exp(coeff_scale)
+    if bounded_q:
+        q_raw = torch.tanh(q_raw)
+    return scale, translation, q_raw * torch.exp(coeff_transformation)
+
+
+def _slab_heads(net, hh, sp, bf16):
+    """The fused head of ``net`` on the slab's columns: ``hh`` (replicated)
+    enters the slab, ``head_w``, ``head_b`` and the coefficients are
+    column-split."""
+    cols3 = sp.field_index(3, hh.device)
+    cols = sp.field_index(1, hh.device)
+    heads = (matmul(sp.enter(hh), sp.enter(net.head_w)[:, cols3], bf16)
+             + sp.enter(net.head_b)[cols3])
+    return _split_heads(heads, sp.enter(net.coeff_scale)[:, cols],
+                        sp.enter(net.coeff_transformation)[:, cols],
+                        net.spec.bounded_q)
 
 
 class Dense(nn.Module):
@@ -149,12 +181,36 @@ class MLPNet(nn.Module):
         hh = torch.relu(matmul(inp, self.in_w, bf16) + self.in_b)
         hh = torch.relu(self.h_layer(hh, bf16))
         heads = matmul(hh, self.head_w, bf16) + self.head_b
-        s_raw, translation, q_raw = torch.chunk(heads, 3, dim=-1)
-        scale = torch.tanh(s_raw) * torch.exp(self.coeff_scale)
-        if self.spec.bounded_q:
-            q_raw = torch.tanh(q_raw)
-        transformation = q_raw * torch.exp(self.coeff_transformation)
-        return scale, translation, transformation
+        return _split_heads(heads, self.coeff_scale,
+                            self.coeff_transformation, self.spec.bounded_q)
+
+    def forward_sharded(self, v, x, t, sharding, aux=None):
+        """:meth:`forward` on one 'space' rank's slab: ``v`` and ``x`` hold
+        the slab's columns of each input slot (a ``[cos | sin]`` slot: the
+        slab's cosines, then its sines).  ``in_w``'s rows of those columns
+        give a partial product, added over 'space'; the ``t`` (and
+        ``aux``) rows and ``in_b`` are added once after the sum."""
+        spec, sp, bf16 = self.spec, sharding, self.spec.use_bf16
+        d = spec.x_dim
+        dv, dx = spec.v_in_dim or d, spec.x_in_dim or d
+        dev = v.device
+        rows = torch.cat([sp.field_index(dv // d, dev),
+                          dv + sp.field_index(dx // d, dev)])
+        part = matmul(torch.cat([v, x], dim=-1),
+                      sp.enter(self.in_w)[rows], bf16)
+        rest, w_rest = [t], [self.in_w[dv + dx:dv + dx + 2]]
+        if spec.aux_dim > 0:
+            if aux is None:
+                raise ValueError(
+                    f"this net has aux_dim={spec.aux_dim}: pass the "
+                    "conditioning input aux (B, aux_dim)")
+            rest.append(aux)
+            w_rest.append(self.in_w[dv + dx + 2:])
+        pre = sp.space_sum(part) + matmul(torch.cat(rest, dim=-1),
+                                          torch.cat(w_rest), bf16)
+        hh = torch.relu(pre + self.in_b)
+        hh = torch.relu(self.h_layer(hh, bf16))
+        return _slab_heads(self, hh, sp, bf16)
 
 
 def make_mlp_net(spec: MLPNetSpec, generator=None, device=None) -> MLPNet:
@@ -179,6 +235,11 @@ class ZeroNet(nn.Module):
 
     def forward(self, v, x, t):
         z = torch.zeros((v.shape[0], self.x_dim), dtype=v.dtype,
+                        device=v.device)
+        return z, z, z
+
+    def forward_sharded(self, v, x, t, sharding):
+        z = torch.zeros((v.shape[0], sharding.x_dim), dtype=v.dtype,
                         device=v.device)
         return z, z, z
 
@@ -210,6 +271,24 @@ def conv2d_periodic(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     """kxk conv of NCHW ``x`` with OIHW ``w`` on periodic padding; with
     ``bf16`` both operands rounded to bfloat16, the sums in float32."""
     x = periodic_pad_2d(x, w.shape[-1])
+    if bf16:
+        x, w = x.bfloat16().float(), w.bfloat16().float()
+    return F.conv2d(x, w, b, stride=stride)
+
+
+def conv2d_slab(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                sharding, stride: int = 1, bf16: bool = False
+                ) -> torch.Tensor:
+    """:func:`conv2d_periodic` on one 'space' rank's rows of an NCHW field
+    (H the time axis): the rows around the slab by a halo exchange
+    (``(k-1)//2`` before, ``k//2`` after), the space axis wrapped."""
+    k = w.shape[-1]
+    pl, pr = (k - 1) // 2, k // 2
+    if stride > 1:
+        sharding.check_stride(stride)
+    if pl or pr:
+        x = sharding.halo(x, 2, pl, pr)
+        x = F.pad(x, (pl, pr, 0, 0), mode="circular")
     if bf16:
         x, w = x.bfloat16().float(), w.bfloat16().float()
     return F.conv2d(x, w, b, stride=stride)
@@ -382,12 +461,46 @@ class ConvNet(nn.Module):
                         + self.t_layer(t, bf16))
         hh = torch.relu(self.h_layer(hh, bf16))
         heads = matmul(hh, self.head_w, bf16) + self.head_b
-        s_raw, translation, q_raw = torch.chunk(heads, 3, dim=-1)
-        scale = torch.tanh(s_raw) * torch.exp(self.coeff_scale)
-        if self.spec.bounded_q:
-            q_raw = torch.tanh(q_raw)
-        transformation = q_raw * torch.exp(self.coeff_transformation)
-        return scale, translation, transformation
+        return _split_heads(heads, self.coeff_scale,
+                            self.coeff_transformation, self.spec.bounded_q)
+
+    def _stack_sharded(self, c1: _Conv, c2: _Conv, flat, sp):
+        bf16 = self.spec.use_bf16
+        y = to_image(flat, sp.lt_blk, self.spec.space_size)
+        y = torch.relu(conv2d_slab(y, sp.enter(c1.w), sp.enter(c1.b), sp,
+                                   bf16=bf16))
+        if self.spec.use_lrn:
+            y = local_response_norm(y)
+        y = torch.relu(conv2d_slab(y, sp.enter(c2.w), sp.enter(c2.b), sp,
+                                   stride=2, bf16=bf16))
+        if self.spec.use_lrn:
+            y = local_response_norm(y)
+        return y.reshape(flat.shape[0], -1)
+
+    def _slab_rows(self, layer: "Dense", sp):
+        """The rows of ``x_layer.w`` / ``v_layer.w`` (NCHW flatten order)
+        that multiply the slab's conv outputs: rows ``[t0/2, t0/2 +
+        lt_blk/2)`` of each channel, strided."""
+        f2, h = 2 * self.spec.num_filters, layer.w.shape[1]
+        r0 = sp.t0 // 2
+        w = sp.enter(layer.w).view(f2, self.lt2, self.lx2, h)
+        return w[:, r0:r0 + sp.lt_blk // 2].reshape(-1, h)
+
+    def forward_sharded(self, v, x, t, sharding):
+        """:meth:`forward` on one 'space' rank's slab: both conv stacks on
+        the slab's rows (halos of 1 row each side for the 3x3 conv, 1 after
+        for the stride-2 2x2; the slab's rows must be even), the dense
+        embeddings row-split and added over 'space', then the replicated
+        layers and the column-split head."""
+        sp, bf16 = sharding, self.spec.use_bf16
+        xc = self._stack_sharded(self.conv_x1, self.conv_x2, x, sp)
+        vc = self._stack_sharded(self.conv_v1, self.conv_v2, v, sp)
+        part = (matmul(vc, self._slab_rows(self.v_layer, sp), bf16)
+                + matmul(xc, self._slab_rows(self.x_layer, sp), bf16))
+        hh = torch.relu(sp.space_sum(part) + self.v_layer.b + self.x_layer.b
+                        + self.t_layer(t, bf16))
+        hh = torch.relu(self.h_layer(hh, bf16))
+        return _slab_heads(self, hh, sp, bf16)
 
 
 def make_conv_net(spec: ConvNetSpec, generator=None, device=None) -> ConvNet:
@@ -418,6 +531,30 @@ def stencil_layer(chans: Sequence[torch.Tensor], w: torch.Tensor,
     out = torch.einsum("cobd,ocj->jbd", sh, w) + bias[:, None, None]
     if tau is not None:
         out = out + (tau @ wt).t()[:, :, None]
+    return list(torch.relu(out))
+
+
+def stencil_layer_slab(chans: Sequence[torch.Tensor], w: torch.Tensor,
+                       bias: torch.Tensor, lx: int, sharding,
+                       tau: Optional[torch.Tensor] = None,
+                       wt: Optional[torch.Tensor] = None
+                       ) -> List[torch.Tensor]:
+    """:func:`stencil_layer` on one 'space' rank's slab: the channels' rows
+    around the slab by one halo exchange (1 row each side), the parameters
+    entering the slab."""
+    sp = sharding
+    a = torch.stack(list(chans))
+    c, b, d = a.shape
+    ext = sp.halo(a.reshape(c, b, -1, lx), 2, 1, 1)
+    n = ext.shape[2] - 2
+    sh = torch.stack([
+        torch.roll(ext[:, :, 1 - dt:1 - dt + n], shifts=ds,
+                   dims=3).reshape(c, b, d)
+        for dt, ds in STENCIL_OFF], dim=1)
+    out = (torch.einsum("cobd,ocj->jbd", sh, sp.enter(w))
+           + sp.enter(bias)[:, None, None])
+    if tau is not None:
+        out = out + sp.enter(tau @ wt).t()[:, :, None]
     return list(torch.relu(out))
 
 
@@ -539,8 +676,16 @@ class LocalFlatNet(nn.Module):
                             self.coeff_transformation, self.spec.bounded_q)
 
     def forward(self, v, x, t):
+        return self._forward(v, x, t, None)
+
+    def forward_sharded(self, v, x, t, sharding):
+        """:meth:`forward` on one 'space' rank's slab: each stencil layer
+        takes one halo row on each side of the slab."""
+        return self._forward(v, x, t, sharding)
+
+    def _forward(self, v, x, t, sp):
         b = v.shape[0]
-        d = self.spec.time_size * self.spec.space_size
+        d = v.shape[1] // self.spec.v_channels   # the sites held
 
         def split_dir(flat, n_ch):
             if n_ch == 2:
@@ -551,7 +696,19 @@ class LocalFlatNet(nn.Module):
 
         chans = (split_dir(v, self.spec.v_channels)
                  + split_dir(x, self.spec.x_channels))
-        (s0, t0, q0), (s1, t1, q1) = self.apply_channels(chans, t)
+        if sp is None:
+            (s0, t0, q0), (s1, t1, q1) = self.apply_channels(chans, t)
+        else:
+            lx = self.spec.space_size
+            st = self.stencils()
+            y = stencil_layer_slab(chans, st[0].w, st[0].b, lx, sp, t,
+                                   st[0].wt)
+            for s in st[1:]:
+                y = stencil_layer_slab(y, s.w, s.b, lx, sp)
+            (s0, t0, q0), (s1, t1, q1) = stencil_head(
+                y, sp.enter(self.head.w), sp.enter(self.head.b),
+                sp.enter(self.coeff_scale),
+                sp.enter(self.coeff_transformation), self.spec.bounded_q)
 
         def join(c0, c1):
             return torch.stack([c0, c1], dim=-1).reshape(b, 2 * d)
@@ -608,18 +765,38 @@ class LocalNet(nn.Module):
         return array
 
     def forward(self, v, x, t):
+        return self._forward(v, x, t, None)
+
+    def forward_sharded(self, v, x, t, sharding):
+        """:meth:`forward` on one 'space' rank's slab: each kxk conv takes
+        the rows around the slab by a halo exchange."""
+        return self._forward(v, x, t, sharding)
+
+    def _forward(self, v, x, t, sp):
         spec = self.spec
-        b, lt, lx = v.shape[0], spec.time_size, spec.space_size
+        b, lx = v.shape[0], spec.space_size
+        lt = spec.time_size if sp is None else sp.lt_blk
         bf16 = spec.use_bf16
+        if sp is None:
+            def conv(y, layer):
+                return conv2d_periodic(y, layer.w, layer.b, bf16=bf16)
+
+            def param(p):
+                return p
+        else:
+            def conv(y, layer):
+                return conv2d_slab(y, sp.enter(layer.w), sp.enter(layer.b),
+                                   sp, bf16=bf16)
+
+            param = sp.enter
         t_img = t[:, :, None, None].expand(b, 2, lt, lx)
         y = torch.cat([to_image(v, lt, lx), to_image(x, lt, lx), t_img],
                       dim=1)
         for i in range(spec.num_layers):
-            layer = getattr(self, f"conv_{i}")
-            y = torch.relu(conv2d_periodic(y, layer.w, layer.b, bf16=bf16))
-        heads = conv2d_periodic(y, self.head.w, self.head.b, bf16=bf16)
-        cs = torch.exp(self.coeff_scale)[None, :, None, None]
-        ct = torch.exp(self.coeff_transformation)[None, :, None, None]
+            y = torch.relu(conv(y, getattr(self, f"conv_{i}")))
+        heads = conv(y, self.head)
+        cs = torch.exp(param(self.coeff_scale))[None, :, None, None]
+        ct = torch.exp(param(self.coeff_transformation))[None, :, None, None]
         q_raw = heads[:, 4:6]
         if spec.bounded_q:
             q_raw = torch.tanh(q_raw)

@@ -115,6 +115,27 @@ _SIGNATURES = {
         _P, _P,                      # dlinks (B, Lt, Lx, 2), dg (B,)
         _I, _I, _I, _I, _I, _P,      # B, lt, lx, route, device, stream
     ]),
+    # the slab route: e = the extended slab's rows (owned rows + 2)
+    "wilson_slab_fwd_launch": (_I, [
+        _P, _P, _P,                  # links (B, e, Lx, 2); action (B,),
+                                     # sinp (B, e, Lx) or null (action only)
+        _I, _I, _I, _I, _P,          # B, e, lx, device, stream
+    ]),
+    "wilson_slab_force_launch": (_I, [
+        _P, _P, _P,                  # links, g (B,); force (B, e-2, Lx, 2)
+        _I, _I, _I, _I, _P,          # B, e, lx, device, stream
+    ]),
+    "wilson_slab_bwd_launch": (_I, [
+        _P, _P, _P,                  # sinp (B, e, Lx), g (B,); dlinks
+        _I, _I, _I, _I, _P,          # B, e, lx, device, stream
+    ]),
+    "wilson_slab_bwd_bwd_launch": (_I, [
+        _P, _P, _P,                  # links, g (B,), w (B, w_rows, Lx, 2)
+        _P, _P,                      # dlinks (B, e, Lx, 2), dg (B,)
+        _I, _I, _I,                  # B, e, lx
+        _I, _I, _I,                  # p_lo, w_off, w_rows
+        _I, _P,                      # device, stream
+    ]),
     "empty_launch": (_I, [_I, _I, _I, _P]),   # blocks, threads, device, stream
 }
 

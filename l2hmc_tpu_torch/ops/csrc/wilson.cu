@@ -350,6 +350,168 @@ int dispatch(const Args& a, int route, int device, void* stream) {
   return launch<KIND, kRouteGlobal>(a, st);
 }
 
+// ---------------------------------------------------------------------------
+// The slab route: one 'space' rank's rows of a lattice split over its time
+// axis (l2hmc_tpu_torch/parallel/spatial.py).  The input is the slab
+// extended by one halo row on each side, (B, E, lx, 2) with E = rows + 2:
+// row 0 is the previous slab's last row, row E-1 the next slab's first
+// (only its u1 is read).  The time axis is open, never wrapped.
+//
+//   forward    S[b] = sum over the owned plaquette rows t = 1..E-2 of
+//              (1 - cos P); sinp (B, E, lx): sin P there, 0 on rows 0, E-1
+//   backward   the open-t backward of a sinp field (B, E, lx):
+//              F0 = g (sinP - sinP(t, s-1)), F1 = g (-sinP + sinP(t-1, s)),
+//              sinP(-1, .) = 0; on every row of the extended slab
+//   force      the complete force on the owned links (B, E-2, lx, 2): the
+//              backward of the plaquette rows 0..E-2, so P(t0-1) (row 0)
+//              enters and no exchange is needed afterwards
+//   double bw  for a cotangent w on rows [w_off, w_off + w_rows) of the
+//              extended slab (0 elsewhere) and the plaquette rows p_lo..E-2:
+//              r and h as above, h = 0 outside those rows; dlinks on every
+//              row of the extended slab, dg[b] = sum r sin P.  The force's
+//              backward is (p_lo, w_off, w_rows) = (0, 1, E-2), the action
+//              backward's (1, 0, E).
+//
+// A simple design, read from device memory like the global route: one block
+// per chain, sin P and h recomputed at the neighbours.  The products and
+// differences keep the plain versions' order (ops/wilson.py
+// wilson_slab_*_reference).
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ float slab_plaq(const float2* u, int t, int s,
+                                           int lx) {
+  const int i = t * lx + s;
+  const int sp = s + 1 == lx ? i + 1 - lx : i + 1;
+  return u[i].x - u[i].y - u[sp].x + u[i + lx].y;
+}
+
+// The cotangent at row t (0 outside [w_off, w_off + w_rows)).
+__device__ __forceinline__ float2 slab_w(const float2* w, int t, int s,
+                                         int lx, int w_off, int w_rows) {
+  const int k = t - w_off;
+  return (k >= 0 && k < w_rows) ? __ldg(w + k * lx + s)
+                                : make_float2(0.0f, 0.0f);
+}
+
+// h = g cos P r at plaquette (t, s), 0 outside rows [p_lo, e-1); r and
+// sin P there too.
+__device__ __forceinline__ float slab_h(const float2* u, const float2* w,
+                                        float g, int t, int s, int e, int lx,
+                                        int p_lo, int w_off, int w_rows,
+                                        float* r_out, float* sin_out) {
+  if (t < p_lo || t >= e - 1) {
+    *r_out = 0.0f;
+    *sin_out = 0.0f;
+    return 0.0f;
+  }
+  const int s1 = s + 1 == lx ? 0 : s + 1;
+  const float2 a = slab_w(w, t, s, lx, w_off, w_rows);
+  const float r = a.x - slab_w(w, t, s1, lx, w_off, w_rows).x - a.y +
+                  slab_w(w, t + 1, s, lx, w_off, w_rows).y;
+  float sn, cs;
+  sincosf(slab_plaq(u, t, s, lx), &sn, &cs);
+  *r_out = r;
+  *sin_out = sn;
+  return (g * cs) * r;
+}
+
+template <int KIND>
+__global__ void __launch_bounds__(kBlockThreads)
+    wilson_slab_kernel(const float* __restrict__ links,
+                       const float* __restrict__ sinp_in,
+                       const float* __restrict__ g,
+                       const float* __restrict__ wp,
+                       float* __restrict__ action, float* __restrict__ sinp,
+                       float* __restrict__ outp, float* __restrict__ dg,
+                       int e, int lx, int p_lo, int w_off, int w_rows) {
+  __shared__ float scratch[CHAIN_MAX_WARPS];
+  const int d = e * lx;
+  const long long b = blockIdx.x;
+  const size_t site0 = (size_t)b * d;
+  const float2* __restrict__ u =
+      reinterpret_cast<const float2*>(links) + site0;
+
+  if constexpr (KIND == kFwd || KIND == kFwdAction) {
+    float acc = 0.0f;
+    for (int i = threadIdx.x; i < d; i += blockDim.x) {
+      const int t = i / lx, s = i - t * lx;
+      const bool owned = t >= 1 && t < e - 1;
+      if constexpr (KIND == kFwd) {
+        float sn = 0.0f, cs = 1.0f;
+        if (owned) sincosf(slab_plaq(u, t, s, lx), &sn, &cs);
+        sinp[site0 + i] = sn;
+        acc += 1.0f - cs;
+      } else if (owned) {
+        acc += 1.0f - cosf(slab_plaq(u, t, s, lx));
+      }
+    }
+    acc = block_total(acc, scratch);
+    if (threadIdx.x == 0) action[b] = acc;
+  } else if constexpr (KIND == kBwd) {
+    const float gb = g[b];
+    const float* sp = sinp_in + site0;
+    float2* out = reinterpret_cast<float2*>(outp) + site0;
+    for (int i = threadIdx.x; i < d; i += blockDim.x) {
+      const int t = i / lx, s = i - t * lx;
+      const float s0 = sp[i];
+      const float left = sp[s == 0 ? i + lx - 1 : i - 1];
+      const float up = t > 0 ? sp[i - lx] : 0.0f;
+      out[i] = make_float2(gb * (s0 - left), gb * (-s0 + up));
+    }
+  } else if constexpr (KIND == kForce) {
+    const float gb = g[b];
+    const int n_out = (e - 2) * lx;
+    float2* out = reinterpret_cast<float2*>(outp) + (size_t)b * n_out;
+    for (int k = threadIdx.x; k < n_out; k += blockDim.x) {
+      const int t = k / lx + 1, s = k - (t - 1) * lx;
+      const float s0 = sinf(slab_plaq(u, t, s, lx));
+      const float left = sinf(slab_plaq(u, t, s == 0 ? lx - 1 : s - 1, lx));
+      const float up = sinf(slab_plaq(u, t - 1, s, lx));
+      out[k] = make_float2(gb * (s0 - left), gb * (-s0 + up));
+    }
+  } else {  // kDbl
+    const float gb = g[b];
+    const float2* w = reinterpret_cast<const float2*>(wp) +
+                      (size_t)b * w_rows * lx;
+    float2* out = reinterpret_cast<float2*>(outp) + site0;
+    float acc = 0.0f;
+    for (int i = threadIdx.x; i < d; i += blockDim.x) {
+      const int t = i / lx, s = i - t * lx;
+      float r, sn, r_nb, sn_nb;
+      const float h = slab_h(u, w, gb, t, s, e, lx, p_lo, w_off, w_rows, &r,
+                             &sn);
+      const float h_sm = slab_h(u, w, gb, t, s == 0 ? lx - 1 : s - 1, e, lx,
+                                p_lo, w_off, w_rows, &r_nb, &sn_nb);
+      const float h_tm = t > 0 ? slab_h(u, w, gb, t - 1, s, e, lx, p_lo,
+                                        w_off, w_rows, &r_nb, &sn_nb)
+                               : 0.0f;
+      out[i] = make_float2(h - h_sm, -h + h_tm);
+      acc += r * sn;
+    }
+    acc = block_total(acc, scratch);
+    if (threadIdx.x == 0) dg[b] = acc;
+  }
+}
+
+template <int KIND>
+int slab_dispatch(const Args& a, int p_lo, int w_off, int w_rows,
+                  int device, void* stream) {
+  DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return (int)guard.err;
+  if (a.B <= 0) return 0;
+  // a.lt is E, the extended slab's rows: at least one owned row
+  if (a.lt < 3 || a.lx < 2 || (long long)a.lt * a.lx > (1ll << 29) ||
+      p_lo < 0 || p_lo > 1 || w_rows < 0 || w_off < 0 ||
+      w_off + w_rows > a.lt)
+    return (int)cudaErrorInvalidValue;
+  wilson_slab_kernel<KIND>
+      <<<(unsigned)a.B, block_threads(a.lt * a.lx), 0,
+         (cudaStream_t)stream>>>(a.links, a.sinp_in, a.g, a.w, a.action,
+                                 a.sinp, a.out, a.dg, a.lt, a.lx, p_lo,
+                                 w_off, w_rows);
+  return (int)cudaGetLastError();
+}
+
 __global__ void empty_kernel() {}
 
 }  // namespace
@@ -393,6 +555,44 @@ extern "C" int wilson_bwd_bwd_launch(const float* links, const float* g,
   const Args a{links, nullptr, g, w, nullptr, nullptr,
                dlinks, dg, B, lt, lx};
   return dispatch<kDbl>(a, route, device, stream);
+}
+
+// The slab route (e = the extended slab's rows, owned rows + 2).
+// sinp == nullptr: the action alone.
+extern "C" int wilson_slab_fwd_launch(const float* links, float* action,
+                                      float* sinp, int B, int e, int lx,
+                                      int device, void* stream) {
+  const Args a{links, nullptr, nullptr, nullptr, action, sinp,
+               nullptr, nullptr, B, e, lx};
+  return sinp == nullptr
+             ? slab_dispatch<kFwdAction>(a, 0, 0, 0, device, stream)
+             : slab_dispatch<kFwd>(a, 0, 0, 0, device, stream);
+}
+
+extern "C" int wilson_slab_force_launch(const float* links, const float* g,
+                                        float* force, int B, int e, int lx,
+                                        int device, void* stream) {
+  const Args a{links, nullptr, g, nullptr, nullptr, nullptr,
+               force, nullptr, B, e, lx};
+  return slab_dispatch<kForce>(a, 0, 0, 0, device, stream);
+}
+
+extern "C" int wilson_slab_bwd_launch(const float* sinp, const float* g,
+                                      float* force, int B, int e, int lx,
+                                      int device, void* stream) {
+  const Args a{nullptr, sinp, g, nullptr, nullptr, nullptr,
+               force, nullptr, B, e, lx};
+  return slab_dispatch<kBwd>(a, 0, 0, 0, device, stream);
+}
+
+extern "C" int wilson_slab_bwd_bwd_launch(const float* links, const float* g,
+                                          const float* w, float* dlinks,
+                                          float* dg, int B, int e, int lx,
+                                          int p_lo, int w_off, int w_rows,
+                                          int device, void* stream) {
+  const Args a{links, nullptr, g, w, nullptr, nullptr,
+               dlinks, dg, B, e, lx};
+  return slab_dispatch<kDbl>(a, p_lo, w_off, w_rows, device, stream);
 }
 
 // An empty kernel: the launch floor that the Wilson kernels at the training

@@ -406,6 +406,299 @@ def make_potential_fn(shape):
     return potential
 
 
+# ---------------------------------------------------------------------------
+# The slab route: one 'space' rank's time rows (parallel/spatial.py)
+# ---------------------------------------------------------------------------
+#
+# A slab of ``n`` owned time rows comes extended by one halo row on each
+# side, ``ext (B, E, Lx, 2)`` with ``E = n + 2``: row 0 is the previous
+# slab's last row, row ``E-1`` the next slab's first (only its u1 is read).
+# The time axis is open.  The slab's action sums the owned plaquette rows
+# ``1..E-2``; its force is complete on the owned links (the plaquette row 0,
+# P(t0-1), is in the extended slab); its backward and double backward give
+# gradients on every row of the extended slab, which the halo exchange's
+# backward adds into their owners' rows.
+
+
+def _slab_plaq(ext):
+    """``P (B, E-1, Lx)`` of the plaquette rows ``0..E-2`` of an extended
+    slab, in :func:`_plaq_sums`'s order."""
+    u0, u1 = ext[..., 0], ext[..., 1]
+    a0 = u0[:, :-1]
+    return a0 - u1[:, :-1] - torch.roll(a0, -1, dims=-1) + u1[:, 1:]
+
+
+def _open_t_grad(field):
+    """``(f - f(t, s-1), -f + f(t-1, s))`` of ``field (B, E, Lx)`` with
+    ``f(-1, .) = 0``: the open-t form of :func:`_grad_from_sinp`."""
+    up = torch.cat([torch.zeros_like(field[:, :1]), field[:, :-1]], dim=1)
+    return torch.stack([field - torch.roll(field, 1, dims=-1), -field + up],
+                       dim=-1)
+
+
+def wilson_slab_forward_reference(ext):
+    """``(S (B,), sin P (B, E, Lx))`` of an extended slab: the owned
+    plaquette rows' action and their sines, zero on rows 0 and E-1."""
+    p = _slab_plaq(ext)[:, 1:]
+    sinp = torch.nn.functional.pad(torch.sin(p), (0, 0, 1, 1))
+    return torch.sum(1.0 - torch.cos(p), dim=(-2, -1)), sinp
+
+
+def wilson_slab_backward_reference(sinp, g):
+    """``g`` times the open-t backward of ``sin P (B, E, Lx)``: the slab
+    action's gradient on every row of the extended slab."""
+    return g[:, None, None, None] * _open_t_grad(sinp)
+
+
+def wilson_slab_force_reference(ext, g):
+    """The force ``g dS/dlinks`` on the owned links ``(B, E-2, Lx, 2)`` of
+    an extended slab, complete (the plaquette row 0 included), in
+    differentiable torch ops."""
+    s = torch.sin(_slab_plaq(ext))
+    own, below = s[:, 1:], s[:, :-1]
+    f = torch.stack([own - torch.roll(own, 1, dims=-1), -own + below],
+                    dim=-1)
+    return g[:, None, None, None] * f
+
+
+def wilson_slab_double_backward_reference(ext, g, w, p_lo: int, w_off: int):
+    """``(dext (B, E, Lx, 2), dg (B,))`` for the cotangent ``w`` on rows
+    ``[w_off, w_off + len(w))`` of the extended slab (zero elsewhere),
+    with the plaquette rows ``p_lo..E-2``: the force's backward is
+    ``(p_lo, w_off) = (0, 1)``, the action backward's ``(1, 0)``."""
+    e = ext.shape[1]
+    w = torch.nn.functional.pad(
+        w, (0, 0, 0, 0, w_off, e - w_off - w.shape[1]))
+    w0, w1 = w[..., 0], w[..., 1]
+    a0 = w0[:, :-1]
+    r = (a0 - torch.roll(a0, -1, dims=-1) - w1[:, :-1] + w1[:, 1:])[:, p_lo:]
+    p = _slab_plaq(ext)[:, p_lo:]
+    h = g[:, None, None] * torch.cos(p) * r
+    dext = _open_t_grad(torch.nn.functional.pad(h, (0, 0, p_lo, 1)))
+    return dext, torch.sum(r * torch.sin(p), dim=(-2, -1))
+
+
+def _slab_dims(ext):
+    if ext.dim() != 4 or ext.shape[-1] != 2 or ext.shape[1] < 3 \
+            or ext.shape[2] < 2:
+        raise ValueError("ext: expected an extended slab (B, E, Lx, 2) with "
+                         f"E >= 3, Lx >= 2, got {tuple(ext.shape)}")
+    return ext.shape[:3]
+
+
+def _slab_launch(entry, device, *args):
+    _cuda.check(getattr(_cuda.library(), entry)(
+        *args, device.index or 0, _cuda.stream_handle(device)), entry)
+
+
+def wilson_slab_forward(ext):
+    """``(S (B,), sin P (B, E, Lx))`` of an extended slab: the slab route's
+    forward kernel for a CUDA tensor, the plain version for a CPU one."""
+    b, e, lx = _slab_dims(ext)
+    if not ext.is_cuda:
+        return wilson_slab_forward_reference(ext)
+    check_cuda_input("ext", ext, (b, e, lx, 2))
+    action = torch.empty((b,), dtype=torch.float32, device=ext.device)
+    sinp = torch.empty((b, e, lx), dtype=torch.float32, device=ext.device)
+    wilson_slab_forward.launches += 1
+    _slab_launch("wilson_slab_fwd_launch", ext.device, ext.data_ptr(),
+                 action.data_ptr(), sinp.data_ptr(), b, e, lx)
+    return action, sinp
+
+
+def wilson_slab_action_only(ext):
+    """``S (B,)`` of an extended slab without ``sin P``: the slab route's
+    action-only kernel for a CUDA tensor, the plain version for a CPU
+    one."""
+    b, e, lx = _slab_dims(ext)
+    if not ext.is_cuda:
+        return wilson_slab_forward_reference(ext)[0]
+    check_cuda_input("ext", ext, (b, e, lx, 2))
+    action = torch.empty((b,), dtype=torch.float32, device=ext.device)
+    wilson_slab_action_only.launches += 1
+    _slab_launch("wilson_slab_fwd_launch", ext.device, ext.data_ptr(),
+                 action.data_ptr(), None, b, e, lx)
+    return action
+
+
+def wilson_slab_backward(sinp, g):
+    """The slab action's gradient ``(B, E, Lx, 2)`` from ``sin P (B, E,
+    Lx)`` and ``g (B,)``: the slab route's backward kernel for CUDA
+    tensors."""
+    if not sinp.is_cuda:
+        return wilson_slab_backward_reference(sinp, g)
+    if sinp.dim() != 3:
+        raise ValueError("sinp: expected shape (B, E, Lx), got "
+                         f"{tuple(sinp.shape)}")
+    b, e, lx = sinp.shape
+    check_cuda_input("sinp", sinp, (b, e, lx))
+    check_cuda_input("g", g, (b,))
+    out = torch.empty((b, e, lx, 2), dtype=torch.float32, device=sinp.device)
+    wilson_slab_backward.launches += 1
+    _slab_launch("wilson_slab_bwd_launch", sinp.device, sinp.data_ptr(),
+                 g.data_ptr(), out.data_ptr(), b, e, lx)
+    return out
+
+
+def wilson_slab_force(ext, g):
+    """The complete force on the owned links ``(B, E-2, Lx, 2)`` of an
+    extended slab: the slab route's force kernel for CUDA tensors,
+    :func:`wilson_slab_force_reference` for CPU ones."""
+    b, e, lx = _slab_dims(ext)
+    if not ext.is_cuda:
+        return wilson_slab_force_reference(ext, g)
+    check_cuda_input("ext", ext, (b, e, lx, 2))
+    check_cuda_input("g", g, (b,))
+    force = torch.empty((b, e - 2, lx, 2), dtype=torch.float32,
+                        device=ext.device)
+    wilson_slab_force.launches += 1
+    _slab_launch("wilson_slab_force_launch", ext.device, ext.data_ptr(),
+                 g.data_ptr(), force.data_ptr(), b, e, lx)
+    return force
+
+
+def wilson_slab_double_backward(ext, g, w, p_lo: int, w_off: int):
+    """``(dext (B, E, Lx, 2), dg (B,))`` for the cotangent ``w`` (see
+    :func:`wilson_slab_double_backward_reference`): the slab route's
+    double-backward kernel for CUDA tensors."""
+    b, e, lx = _slab_dims(ext)
+    if not ext.is_cuda:
+        return wilson_slab_double_backward_reference(ext, g, w, p_lo, w_off)
+    check_cuda_input("ext", ext, (b, e, lx, 2))
+    check_cuda_input("g", g, (b,))
+    check_cuda_input("w", w, (b, w.shape[1], lx, 2))
+    dext = torch.empty_like(ext)
+    dg = torch.empty((b,), dtype=torch.float32, device=ext.device)
+    wilson_slab_double_backward.launches += 1
+    _slab_launch("wilson_slab_bwd_bwd_launch", ext.device, ext.data_ptr(),
+                 g.data_ptr(), w.data_ptr(), dext.data_ptr(), dg.data_ptr(),
+                 b, e, lx, p_lo, w_off, w.shape[1])
+    return dext, dg
+
+
+wilson_slab_forward.launches = 0
+wilson_slab_action_only.launches = 0
+wilson_slab_backward.launches = 0
+wilson_slab_force.launches = 0
+wilson_slab_double_backward.launches = 0
+
+
+class WilsonSlabForceKernel(torch.autograd.Function):
+    """``(ext, sinp, g) ->`` the slab action's gradient on the extended
+    slab; differentiable in ``ext`` and ``g`` through the slab double
+    backward (``sinp`` is the forward's residual)."""
+
+    @staticmethod
+    def forward(ctx, ext, sinp, g):
+        ctx.save_for_backward(ext, g)
+        return wilson_slab_backward(sinp, g)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, w):
+        ext, g = ctx.saved_tensors
+        dext, dg = wilson_slab_double_backward(ext, g, w.contiguous(), 1, 0)
+        return dext, None, dg
+
+
+class WilsonSlabAction(torch.autograd.Function):
+    """``ext (B, E, Lx, 2) -> (B,)``, the owned plaquette rows' action on
+    the slab route; its backward is :class:`WilsonSlabForceKernel`.  Where
+    no gradient can reach the links, the action-only kernel runs."""
+
+    @staticmethod
+    def forward(ctx, ext):
+        if not ctx.needs_input_grad[0]:
+            return wilson_slab_action_only(ext)
+        action, sinp = wilson_slab_forward(ext)
+        ctx.save_for_backward(ext, sinp)
+        return action
+
+    @staticmethod
+    def backward(ctx, g):
+        ext, sinp = ctx.saved_tensors
+        return WilsonSlabForceKernel.apply(ext, sinp, g.contiguous())
+
+
+class WilsonSlabForceFn(torch.autograd.Function):
+    """``(ext, g) ->`` the complete force on the owned links, on the slab
+    route's force kernel; its backward is the slab double backward, whose
+    gradient on the halo rows the halo exchange routes to their owners."""
+
+    @staticmethod
+    def forward(ctx, ext, g):
+        ctx.save_for_backward(ext, g)
+        return wilson_slab_force(ext, g)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, w):
+        ext, g = ctx.saved_tensors
+        return wilson_slab_double_backward(ext, g, w.contiguous(), 0, 1)
+
+
+def _slab_rows(lt: int, n: int, c: int, device):
+    k = lt // n
+    return (torch.arange(-1, k + 1, device=device) + c * k) % lt
+
+
+def cut_slabs(links: torch.Tensor, n: int):
+    """The ``n`` extended slabs ``(B, Lt/n + 2, Lx, 2)`` of ``links (B, Lt,
+    Lx, 2)`` on one device, each with its halo rows cut from the
+    neighbouring slabs (periodic): what the halo exchange hands each
+    'space' rank.  For checking the slab route against the whole lattice."""
+    lt = links.shape[1]
+    return [links[:, _slab_rows(lt, n, c, links.device)].contiguous()
+            for c in range(n)]
+
+
+def join_slab_grads(grads, lt: int) -> torch.Tensor:
+    """Gradients on the extended slabs of :func:`cut_slabs` added into the
+    rows they came from, ``(B, Lt, Lx, 2)``: what the halo exchange's
+    backward does across ranks."""
+    n = len(grads)
+    out = torch.zeros((grads[0].shape[0], lt, *grads[0].shape[2:]),
+                      dtype=grads[0].dtype, device=grads[0].device)
+    for c, g in enumerate(grads):
+        out.index_add_(1, _slab_rows(lt, n, c, g.device), g)
+    return out
+
+
+def make_slab_potential_fn(shape, sharding, plain: bool = False):
+    """The flat-slab potential of a lattice split over 'space'
+    (``parallel/spatial.py``): ``U(x_slab) -> (B,)`` the WHOLE lattice's
+    action per chain (the owned rows' sums added over 'space') for this
+    rank's columns ``x_slab (B, x_dim / n)``; its ``force(x_slab, beta)``
+    is ``d/dx [beta U]`` on the owned links, complete, from one forward
+    halo of one row each side.  Both differentiable: the slab route's
+    kernels for CUDA states (:class:`WilsonSlabAction`,
+    :class:`WilsonSlabForceFn`), their plain versions for CPU ones;
+    ``plain=True``: the plain versions on any device, differentiated by
+    autograd (the yardstick on the card)."""
+    sharding.check_shape(shape)
+    sp, lx = sharding, shape.space_size
+
+    def ext_of(x):
+        links = x.reshape(x.shape[0], sp.lt_blk, lx, 2)
+        return sp.halo(links, 1, 1, 1).contiguous()
+
+    def potential(x: torch.Tensor) -> torch.Tensor:
+        ext = ext_of(x)
+        local = (wilson_slab_forward_reference(ext)[0] if plain
+                 else WilsonSlabAction.apply(ext))
+        return sp.space_sum(local)
+
+    def force(x: torch.Tensor, beta) -> torch.Tensor:
+        ext = ext_of(x)
+        g = sp.enter(_per_chain(beta, x.shape[0], x))
+        f = (wilson_slab_force_reference(ext, g) if plain
+             else WilsonSlabForceFn.apply(ext, g))
+        return f.reshape(x.shape)
+
+    potential.force = force
+    return potential
+
+
 def make_plain_potential_fn(shape):
     """Flat-state potential on the plain :class:`WilsonAction` for any
     device (the yardstick the kernels are held against on the card); it has

@@ -13,10 +13,10 @@ the group is initialized by ``file://`` rendezvous in a temporary
 directory, so concurrent runs never contend for a TCP port.  The workers
 live here, so a spawned child imports the port and nothing else.
 
-:func:`dryrun_multichip` runs the reference's sharding modes 1, 2, 4, 5 and
-6 (:func:`run_modes`) on n ranks and holds them to the reference's own
-assertions (:func:`check_modes`).  Mode 3 (dp x sp of the full transition)
-waits for ``parallel.mesh.lattice_sharding``.
+:func:`dryrun_multichip` runs the reference's six sharding modes
+(:func:`run_modes`) on n ranks and holds them to the reference's own
+assertions (:func:`check_modes`); mode 3 is dp x sp of the full train step
+on a ``(n/2, 2)`` mesh (``parallel.mesh.lattice_sharding``).
 
 Every mode draws its inputs for the GLOBAL batch from one seeded generator
 and slices them, so the same call with no process group (one rank holding
@@ -106,6 +106,38 @@ def mode_train_step(n: int, device, seed: int = 0, plain: bool = False):
             "x": gather_chains(state.x, mesh).cpu(),
             "params": torch.cat([v.detach().reshape(-1).cpu()
                                  for v in leaves.values()])}, cfg, state
+
+
+def mode_lattice_step(n: int, device, seed: int = 0, plain: bool = False):
+    """Mode 3: mode 1's train step (4x4 MLP h16, K=2, 2n chains) with the
+    chains over 'data' and the lattice's time rows over 'space' on a
+    ``(n / n_sp, n_sp)`` mesh, ``n_sp = min(2, n)``, as
+    ``__graft_entry__.py:113-130`` runs it (with no process group: one rank
+    holding everything, the same code with its halos wrapped locally);
+    ``plain``: on the slab route's plain versions.  Returns the loss, the
+    acceptance, the gathered chains and the parameters."""
+    from l2hmc_tpu_torch.ops.wilson import make_slab_potential_fn
+    from l2hmc_tpu_torch.parallel.mesh import (lattice_sharding,
+                                               shard_train_state)
+    from l2hmc_tpu_torch.train.gauge import (GaugeConfig, init_train_state,
+                                             make_train_step, named_leaves)
+
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    mesh = _mesh(device, min(2, n) if world > 1 else 1)
+    cfg = GaugeConfig(time_size=4, space_size=4, num_chains=2 * n,
+                      num_steps=2, network_arch="mlp", num_hidden=16,
+                      train_steps=10)
+    sp = lattice_sharding(mesh, cfg.shape)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    state = shard_train_state(init_train_state(cfg, gen, device), mesh, sp)
+    pot = make_slab_potential_fn(cfg.shape, sp, plain=True) if plain else None
+    step, _ = make_train_step(cfg, pot, mesh=mesh, sharding=sp)
+    state, m = step(state, gen)
+    leaves = named_leaves(state.params)
+    return {"loss": float(m["loss"]), "accept_prob": float(m["accept_prob"]),
+            "x": sp.gather(state.x).cpu(), "mesh": dict(mesh.shape),
+            "params": torch.cat([v.detach().reshape(-1).cpu()
+                                 for v in leaves.values()])}
 
 
 def domain_numbers(links: torch.Tensor, weights: torch.Tensor, device,
@@ -229,18 +261,18 @@ def mode_checkpoint(cfg, state, workdir, device):
 
 def run_modes(n: int, device="cpu", workdir=None, seed: int = 0,
               moves: str = "philox"):
-    """Modes 1, 2, 4, 5 and 6 at the reference dry run's shapes for ``n``
+    """The six modes at the reference dry run's shapes for ``n``
     'data' ranks, in the current process group (or with none: one process
     holding the whole batch).  ``workdir`` (mode 6's checkpoints) must be
     one directory for every rank; ``None``: a temporary one, with no
     group only.  Returns ``{mode: numbers}`` with each
     mode's ``seconds`` (host clock, the device synchronized).
 
-    ``moves`` holds the kernels of modes 1, 4 and 5 against their plain
+    ``moves`` holds the kernels of modes 1, 3, 4 and 5 against their plain
     versions: "philox" is the path as it runs; "injected" the same but
     mode 5's chain on the generator's draws; "plain" every mode on the
-    plain Wilson action and mode 5's chain the plain version on those
-    draws."""
+    plain Wilson action (mode 3 on the slab route's plain versions) and
+    mode 5's chain the plain version on those draws."""
     from l2hmc_tpu_torch.ops.wilson import wilson_action
 
     device = torch.device(device)
@@ -259,6 +291,7 @@ def run_modes(n: int, device="cpu", workdir=None, seed: int = 0,
     plain = moves == "plain"
     _, cfg, state = timed("train_step",
                           lambda: mode_train_step(n, device, seed, plain))
+    timed("lattice_step", lambda: mode_lattice_step(n, device, seed, plain))
     n_dom = min(4, n)
     gen = torch.Generator().manual_seed(seed + 2)
     links = -3.0 + 6.0 * torch.rand((4, 4 * n_dom, 8, 2), generator=gen)
@@ -278,11 +311,14 @@ def run_modes(n: int, device="cpu", workdir=None, seed: int = 0,
 
 
 def check_modes(res: dict, n: int):
-    """The reference dry run's assertions (``__graft_entry__.py:90-111,
+    """The reference dry run's assertions (``__graft_entry__.py:90-130,
     157-158, 184-186, 201-202``); raises ``AssertionError``."""
     tr = res["train_step"]
     assert tr["x"].shape == (2 * n, 32), tr["x"].shape
     assert np.isfinite(tr["loss"]), tr["loss"]
+    ls = res["lattice_step"]
+    assert ls["x"].shape == (2 * n, 32), ls["x"].shape
+    assert np.isfinite(ls["loss"]), ls["loss"]
     dom = res["domain"]
     ref = dom["ref_value"]
     assert abs(dom["value"] - ref) < 1e-2 * max(1.0, abs(ref)), (
@@ -302,7 +338,8 @@ def check_modes(res: dict, n: int):
 def modes_diff(a: dict, b: dict) -> dict:
     """Largest difference per mode between two :func:`run_modes` results
     (states, gradients and scalars)."""
-    keys = {"train_step": ("x", "params"), "domain": ("grad", "wgrad"),
+    keys = {"train_step": ("x", "params"), "lattice_step": ("x", "params"),
+            "domain": ("grad", "wgrad"),
             "flow": ("grads",), "smc": ("x",)}
     out = {}
     for mode, ks in keys.items():
@@ -316,7 +353,7 @@ def modes_diff(a: dict, b: dict) -> dict:
 
 def dryrun_multichip(n: int, backend: str = "gloo", device="cpu",
                      workdir=None, tasks=()) -> dict:
-    """Run modes 1, 2, 4, 5 and 6 on ``n`` spawned ranks
+    """Run the six modes on ``n`` spawned ranks
     (:func:`spawn_local`), check them as the reference checks its own, print
     its summary line and return rank 0's numbers.  ``tasks``, ``(fn,
     args)`` pairs, run on the same ranks after the modes (one spawn); their
@@ -331,6 +368,8 @@ def dryrun_multichip(n: int, backend: str = "gloo", device="cpu",
     n_dom = min(4, n)
     print(f"dryrun_multichip({n}): ok — loss={res['train_step']['loss']:.4f} "
           f"acc={res['train_step']['accept_prob']:.3f} "
+          f"dpxsp{tuple(res['lattice_step']['mesh'].values())}_loss="
+          f"{res['lattice_step']['loss']:.4f} "
           f"domain_action({n_dom} shards)={res['domain']['value']:.2f} "
           f"(ref {res['domain']['ref_value']:.2f}) "
           f"flow_loss={res['flow']['loss']:.4f} "
@@ -344,35 +383,155 @@ def dryrun_multichip(n: int, backend: str = "gloo", device="cpu",
 # ---------------------------------------------------------------------------
 
 
-def replay_train_steps(cfg_dict: dict, state_dir: str, draws, remat=True):
+def _place(t, mesh, sharding):
+    """A global draw's part on this rank: chains over 'data', and per-link
+    tensors' columns over 'space' with a ``sharding``."""
+    from l2hmc_tpu_torch.parallel.mesh import shard_chains
+
+    if t is None:
+        return None
+    if sharding is not None and t.dim() == 2:
+        return sharding.shard(t)
+    return shard_chains(t, mesh)
+
+
+def _sharding(cfg, num_space):
+    """``(mesh, sharding)``: a ``(world / num_space, num_space)`` mesh with
+    a lattice sharding bound to ``cfg``'s lattice, or the 'data' mesh and
+    ``None`` for ``num_space=0``."""
+    from l2hmc_tpu_torch.parallel.mesh import lattice_sharding
+
+    if not num_space:
+        return _mesh("cpu"), None
+    mesh = _mesh("cpu", num_space)
+    return mesh, lattice_sharding(mesh, cfg.shape)
+
+
+def replay_train_steps(cfg_dict: dict, state_dir: str, draws, remat=True,
+                       num_space: int = 0, save_dir=None):
     """Restore the checkpoint under ``state_dir`` on this process group's
     'data' ranks and run one data-parallel train step per entry of
     ``draws`` (global ``TrainDraws``, sliced to each rank's chains).
-    Returns the per-step metrics (floats), the final parameters by name,
-    the gathered chains and the dual-averaging state."""
-    from l2hmc_tpu_torch.parallel.mesh import gather_chains, shard_chains
+    ``num_space > 0``: dp x sp steps on a ``(world / num_space,
+    num_space)`` mesh under ``lattice_sharding`` (the draws' momenta
+    sliced to each rank's columns too).  ``save_dir``: the final state
+    checkpointed there (gathered).  Returns the per-step metrics (floats),
+    the first step's gradients by name (``make_grad_fn``: all-reduced, the
+    optimizer's input), the final parameters by name, the gathered chains
+    and the dual-averaging state."""
+    from l2hmc_tpu_torch.parallel.mesh import gather_chains
     from l2hmc_tpu_torch.train import checkpoint as ckpt
-    from l2hmc_tpu_torch.train.gauge import (TrainDraws, config_from_dict,
-                                             init_train_state,
+    from l2hmc_tpu_torch.train.gauge import (TrainDraws, build_dynamics,
+                                             config_from_dict,
+                                             init_train_state, make_grad_fn,
                                              make_train_step, named_leaves)
+    from l2hmc_tpu_torch.train.schedules import beta_schedule
 
     cfg = config_from_dict(cfg_dict)
-    mesh = _mesh("cpu")
+    mesh, sp = _sharding(cfg, num_space)
     template = init_train_state(cfg, torch.Generator().manual_seed(0),
                                 "cpu")
-    state = ckpt.restore_checkpoint(state_dir, template, mesh=mesh)
-    _, step_with = make_train_step(cfg, remat=remat, mesh=mesh)
-    metrics = []
+    state = ckpt.restore_checkpoint(state_dir, template, mesh=mesh,
+                                    sharding=sp)
+    _, step_with = make_train_step(cfg, remat=remat, mesh=mesh, sharding=sp)
+    grad_fn = make_grad_fn(cfg, build_dynamics(cfg, None, remat, sp)[1],
+                           mesh, sp)
+    metrics, grads = [], None
     for d in draws:
-        local = TrainDraws(*(None if t is None else shard_chains(t, mesh)
-                             for t in d))
+        local = TrainDraws(*(_place(t, mesh, sp) for t in d))
+        if grads is None:
+            beta = beta_schedule(state.step, cfg.train_steps, cfg.beta_init,
+                                 cfg.beta_final)
+            grads = {k: v.detach().clone() for k, v in grad_fn(
+                state.params, state.x, beta, local)[2].items()}
         state, m = step_with(state, local)
         metrics.append({k: float(v) for k, v in m.items()})
-    return {"metrics": metrics,
+    if save_dir is not None:
+        ckpt.save_checkpoint(save_dir, state, state.step, cfg, mesh=mesh,
+                             sharding=sp)
+    return {"metrics": metrics, "grads": grads,
             "params": {k: v.detach().clone()
                        for k, v in named_leaves(state.params).items()},
-            "x": gather_chains(state.x, mesh), "step": state.step,
-            "da": [t.clone() for t in state.da]}
+            "x": (gather_chains(state.x, mesh) if sp is None
+                  else sp.gather(state.x)),
+            "step": state.step, "da": [t.clone() for t in state.da]}
+
+
+def sharded_eval_chunk(cfg_dict: dict, state_dir: str, x, beta,
+                       steps: int, seed: int, num_space: int = 0):
+    """``train.gauge.make_eval_chunk`` of ``steps`` transitions from the
+    global chains ``x`` with the checkpointed params, its draws from a
+    generator seeded with ``seed`` (global, sliced), under
+    ``lattice_sharding`` on a ``(world / num_space, num_space)`` mesh
+    (``num_space=0``: one process, unsharded).  Returns the gathered chains
+    and the ``(steps, B)`` metrics."""
+    from l2hmc_tpu_torch.train import checkpoint as ckpt
+    from l2hmc_tpu_torch.train.gauge import (config_from_dict,
+                                             init_train_state,
+                                             make_eval_chunk)
+
+    cfg = config_from_dict(cfg_dict)
+    mesh, sp = (_sharding(cfg, num_space) if num_space else (None, None))
+    template = init_train_state(cfg, torch.Generator().manual_seed(0),
+                                "cpu")
+    params = ckpt.restore_checkpoint(state_dir, template).params
+    chunk = make_eval_chunk(cfg, steps, mesh, sp)
+    x_loc = x if sp is None else sp.shard(x)
+    x_out, metrics = chunk(params, x_loc, beta,
+                           torch.Generator().manual_seed(seed))
+    return {"x": x_out if sp is None else sp.gather(x_out),
+            "metrics": metrics}
+
+
+def sharded_transition(cfg_dict: dict, state_dir: str, x, draws, beta,
+                       num_space: int = 0, baseline=None):
+    """One transition of the checkpointed params under ``state_dir`` from
+    the global chains ``x (B, x_dim)`` with the global draws ``(v,
+    direction, u)``, under ``lattice_sharding`` on a ``(world / num_space,
+    num_space)`` mesh (``num_space=0``: unsharded, one process).
+    ``baseline=(eps, K)``: the plain-HMC transition of
+    ``dynamics/hmc.py`` on the config's potential instead (``v`` and
+    ``u`` of the draws).  Returns the gathered ``x_out`` and the accept
+    probabilities (and, for L2HMC, ``x_proposed`` and ``sumlogdet``)."""
+    from l2hmc_tpu_torch.parallel.mesh import gather_chains
+    from l2hmc_tpu_torch.train import checkpoint as ckpt
+    from l2hmc_tpu_torch.train.gauge import (build_dynamics,
+                                             config_from_dict,
+                                             init_train_state)
+
+    cfg = config_from_dict(cfg_dict)
+    mesh, sp = _sharding(cfg, num_space) if num_space else (None, None)
+    template = init_train_state(cfg, torch.Generator().manual_seed(0),
+                                "cpu")
+    params = ckpt.restore_checkpoint(state_dir, template).params
+
+    def place(t):
+        return t if mesh is None else _place(t, mesh, sp)
+
+    def gather(t):
+        if mesh is None:
+            return t
+        return gather_chains(t, mesh) if sp is None or t.dim() == 1 \
+            else sp.gather(t)
+
+    _, dyn = build_dynamics(cfg, sharding=sp)
+    v, direction, u = (place(t) for t in draws)
+    with torch.no_grad():
+        if baseline is not None:
+            from l2hmc_tpu_torch.dynamics.hmc import hmc_transition
+            from l2hmc_tpu_torch.ops.wilson import (make_potential_fn,
+                                                    make_slab_potential_fn)
+
+            eps, k = baseline
+            pot = (make_potential_fn(cfg.shape) if sp is None
+                   else make_slab_potential_fn(cfg.shape, sp))
+            out = hmc_transition(pot, place(x), beta, eps, k, v=v, u=u,
+                                 sharding=sp)
+            return {"x_out": gather(out.x_out),
+                    "accept_prob": gather(out.accept_prob)}
+        out = dyn["transition_with"](params, place(x), beta, v, direction, u)
+    return {k: gather(getattr(out, k)) for k in
+            ("x_out", "x_proposed", "accept_prob", "sumlogdet")}
 
 
 def sharded_smc(x0: torch.Tensor, betas, leapfrog: int, moves: int,

@@ -13,8 +13,9 @@ the slices then all-reduces what JAX's global program would have reduced
 Axes, as in JAX:
 
 - ``data``  : independent Markov chains (gradients mean-reduced over it);
-- ``space`` : the lattice's time axis for the domain action
-  (``parallel/domain.py``).
+- ``space`` : the lattice's time axis: the domain action
+  (``parallel/domain.py``) and the full transition under
+  :func:`lattice_sharding` (``parallel/spatial.py``).
 
 Rank ``r`` sits at ``(r // num_space, r % num_space)``: 'space' innermost,
 as the reference reshapes its device list.  Without an initialized process
@@ -198,24 +199,41 @@ def replicate(tree, mesh: Optional[Mesh]):
     return tree
 
 
-def shard_train_state(state, mesh: Optional[Mesh]):
+def mesh_of(mesh: Optional[Mesh], sharding=None) -> Optional[Mesh]:
+    """The mesh a builder runs on: ``mesh``, or the mesh of a
+    ``sharding`` from :func:`lattice_sharding`, which a given ``mesh``
+    must be (``ValueError``)."""
+    if sharding is None:
+        return mesh
+    if mesh is not None and mesh is not sharding.mesh:
+        raise ValueError("the mesh given is not the lattice sharding's")
+    return sharding.mesh
+
+
+def shard_train_state(state, mesh: Optional[Mesh], sharding=None):
     """Place a ``train.gauge.TrainState``: params, optimizer state and dual
-    averaging replicated from rank 0, the chains sliced over 'data'."""
+    averaging replicated from rank 0, the chains sliced over 'data' (and,
+    with a ``sharding`` from :func:`lattice_sharding`, their columns over
+    'space')."""
+    mesh = mesh_of(mesh, sharding)
     if mesh is None:
         return state
     replicate(state.params, mesh)
     replicate(state.opt_state.mu, mesh)
     replicate(state.opt_state.nu, mesh)
     replicate(list(state.da), mesh)
-    return state._replace(x=shard_chains(state.x, mesh))
+    return state._replace(x=shard_chains(state.x, mesh) if sharding is None
+                          else sharding.shard(state.x))
 
 
-def lattice_sharding(mesh: Mesh):
-    """Chains over 'data' and the flat lattice over 'space' for the FULL
-    transition: in JAX, GSPMD inserts the conv halos and per-chain
-    reductions itself; in torch that is hand-written tensor parallelism,
-    not ported yet."""
-    raise NotImplementedError(
-        "lattice_sharding (dp x sp of the full transition: halo exchanges "
-        "for every periodic conv, the row-split dense contraction and the "
-        "per-chain reductions) is not ported yet: ROADMAP queue A, A11b")
+def lattice_sharding(mesh: Mesh, shape):
+    """Chains over 'data' and the flat lattice axis over 'space': the
+    reference's ``NamedSharding(mesh, P("data", "space"))`` for the FULL
+    transition, as hand-written tensor parallelism
+    (``parallel/spatial.py``: the slab, its halos and the 'space' sums)
+    of the lattice ``shape`` (``ValueError`` where its time rows do not
+    split evenly).  The builders take it in place of the mesh, e.g.
+    ``make_train_step(cfg, sharding=lattice_sharding(m, cfg.shape))``."""
+    from l2hmc_tpu_torch.parallel.spatial import LatticeSharding
+
+    return LatticeSharding(mesh, shape)

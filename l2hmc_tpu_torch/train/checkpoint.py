@@ -233,7 +233,7 @@ def _checkpoint_dirs(ckpt_dir: Path):
 
 def save_checkpoint(ckpt_dir, state: TrainState, step: int, config=None,
                     keep: int = 3, generator_state=None, attempt: int = 0,
-                    attempts=(), mesh=None):
+                    attempts=(), mesh=None, sharding=None):
     """Write ``state`` as the checkpoint of ``step`` in training attempt
     ``attempt`` and prune to the newest ``keep`` by (attempt, step); a
     retraining attempt restarts at step 0, so its checkpoints are newer
@@ -246,11 +246,18 @@ def save_checkpoint(ckpt_dir, state: TrainState, step: int, config=None,
     With a ``mesh`` (``parallel/mesh.py``) every rank calls it: the chains
     are gathered over 'data' and the primary (global rank 0) writes the
     full state, so the layout is one for any world size; the call returns
-    on every rank once the file is there."""
-    from l2hmc_tpu_torch.parallel.mesh import gather_chains, is_primary
+    on every rank once the file is there.  With a ``sharding``
+    (``lattice_sharding``; the mesh is its mesh) the chains are
+    gathered over 'space' as well."""
+    from l2hmc_tpu_torch.parallel.mesh import (gather_chains, is_primary,
+                                               mesh_of)
 
-    if mesh is not None:
+    mesh = mesh_of(mesh, sharding)
+    if sharding is not None:
+        state = state._replace(x=sharding.gather(state.x))
+    elif mesh is not None:
         state = state._replace(x=gather_chains(state.x, mesh))
+    if mesh is not None:
         if not is_primary():
             mesh.barrier()
             return
@@ -341,7 +348,7 @@ def _checkpoint_file(ckpt_dir: Path, step, attempt) -> Path:
 def restore_checkpoint(ckpt_dir, template: TrainState,
                        step: Optional[int] = None, generator=None,
                        attempt: Optional[int] = None,
-                       mesh=None) -> TrainState:
+                       mesh=None, sharding=None) -> TrainState:
     """The checkpointed state of ``step`` in ``attempt`` (``step=None``: the
     newest by (attempt, step), within ``attempt`` when given; a given
     ``step`` is attempt 0's unless ``attempt`` says otherwise) in the
@@ -350,9 +357,11 @@ def restore_checkpoint(ckpt_dir, template: TrainState,
     is loaded in place.  A ``generator`` is set to the saved generator
     state when the checkpoint has one.  With a ``mesh`` the saved (global)
     chains are sliced to this rank's: a checkpoint of n ranks restores on
-    any m that divide its chains."""
-    from l2hmc_tpu_torch.parallel.mesh import shard_chains
+    any m that divide its chains; with a ``sharding``, to this rank's
+    columns too."""
+    from l2hmc_tpu_torch.parallel.mesh import mesh_of, shard_chains
 
+    mesh = mesh_of(mesh, sharding)
     ckpt_dir = Path(ckpt_dir).absolute()
     device = template.x.device
     payload = torch.load(_checkpoint_file(ckpt_dir, step, attempt),
@@ -365,7 +374,8 @@ def restore_checkpoint(ckpt_dir, template: TrainState,
         params=params,
         opt_state=OptState(count=int(payload["opt_count"]),
                            mu=payload["mu"], nu=payload["nu"]),
-        x=shard_chains(payload["x"], mesh), step=int(payload["step"]),
+        x=(shard_chains(payload["x"], mesh) if sharding is None
+           else sharding.shard(payload["x"])), step=int(payload["step"]),
         da=DualAveragingState(*payload["da"]))
 
 

@@ -20,6 +20,15 @@ rank draws the GLOBAL randomness from one identically seeded generator and
 keeps its rows, the gradients are all-reduced as a mean over 'data' before
 the optimizer clips them, and every reported mean is the global one; an
 n-rank step then reproduces the one-process step to all-reduce rounding.
+
+dp x sp (the reference's ``lattice_sharding``): the builders also take a
+``sharding`` (``parallel.mesh.lattice_sharding(mesh, shape)``).  The state's
+chains are then this rank's columns too (the slab of time rows), the
+draws' per-link tensors are sliced to them, the dynamics, potential, loss,
+hop and observables compute on the slab and add their per-chain sums over
+'space' (``parallel/spatial.py``), and every parameter's gradient comes
+out whole on every 'space' rank, so the optimizer (its global-norm clip
+included) sees what the one-process step sees.
 """
 
 from __future__ import annotations
@@ -121,6 +130,20 @@ def config_from_dict(d: dict) -> GaugeConfig:
     return GaugeConfig(**{k: v for k, v in d.items() if k in known})
 
 
+def quickstart_config(**overrides) -> GaugeConfig:
+    """The README quick-start training recipe (README.md, "The topological
+    sampler"): 16x16, 128 chains, K=4, fixed eps 0.079, MLP h64,
+    merge_v_halves, charge_reward, train_hops, beta 2 -> 5 over 12000
+    steps; the rest at the defaults, ``overrides`` on top."""
+    kw = dict(time_size=16, space_size=16, num_chains=128, num_steps=4,
+              eps_init=0.079, eps_trainable=False, network_arch="mlp",
+              num_hidden=64, merge_v_halves=True, charge_reward=True,
+              train_hops=True, beta_init=2.0, beta_final=5.0,
+              train_steps=12000)
+    kw.update(overrides)
+    return GaugeConfig(**kw)
+
+
 def build_networks(cfg: GaugeConfig, generator=None, device=None):
     """XNet (position, factor=2) and VNet (momentum, factor=1) modules for
     ``cfg.network_arch``; the position slot holds periodic (cos, sin)
@@ -160,7 +183,8 @@ def build_networks(cfg: GaugeConfig, generator=None, device=None):
     raise ValueError(f"network_arch={arch!r}")
 
 
-def build_dynamics(cfg: GaugeConfig, potential_fn=None, remat: bool = True):
+def build_dynamics(cfg: GaugeConfig, potential_fn=None, remat: bool = True,
+                   sharding=None):
     """``(DynamicsConfig, dynamics dict)`` for the gauge action.
 
     ``action='wilson'``: ``ops.wilson.make_potential_fn`` (kernels on CUDA
@@ -169,8 +193,20 @@ def build_dynamics(cfg: GaugeConfig, potential_fn=None, remat: bool = True):
     ``potential_fn`` replaces either, e.g. by the plain Wilson version on
     the card to hold the kernels against it.  ``remat`` (the reference's
     default, which its trainer never turns off) checkpoints each leapfrog
-    step while autograd records."""
-    from l2hmc_tpu_torch.ops.wilson import make_potential_fn
+    step while autograd records.
+
+    ``sharding`` (of ``cfg.shape``, else ``ValueError``): the slab dynamics on the
+    slab route of the Wilson kernels (``make_slab_potential_fn``) or the
+    improved action's slab form; a given ``potential_fn`` must then be a
+    slab potential.  The conv nets need slabs of an even number of rows
+    (``ValueError``)."""
+    from l2hmc_tpu_torch.ops.wilson import (make_potential_fn,
+                                            make_slab_potential_fn)
+
+    if sharding is not None:
+        sharding.check_shape(cfg.shape)
+        if cfg.network_arch == "conv" and not cfg.hmc:
+            sharding.check_stride(2)
 
     dyn_cfg = DynamicsConfig(
         x_dim=cfg.x_dim, num_steps=cfg.num_steps,
@@ -180,13 +216,14 @@ def build_dynamics(cfg: GaugeConfig, potential_fn=None, remat: bool = True):
         remat=remat)
     if potential_fn is None:
         if cfg.action == "improved":
-            potential_fn = u1.make_improved_potential_fn(cfg.shape,
-                                                         cfg.rect_c1)
+            potential_fn = u1.make_improved_potential_fn(
+                cfg.shape, cfg.rect_c1, sharding)
         elif cfg.action == "wilson":
-            potential_fn = make_potential_fn(cfg.shape)
+            potential_fn = (make_potential_fn(cfg.shape) if sharding is None
+                            else make_slab_potential_fn(cfg.shape, sharding))
         else:
             raise ValueError(f"action={cfg.action!r}")
-    return dyn_cfg, make_dynamics(dyn_cfg, potential_fn)
+    return dyn_cfg, make_dynamics(dyn_cfg, potential_fn, sharding)
 
 
 def init_params(cfg: GaugeConfig, generator=None,
@@ -202,19 +239,23 @@ def init_params(cfg: GaugeConfig, generator=None,
                           masks).to(device)
 
 
-def draw_transition(generator, x: torch.Tensor, mesh=None):
+def draw_transition(generator, x: torch.Tensor, mesh=None, sharding=None):
     """One transition's ``(v, direction, u)`` for the chains ``x``, in the
     order of ``dyn["transition"]``'s draws; with a ``mesh``, drawn for the
-    global batch and sliced to this rank's chains."""
-    from l2hmc_tpu_torch.parallel.mesh import shard_chains
+    global batch and sliced to this rank's chains (with a ``sharding``, the
+    momenta to this rank's columns too)."""
+    from l2hmc_tpu_torch.parallel.mesh import mesh_of, shard_chains
 
+    mesh = mesh_of(mesh, sharding)
     b = x.shape[0] * (mesh.size("data") if mesh is not None else 1)
     kw = dict(generator=generator, device=x.device)
-    v = torch.randn((b, *x.shape[1:]), dtype=x.dtype, **kw)
+    dims = x.shape[1:] if sharding is None else (sharding.shape.x_dim,)
+    v = torch.randn((b, *dims), dtype=x.dtype, **kw)
     direction = torch.where(torch.rand((b,), **kw) > 0.5, 1.0,
                             -1.0).to(x.dtype)
     u = torch.rand((b,), **kw)
-    return tuple(shard_chains(t, mesh) for t in (v, direction, u))
+    v = shard_chains(v, mesh) if sharding is None else sharding.shard(v)
+    return v, shard_chains(direction, mesh), shard_chains(u, mesh)
 
 
 def gather_trace(trace: torch.Tensor, mesh=None) -> torch.Tensor:
@@ -226,13 +267,19 @@ def gather_trace(trace: torch.Tensor, mesh=None) -> torch.Tensor:
     return gather_chains(trace.T.contiguous(), mesh).T.contiguous()
 
 
-def make_eval_chunk(cfg: GaugeConfig, chunk_size: int, mesh=None):
+def make_eval_chunk(cfg: GaugeConfig, chunk_size: int, mesh=None,
+                    sharding=None):
     """Sampling-only chunk: ``chunk(params, x, beta, generator) -> (x,
     metrics)`` with ``metrics`` a dict of ``(chunk_size, B)`` tensors:
     accept_prob, actions, plaqs, charges and the 2x2 Wilson loop.  With a
     ``mesh``, ``x`` is this rank's chains, the draws are the global ones
-    sliced, and the metrics are gathered to the global batch."""
-    _, dyn = build_dynamics(cfg)
+    sliced, and the metrics are gathered to the global batch; with a
+    ``sharding``, ``x`` is this rank's slab too and every metric is the
+    whole lattice's."""
+    from l2hmc_tpu_torch.parallel.mesh import mesh_of
+
+    mesh = mesh_of(mesh, sharding)
+    _, dyn = build_dynamics(cfg, sharding=sharding)
     shape = cfg.shape
 
     @torch.no_grad()
@@ -241,13 +288,15 @@ def make_eval_chunk(cfg: GaugeConfig, chunk_size: int, mesh=None):
         out = {k: [] for k in keys}
         for _ in range(chunk_size):
             tr = dyn["transition_with"](
-                params, x, beta, *draw_transition(generator, x, mesh))
+                params, x, beta,
+                *draw_transition(generator, x, mesh, sharding))
             x = u1.wrap(tr.x_out)
-            obs = u1.observables(x, shape)
+            obs = u1.observables(x, shape, sharding=sharding)
             out["accept_prob"].append(tr.accept_prob)
             for k in ("actions", "plaqs", "charges"):
                 out[k].append(obs[k])
-            out["wloop22"].append(u1.wilson_loop(u1.to_links(x, shape), 2, 2))
+            out["wloop22"].append(u1.wilson_loop(
+                u1.state_links(x, shape, sharding), 2, 2, sharding))
         return x, {k: gather_trace(torch.stack(v), mesh)
                    for k, v in out.items()}
 
@@ -411,10 +460,22 @@ class TrainDraws(NamedTuple):
 
 
 def draw_train_randomness(generator, b: int, x_dim: int, hop: bool,
-                          device=None, mesh=None) -> TrainDraws:
+                          device=None, mesh=None,
+                          sharding=None) -> TrainDraws:
     """:class:`TrainDraws` from ``generator`` (on ``device``); with a
     ``mesh``, ``b`` is this rank's chains: the draws are made for the
-    global batch and sliced to this rank's rows."""
+    global batch and sliced to this rank's rows.  With a ``sharding``,
+    ``x_dim`` is ignored: the momenta and ``z`` are drawn over the whole
+    lattice and sliced to this rank's columns too."""
+    if sharding is not None:
+        from l2hmc_tpu_torch.parallel.mesh import shard_chains
+
+        full = draw_train_randomness(
+            generator, b * sharding.mesh.size("data"),
+            sharding.shape.x_dim, hop, device)
+        return TrainDraws(*(
+            None if t is None else sharding.shard(t) if t.dim() == 2
+            else shard_chains(t, sharding.mesh) for t in full))
     if mesh is not None:
         from l2hmc_tpu_torch.parallel.mesh import shard_chains
 
@@ -438,24 +499,25 @@ def draw_train_randomness(generator, b: int, x_dim: int, hop: bool,
     return TrainDraws(v_x, d_x, u_x, z, v_z, d_z, u_z, nu, u_hop)
 
 
-def _metric_fn(cfg: GaugeConfig):
+def _metric_fn(cfg: GaugeConfig, sharding=None):
     from l2hmc_tpu_torch.train import losses
 
     if cfg.metric not in ("plaq_cos", "plaq_cos2"):
         return losses.get_metric_fn(cfg.metric)
-    # observable-space ESJD: the jump in the plaquette field cos P
+    # observable-space ESJD: the jump in the plaquette field cos P (the
+    # slab's plaquettes when sharded)
     shape, sq = cfg.shape, cfg.metric == "plaq_cos2"
 
     def metric_fn(x1, x2):
-        d = (torch.cos(u1.plaq_sums(u1.to_links(x1, shape)))
-             - torch.cos(u1.plaq_sums(u1.to_links(x2, shape))))
+        d = (torch.cos(u1.state_plaqs(x1, shape, sharding))
+             - torch.cos(u1.state_plaqs(x2, shape, sharding)))
         d = torch.square(d) if sq else torch.abs(d)
         return d.reshape(*d.shape[:-2], -1)
 
     return metric_fn
 
 
-def make_loss_fn(cfg: GaugeConfig, dyn):
+def make_loss_fn(cfg: GaugeConfig, dyn, sharding=None):
     """``(loss_fn, loss_fn_with)``: ``loss_fn(params, x, beta, generator)``
     draws the step's randomness, ``loss_fn_with(params, x, beta, draws)``
     takes it as :class:`TrainDraws`.  Both return ``(loss, aux)`` with
@@ -463,11 +525,14 @@ def make_loss_fn(cfg: GaugeConfig, dyn):
 
     ``cfg.ref_z_term`` computes the z terms against the x chain's proposal
     (the reference model's literal dataflow); by default against z's own.
+    With a ``sharding`` (``dyn`` built with it), the states are this
+    rank's slabs and every per-chain sum is the whole lattice's.
     """
     from l2hmc_tpu_torch.train import losses
 
     shape = cfg.shape
-    metric_fn = _metric_fn(cfg)
+    metric_fn = _metric_fn(cfg, sharding)
+    space_sum = None if sharding is None else sharding.space_sum
 
     def loss_fn_with(params, x, beta, draws: TrainDraws):
         out_x = dyn["transition_with"](params, x, beta, draws.v_x, draws.d_x,
@@ -480,10 +545,13 @@ def make_loss_fn(cfg: GaugeConfig, dyn):
             x, out_x.x_proposed, out_x.accept_prob,
             z, z_prop, out_z.accept_prob,
             metric_fn=metric_fn, loss_scale=cfg.loss_scale,
-            aux_weight=cfg.aux_weight, std_weight=cfg.std_weight)
+            aux_weight=cfg.aux_weight, std_weight=cfg.std_weight,
+            space_sum=space_sum)
         if cfg.charge_weight > 0:
-            dq_x = u1.charge_diff_approx(x, out_x.x_proposed, shape)
-            dq_z = u1.charge_diff_approx(z, z_prop, shape)
+            dq_x = u1.charge_diff_approx(x, out_x.x_proposed, shape,
+                                         sharding=sharding)
+            dq_z = u1.charge_diff_approx(z, z_prop, shape,
+                                         sharding=sharding)
             loss = loss + losses.charge_loss(
                 dq_x, out_x.accept_prob, dq_z, out_z.accept_prob,
                 charge_weight=cfg.charge_weight, aux_weight=cfg.aux_weight,
@@ -491,12 +559,12 @@ def make_loss_fn(cfg: GaugeConfig, dyn):
         x_out = out_x.x_out.detach()
         aux = {"x_out": x_out,
                "accept_prob": torch.mean(out_x.accept_prob.detach()),
-               "dq": torch.mean(u1.charge_diff(x, x_out, shape))}
+               "dq": torch.mean(u1.charge_diff(x, x_out, shape, sharding))}
         return loss, aux
 
     def loss_fn(params, x, beta, generator):
         draws = draw_train_randomness(generator, x.shape[0], x.shape[1],
-                                      False, x.device)
+                                      False, x.device, sharding=sharding)
         return loss_fn_with(params, x, beta, draws)
 
     return loss_fn, loss_fn_with
@@ -517,8 +585,43 @@ def tree_summaries(tree: Dict[str, torch.Tensor], prefix: str):
     return out
 
 
+def make_grad_fn(cfg: GaugeConfig, dyn, mesh=None, sharding=None):
+    """``grad_fn(params, x, beta, draws) -> (loss, aux, grads)``: the loss
+    of :func:`make_loss_fn` (``dyn`` built with the same ``sharding``) and
+    the gradient of every leaf of ``params`` by name (zeros where a leaf
+    takes none), the mean over the mesh's 'data' axis in one collective.
+    Under a ``sharding`` every gradient is whole on each 'space' rank
+    (``parallel/spatial.py``)."""
+    from l2hmc_tpu_torch.parallel.mesh import mesh_of
+
+    mesh = mesh_of(mesh, sharding)
+    _, loss_fn_with = make_loss_fn(cfg, dyn, sharding)
+
+    def grad_fn(params, x, beta, draws: TrainDraws):
+        leaves = named_leaves(params)
+        loss, aux = loss_fn_with(params, x, beta, draws)
+        wrt = [k for k, v in leaves.items() if v.requires_grad]
+        got = torch.autograd.grad(loss, [leaves[k] for k in wrt],
+                                  allow_unused=True)
+        grads = {k: torch.zeros_like(v).detach() for k, v in leaves.items()}
+        grads.update({k: g for k, g in zip(wrt, got) if g is not None})
+        if mesh is None:
+            return loss, aux, grads
+        names = list(grads)
+        flat = mesh.all_reduce(torch.cat([grads[k].reshape(-1)
+                                          for k in names]), "data", "mean")
+        out, at = {}, 0
+        for k in names:
+            n = grads[k].numel()
+            out[k] = flat[at:at + n].reshape(grads[k].shape)
+            at += n
+        return loss, aux, out
+
+    return grad_fn
+
+
 def make_train_step(cfg: GaugeConfig, potential_fn=None, remat: bool = True,
-                    mesh=None):
+                    mesh=None, sharding=None):
     """``(train_step, train_step_with)``:
     ``train_step(state, generator) -> (state, metrics)`` draws the step's
     randomness on the state's device; ``train_step_with(state, draws)``
@@ -540,12 +643,21 @@ def make_train_step(cfg: GaugeConfig, potential_fn=None, remat: bool = True,
     all-reduced as a mean over 'data' before ``zero_nans`` and the clip
     (JAX clips the global gradient), the eps warmup reads the global mean
     acceptance, and every metric is the global mean.
+
+    With a ``sharding`` (``parallel.mesh.lattice_sharding(mesh, shape)``;
+    its mesh is the step's), ``state.x`` and the draws' per-link tensors are also
+    this rank's columns (``shard_train_state(state, mesh, sharding)``,
+    ``draw_train_randomness(..., sharding=)``); every parameter's gradient
+    is whole on every 'space' rank before the 'data' mean.
     """
     from l2hmc_tpu_torch.dynamics.topo import instanton_hop_with
     from l2hmc_tpu_torch.train.schedules import beta_schedule
 
-    dyn_cfg, dyn = build_dynamics(cfg, potential_fn, remat)
-    _, loss_fn_with = make_loss_fn(cfg, dyn)
+    from l2hmc_tpu_torch.parallel.mesh import mesh_of
+
+    mesh = mesh_of(mesh, sharding)
+    dyn_cfg, dyn = build_dynamics(cfg, potential_fn, remat, sharding)
+    grad_fn = make_grad_fn(cfg, dyn, mesh, sharding)
     opt = make_optimizer(cfg)
     lr_sched = _lr_schedule(cfg)
     shape = cfg.shape
@@ -554,32 +666,13 @@ def make_train_step(cfg: GaugeConfig, potential_fn=None, remat: bool = True,
     def data_mean(t):
         return t if mesh is None else mesh.all_reduce(t, "data", "mean")
 
-    def all_reduce_grads(grads):
-        """Mean over 'data' of every gradient, in one collective."""
-        if mesh is None:
-            return grads
-        names = list(grads)
-        flat = data_mean(torch.cat([grads[k].reshape(-1) for k in names]))
-        out, at = {}, 0
-        for k in names:
-            n = grads[k].numel()
-            out[k] = flat[at:at + n].reshape(grads[k].shape)
-            at += n
-        return out
-
     def train_step_with(state: TrainState, draws: TrainDraws):
         step = state.step
         beta = beta_schedule(step, cfg.train_steps, cfg.beta_init,
                              cfg.beta_final)
         params = state.params
         leaves = named_leaves(params)
-        loss, aux = loss_fn_with(params, state.x, beta, draws)
-        wrt = [k for k, v in leaves.items() if v.requires_grad]
-        got = torch.autograd.grad(loss, [leaves[k] for k in wrt],
-                                  allow_unused=True)
-        grads = {k: torch.zeros_like(v).detach() for k, v in leaves.items()}
-        grads.update({k: g for k, g in zip(wrt, got) if g is not None})
-        grads = all_reduce_grads(grads)
+        loss, aux, grads = grad_fn(params, state.x, beta, draws)
         aux["accept_prob"] = data_mean(aux["accept_prob"])
         in_warmup = step < warmup
         if not cfg.eps_trainable or in_warmup:
@@ -603,8 +696,9 @@ def make_train_step(cfg: GaugeConfig, potential_fn=None, remat: bool = True,
             x_new = u1.wrap(aux["x_out"])
             if cfg.train_hops:
                 x_new = instanton_hop_with(x_new, beta, draws.nu,
-                                           draws.u_hop, shape).x_out
-            obs = u1.observables(x_new, shape)
+                                           draws.u_hop, shape,
+                                           sharding).x_out
+            obs = u1.observables(x_new, shape, sharding=sharding)
             means = data_mean(torch.stack([
                 loss.detach(), aux["dq"], torch.mean(obs["actions"]),
                 torch.mean(obs["plaqs"]),
@@ -631,7 +725,8 @@ def make_train_step(cfg: GaugeConfig, potential_fn=None, remat: bool = True,
     def train_step(state: TrainState, generator):
         x = state.x
         draws = draw_train_randomness(generator, x.shape[0], x.shape[1],
-                                      cfg.train_hops, x.device, mesh)
+                                      cfg.train_hops, x.device, mesh,
+                                      sharding)
         return train_step_with(state, draws)
 
     return train_step, train_step_with
@@ -649,11 +744,13 @@ def _stack_metrics(per_step, device) -> Dict[str, torch.Tensor]:
 
 
 def make_train_chunk(cfg: GaugeConfig, chunk_size: int, potential_fn=None,
-                     remat: bool = True, mesh=None):
+                     remat: bool = True, mesh=None, sharding=None):
     """``chunk(state, generator) -> (state, metrics)``: ``chunk_size`` train
     steps, metrics stacked to ``(chunk_size,)`` tensors on the state's
-    device (with a ``mesh``: data-parallel steps, global metrics)."""
-    train_step, _ = make_train_step(cfg, potential_fn, remat, mesh)
+    device (with a ``mesh``: data-parallel steps, global metrics; with a
+    ``sharding``: dp x sp steps)."""
+    train_step, _ = make_train_step(cfg, potential_fn, remat, mesh,
+                                    sharding)
 
     def chunk(state: TrainState, generator):
         per_step = []

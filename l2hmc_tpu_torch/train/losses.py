@@ -36,16 +36,23 @@ def get_metric_fn(metric: str) -> MetricFn:
 
 def esjd_loss(x, x_proposed, accept_prob, z, z_proposed, z_accept_prob,
               metric_fn: MetricFn, loss_scale: float = 0.1,
-              aux_weight: float = 1.0, std_weight: float = 1.0):
+              aux_weight: float = 1.0, std_weight: float = 1.0,
+              space_sum=None):
     """Expected-squared-jump loss with reciprocal term and auxiliary chains::
 
         dx = sum_i metric(x, x')_i * px + 1e-3              (per chain)
         dz = aux_weight * (sum_i metric(z, z')_i * pz + 1e-3)
         loss = mean(ls * (1/dx + 1/dz) - (dx + dz) / ls) * std_weight
+
+    ``space_sum`` (a lattice sharding's, ``parallel/spatial.py``) adds the
+    per-chain sums of this rank's slab over 'space'.
     """
-    dx = torch.sum(metric_fn(x, x_proposed), dim=-1) * accept_prob + LOSS_EPS
-    dz = aux_weight * (torch.sum(metric_fn(z, z_proposed), dim=-1)
-                       * z_accept_prob + LOSS_EPS)
+    def jump(a, b):
+        s = torch.sum(metric_fn(a, b), dim=-1)
+        return s if space_sum is None else space_sum(s)
+
+    dx = jump(x, x_proposed) * accept_prob + LOSS_EPS
+    dz = aux_weight * (jump(z, z_proposed) * z_accept_prob + LOSS_EPS)
     ls = loss_scale
     per_chain = ls * (1.0 / dx + 1.0 / dz) - (dx + dz) / ls
     return std_weight * torch.mean(per_chain)

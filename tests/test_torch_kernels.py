@@ -478,6 +478,73 @@ def test_torch_wilson_kernels_on_each_route(cuda_device, b, lt, lx, route):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,lt,lx,n", [(3, 4, 4, 2), (5, 16, 16, 4),
+                                       (2, 8, 37, 1), (4, 64, 64, 8)])
+def test_torch_wilson_slab_route_matches_plain(cuda_device, b, lt, lx, n):
+    """The slab route (lattice_sharding's Wilson kernels) on n slabs cut
+    from one lattice, halo rows from the neighbours: each kernel against its
+    plain version (S and dg to 1e-5 of the sum of their terms' magnitudes,
+    sin P to 1e-6, the backward from the same sin P exactly, forces and
+    gradients to 1e-5 of their largest entry), and the slab sums, the
+    forces and the halo-routed gradients against the whole lattice's
+    plain versions.  Each wrapper counts one launch."""
+    links, g, w = _wilson_inputs(b * lt + n, b, lt, lx, cuda_device)
+    k = lt // n
+    s_whole, sinp_whole = tw.wilson_forward_reference(links)
+    p = tw._plaq_sums(links[..., 0], links[..., 1])
+    s_scale = torch.sum(1.0 - torch.cos(p), dim=(1, 2))
+    kernels = (tw.wilson_slab_forward, tw.wilson_slab_action_only,
+               tw.wilson_slab_backward, tw.wilson_slab_force,
+               tw.wilson_slab_double_backward)
+    before = [kk.launches for kk in kernels]
+    got = {"S": [], "force": [], "bwd": [], "dext": [], "dg": []}
+    for c, (e, we) in enumerate(zip(tw.cut_slabs(links, n),
+                                    tw.cut_slabs(w, n))):
+        w_own = w[:, c * k:(c + 1) * k].contiguous()
+        s_k, sinp_k = tw.wilson_slab_forward(e)
+        s_only = tw.wilson_slab_action_only(e)
+        s_p, sinp_p = tw.wilson_slab_forward_reference(e)
+        assert bool(((s_k - s_p).abs() <= 1e-5 * s_scale).all())
+        assert bool(((s_only - s_p).abs() <= 1e-5 * s_scale).all())
+        assert float((sinp_k - sinp_p).abs().max()) <= 1e-6
+        bwd = tw.wilson_slab_backward(sinp_p, g)
+        assert torch.equal(bwd, tw.wilson_slab_backward_reference(sinp_p, g))
+        f_k = tw.wilson_slab_force(e, g)
+        f_p = tw.wilson_slab_force_reference(e, g)
+        assert float((f_k - f_p).abs().max()) <= 1e-5 * float(
+            f_p.abs().max())
+        for w_in, p_lo, w_off in ((w_own, 0, 1), (we, 1, 0)):
+            d_k, dg_k = tw.wilson_slab_double_backward(e, g, w_in, p_lo,
+                                                       w_off)
+            d_p, dg_p = tw.wilson_slab_double_backward_reference(
+                e, g, w_in, p_lo, w_off)
+            assert float((d_k - d_p).abs().max()) <= 1e-5 * float(
+                d_p.abs().max())
+            assert float((dg_k - dg_p).abs().max()) <= 1e-5 * float(
+                dg_p.abs().max())
+        got["S"].append(s_k)
+        got["force"].append(f_k)
+        got["bwd"].append(bwd)
+        d_k, dg_k = tw.wilson_slab_double_backward(e, g, w_own, 0, 1)
+        got["dext"].append(d_k)
+        got["dg"].append(dg_k)
+    torch.cuda.synchronize()
+    assert [kk.launches for kk in kernels] == [
+        x + n * m for x, m in zip(before, (1, 1, 1, 1, 3))]
+    assert bool(((sum(got["S"]) - s_whole).abs() <= 1e-5 * s_scale).all())
+    whole = {"force": tw.wilson_force_reference(links, g),
+             "bwd": tw.wilson_backward_reference(sinp_whole, g)}
+    dl_p, dg_p = tw.wilson_double_backward_reference(links, g, w)
+    for got_t, want_t in (
+            (torch.cat(got["force"], dim=1), whole["force"]),
+            (tw.join_slab_grads(got["bwd"], lt), whole["bwd"]),
+            (tw.join_slab_grads(got["dext"], lt), dl_p),
+            (sum(got["dg"]), dg_p)):
+        assert float((got_t - want_t).abs().max()) <= 1e-5 * float(
+            want_t.abs().max())
+
+
+@pytest.mark.cuda
 def test_torch_wilson_kernel_autograd_matches_plain(cuda_device):
     """Second order through the kernels (force recorded, then its
     backward) against the plain Function, on the card."""

@@ -34,6 +34,7 @@ from l2hmc_tpu.lattice import u1 as ju1
 from l2hmc_tpu.train import gauge as jgauge
 from l2hmc_tpu_torch import _device
 from l2hmc_tpu_torch.benchmarks import dp_parity
+from l2hmc_tpu_torch.lattice import u1 as tu1
 from l2hmc_tpu_torch.parallel import dryrun, mesh as tmesh
 from l2hmc_tpu_torch.train import checkpoint as tckpt
 from l2hmc_tpu_torch.train import gauge as tgauge
@@ -203,10 +204,10 @@ def test_torch_ranks_know_their_rank_and_primary(n, ranks2, ranks4):
 
 
 def test_torch_mesh_without_a_group(monkeypatch):
-    """One rank without a process group: every sharding is the identity;
-    a mesh that does not cover the ranks, an uneven chain split and
-    ``lattice_sharding`` (A11b) raise; the launcher bring-up is a no-op
-    without ``WORLD_SIZE``."""
+    """One rank without a process group: every sharding is the identity
+    (``lattice_sharding``'s slab is the whole lattice); a mesh that does
+    not cover the ranks and an uneven chain split raise; the launcher
+    bring-up is a no-op without ``WORLD_SIZE``."""
     mesh = tmesh.get_mesh(device="cpu")
     assert mesh.shape == {"data": 1, "space": 1}
     assert mesh.groups == {"data": None, "space": None}
@@ -215,8 +216,10 @@ def test_torch_mesh_without_a_group(monkeypatch):
     assert torch.equal(tmesh.gather_chains(x, mesh), x)
     with pytest.raises(ValueError, match="does not cover"):
         tmesh.get_mesh(num_data=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="A11b"):
-        tmesh.lattice_sharding(mesh)
+    sp = tmesh.lattice_sharding(mesh, tu1.LatticeShape(4, 2))
+    assert (sp.n, sp.t0, sp.lt_blk, sp.cols) == (1, 0, 4, slice(0, 16))
+    assert torch.equal(sp.shard(torch.arange(32.0).reshape(2, 16)),
+                       torch.arange(32.0).reshape(2, 16))
     # 'space' innermost: rank 3 of a 2x2 mesh sits at (1, 1)
     two = tmesh.Mesh({"data": 2, "space": 2}, {"data": 1, "space": 0},
                      {"data": None, "space": None},
@@ -288,17 +291,22 @@ def test_torch_dp_train_steps_match_jax(case, n, refs, ranks2, ranks4):
 
 @pytest.mark.parametrize("n", [2, 4])
 def test_torch_dryrun_modes_match_no_group(n, refs, ranks2, ranks4):
-    """Modes 1, 2, 4, 5 and 6 on n ranks meet the JAX dry run's assertions
+    """The six modes on n ranks meet the JAX dry run's assertions
     (``dryrun_multichip(4)`` checks them itself) and equal the same
-    computation on one process holding the whole batch."""
+    computation on one process holding the whole batch (mode 3 on a
+    ``(n/2, 2)`` mesh against one rank)."""
     res = _rank0(n, ranks2, ranks4)["modes"]
     dryrun.check_modes(res, n)
     ref = dryrun.run_modes(n, "cpu")
-    tr, rt = res["train_step"], ref["train_step"]
-    assert tr["loss"] == pytest.approx(rt["loss"], rel=1e-5)
-    np.testing.assert_allclose(tr["x"].numpy(), rt["x"].numpy(), atol=1e-6)
-    np.testing.assert_allclose(tr["params"].numpy(), rt["params"].numpy(),
-                               atol=1e-6)
+    assert res["lattice_step"]["mesh"] == {"data": n // 2, "space": 2}
+    for mode in ("train_step", "lattice_step"):
+        tr, rt = res[mode], ref[mode]
+        assert tr["loss"] == pytest.approx(rt["loss"], rel=1e-5), mode
+        np.testing.assert_allclose(tr["x"].numpy(), rt["x"].numpy(),
+                                   atol=1e-6, err_msg=mode)
+        np.testing.assert_allclose(tr["params"].numpy(),
+                                   rt["params"].numpy(), atol=1e-6,
+                                   err_msg=mode)
     for key in ("action", "grad", "wgrad", "plaqs", "charges"):
         np.testing.assert_allclose(res["domain"][key].numpy(),
                                    ref["domain"][key].numpy(), atol=1e-4)

@@ -1,0 +1,8 @@
+"""Share of its roofline of the trained MLP chain kernel
+(``ops/l2hmc_kernel.py l2hmc_chain`` -> ``csrc/l2hmc_chain.cu``), in %."""
+
+from bench_h100.lib.readings import roofline
+
+
+def read(r):
+    return roofline(r, "l2hmc_chain")

@@ -9,7 +9,10 @@ beta (port of ``benchmarks/config5_multihost.py``).
 2. **SMC over the beta ladder** with the particle population sharded over
    the same ranks (``dynamics/smc.py``): the log-weights are gathered for
    the normalizations and log Z, the resample gathers the particles.  The
-   log-Z estimate is checked against the factorized analytic anchor.
+   log-Z estimate is checked against the factorized analytic anchor.  The
+   ladder runs under ``utils/trace.py``'s recorder, and every rank prints
+   on stderr one JSON line of its seconds in each span of the rung
+   (``smc.rung`` and its phases, the gathers, the waits for the card).
 
 Run alone (one rank), or under a launcher::
 
@@ -50,10 +53,12 @@ def build_parser():
     p.add_argument("--leapfrog", type=int, default=4)
     p.add_argument("--phases", default="train,smc",
                    help="comma-separated subset of {train, smc}")
-    p.add_argument("--smc_move", default="hmc", choices=["hmc", "l2hmc"],
+    p.add_argument("--smc_move", default="hmc",
+                   choices=["hmc", "l2hmc", "fused"],
                    help="SMC move kernel: plain HMC (the Wilson kernels' "
-                        "force on the card), or the L2HMC kernel trained "
-                        "in the train phase")
+                        "force on the card), the L2HMC kernel trained "
+                        "in the train phase, or every move of a rung in "
+                        "one launch of the fused HMC chain kernel")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default=None,
                    help="torch device (default: this rank's card)")
@@ -104,6 +109,21 @@ def train_run(args, mesh, device):
     }, state.params, cfg
 
 
+def rank_spans(summary, mesh, wall_s) -> dict:
+    """This rank's line of the SMC phase: its seconds in each span path of
+    the ladder (total and self), each span's count, the waits for the card,
+    and the ladder's wall seconds."""
+    return {
+        "phase": "smc_rank_spans",
+        "rank": mesh.coords["data"] if mesh is not None else 0,
+        "wall_s": round(wall_s, 4),
+        "spans": {p: {"count": v["count"], "total_s": round(v["total_s"], 4),
+                      "self_s": round(v["self_s"], 4)}
+                  for p, v in sorted(summary["spans"].items())},
+        "counters": summary["counters"],
+    }
+
+
 def main(argv=None):
     p = build_parser()
     args = p.parse_args(argv)
@@ -115,7 +135,7 @@ def main(argv=None):
 
     from l2hmc_tpu_torch._device import resolve_device
     from l2hmc_tpu_torch.dynamics.smc import (
-        make_u1_hmc_move, smc_beta_ladder,
+        make_u1_fused_move, make_u1_hmc_move, smc_beta_ladder,
         u1_log_z_exact_factorized, weighted_mean,
     )
     from l2hmc_tpu_torch.lattice import u1
@@ -124,6 +144,7 @@ def main(argv=None):
         gather_chains, get_mesh, initialize_distributed, is_primary,
         shard_chains,
     )
+    from l2hmc_tpu_torch.utils import trace
 
     launched = initialize_distributed(args.device)
     device = resolve_device(args.device)
@@ -183,6 +204,9 @@ def main(argv=None):
                         t_params, x, b, *draw_transition(g, x, mesh))
                     x = u1.wrap(tr.x_out)
                 return x
+        elif args.smc_move == "fused":
+            move = make_u1_fused_move(shape, args.leapfrog,
+                                      args.moves_per_rung, mesh=mesh)
         else:
             move = make_u1_hmc_move(pot, u1.wrap, shape.num_plaquettes,
                                     args.leapfrog, args.moves_per_rung,
@@ -193,11 +217,15 @@ def main(argv=None):
         for _ in range(max(1, 40 // args.moves_per_rung)):
             x_eq = move(x_eq, args.beta_init, gen)
         _sync(device)
+        trace.reset()
         t0 = time.perf_counter()
-        final, ess_trace = smc_beta_ladder(gen, x_eq, pot, betas, move,
-                                           mesh=mesh)
-        log_z = float(final.log_z)
+        with trace.recording():
+            final, ess_trace = smc_beta_ladder(gen, x_eq, pot, betas, move,
+                                               mesh=mesh)
+            log_z = float(final.log_z)
         wall = time.perf_counter() - t0
+        print(json.dumps(rank_spans(trace.summary(), mesh, wall)),
+              file=sys.stderr, flush=True)
         # the final population carries residual log-weights: weight the mean
         plaqs = gather_chains(u1.observables(final.x, shape)["plaqs"], mesh)
         plaq = float(weighted_mean(gather_chains(final.log_w, mesh), plaqs))

@@ -49,7 +49,8 @@ no launcher nothing changes.
 ``--profile`` traces the first logging chunk with ``torch.profiler``
 (``<run_dir>/profile/trace.json.gz``) and writes its op table to
 ``<run_dir>/profile_top_ops.txt`` (``analysis/profile_digest.py``: device
-time on the card, CPU self time on the CPU); with ``--profile_every N``
+time on the card, CPU self time on the CPU; on the card also the card's
+idle time by program span, ``utils/trace.py``); with ``--profile_every N``
 every N-th chunk too, into ``<run_dir>/timeline_<step>/``, as the JAX CLI
 does.
 """

@@ -36,6 +36,8 @@ from typing import Callable, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from l2hmc_tpu_torch.utils import trace
+
 
 class SMCState(NamedTuple):
     x: torch.Tensor          # (n, d) particles
@@ -105,28 +107,36 @@ def smc_beta_ladder(generator: Optional[torch.Generator], x0: torch.Tensor,
     log_z = torch.zeros((), dtype=x0.dtype, device=dev)
     ess_trace = []
     for r in range(len(betas) - 1):
-        b_prev, b_curr = betas[r], betas[r + 1]
-        u0 = (u0s[r] if u0s is not None
-              else draw_resample_u0(generator, n, dev))
-        # reweight: w *= exp(-(b_curr - b_prev) U(x))
-        log_w_local = log_w_local - float(b_curr - b_prev) * potential_fn(x)
-        log_w = gather_chains(log_w_local, mesh)
+        with trace.span("smc.rung"):
+            b_prev, b_curr = betas[r], betas[r + 1]
+            u0 = (u0s[r] if u0s is not None
+                  else draw_resample_u0(generator, n, dev))
+            with trace.span("smc.reweight"):
+                # reweight: w *= exp(-(b_curr - b_prev) U(x))
+                log_w_local = (log_w_local
+                               - float(b_curr - b_prev) * potential_fn(x))
+                log_w = gather_chains(log_w_local, mesh)
 
-        # adaptive resampling (selected, not branched)
-        ess = effective_sample_size(log_w)
-        do_resample = ess < ess_threshold * n
-        idx = shard_chains(systematic_resample(generator, log_w, u0), mesh)
-        x = torch.where(do_resample,
-                        gather_chains(x, mesh).index_select(0, idx), x)
-        # log_z accumulates the mean weight at resampling time
-        log_z = log_z + torch.where(do_resample, _log_mean(log_w),
-                                    torch.zeros_like(log_z))
-        log_w_local = torch.where(do_resample,
-                                  torch.zeros_like(log_w_local), log_w_local)
+            # adaptive resampling (selected, not branched)
+            with trace.span("smc.resample"):
+                ess = effective_sample_size(log_w)
+                do_resample = ess < ess_threshold * n
+                idx = shard_chains(systematic_resample(generator, log_w, u0),
+                                   mesh)
+                x = torch.where(do_resample,
+                                gather_chains(x, mesh).index_select(0, idx),
+                                x)
+                # log_z accumulates the mean weight at resampling time
+                log_z = log_z + torch.where(do_resample, _log_mean(log_w),
+                                            torch.zeros_like(log_z))
+                log_w_local = torch.where(do_resample,
+                                          torch.zeros_like(log_w_local),
+                                          log_w_local)
 
-        # MCMC move at the current temperature
-        x = move_fn(x, float(b_curr), generator)
-        ess_trace.append(ess)
+            # MCMC move at the current temperature
+            with trace.span("smc.move"):
+                x = move_fn(x, float(b_curr), generator)
+            ess_trace.append(ess)
     # fold in the remaining weights
     log_z = log_z + _log_mean(gather_chains(log_w_local, mesh))
     return (SMCState(x=x, log_w=log_w_local, log_z=log_z),

@@ -44,7 +44,10 @@ from torch import nn
 from l2hmc_tpu_torch.networks.nets import matmul, stencil_head, stencil_layer
 from l2hmc_tpu_torch.ops import _cuda
 from l2hmc_tpu_torch.ops.leapfrog import (
+    CALL_SPAN,
     H100_SMEM_OPTIN,
+    LAUNCH_SPAN,
+    SEED_SPAN,
     _energy_change,
     _grad_flat,
     _hop_math,
@@ -58,8 +61,11 @@ from l2hmc_tpu_torch.ops.leapfrog import (
     check_links,
     draw_seed,
 )
+from l2hmc_tpu_torch.utils import trace
 
 _TWO_PI = 2.0 * np.pi
+# the span of a chain call's weight preparation (utils/trace.py)
+WEIGHTS_SPAN = "chain.weights"
 
 # ordered weight-array names (the kernel receives them in this order)
 WEIGHT_NAMES = (
@@ -650,12 +656,22 @@ def _frag_index(ks: int):
             torch.as_tensor(np.stack(cols, 1)))
 
 
+def _index_on(idx: torch.Tensor, device) -> torch.Tensor:
+    """A host index tensor on ``device``.  On a card this is the blocking
+    copy that indexing a card tensor with a host index makes anyway (it
+    waits for the stream), made here so that it sits in a ``sync`` span."""
+    if device.type != "cuda":
+        return idx
+    with trace.waiting():
+        return idx.to(device)
+
+
 def _tiles(a: torch.Tensor, ks: int) -> torch.Tensor:
     """(M, K) -> (M/16, K/ks, 32 * elements): each tile's fragments in lane
     order."""
     m, k = a.shape
     t = a.reshape(m // 16, 16, k // ks, ks).permute(0, 2, 1, 3)
-    rows, cols = _frag_index(ks)
+    rows, cols = (_index_on(i, a.device) for i in _frag_index(ks))
     return t[:, :, rows, cols].reshape(m // 16, k // ks, -1)
 
 
@@ -686,7 +702,8 @@ def mma_pack(xin, hw, head, d, precision="f32") -> torch.Tensor:
         q = torch.arange(nch)[:, None, None]
         kidx = (q * wp + w_ // mt) * kpc + s_ % kpc
         rows = w_ % mt + KERNEL_WARPS * (s_ // kpc)
-        return tiles[rows.expand_as(kidx), kidx]
+        return tiles[_index_on(rows.expand_as(kidx), tiles.device),
+                     _index_on(kidx, tiles.device)]
 
     def heads(a):
         tiles = _tiles(_pad2(a.float(), geo.mp_hd, geo.hp), ks)
@@ -694,7 +711,9 @@ def mma_pack(xin, hw, head, d, precision="f32") -> torch.Tensor:
                                                               None]
         kq = torch.arange(geo.kq)[None, :, None, None]
         rows = (grp * KERNEL_WARPS + w_[None]).expand(-1, geo.kq, -1, 4)
-        return tiles[rows, (kq * 4 + s_[None]).expand_as(rows)]
+        return tiles[_index_on(rows, tiles.device),
+                     _index_on((kq * 4 + s_[None]).expand_as(rows),
+                               tiles.device)]
 
     flat = torch.cat([narrow(xin.t(), geo.kp_in).reshape(-1),
                       narrow(hw.t(), geo.kp_tr).reshape(-1),
@@ -767,26 +786,38 @@ def l2hmc_chain(links, params, generator, eps, beta, num_leapfrog,
 
     if links.dtype != torch.float32:
         raise ValueError(f"links: expected float32, got {links.dtype}")
-    dev = links.device
-    packed = pack_weights(params, 2 * d, precision)
-    bf16 = precision == "bf16"
-    h = packed[0].shape[1]
-    K = packed[-1].shape[0]
-    if K != num_leapfrog:
-        raise ValueError(f"masks hold {K} steps, num_leapfrog={num_leapfrog}")
+    with trace.span(CALL_SPAN):
+        return _l2hmc_chain_cuda(links, params, generator, eps, beta,
+                                 num_leapfrog, n, bounded_q, hop,
+                                 rand_arrays, precision, ablate_nets)
 
-    lib = _cuda.library()
-    c, stages = chains_per_block(lt, lx, h, precision,
-                                 lib.smem_optin_bytes(dev.index or 0),
-                                 lib.l2hmc_chain_max_chains())
-    geo = mma_geometry(d, h, precision)
-    weights = mma_weights(packed, d, precision)
-    for name, w in zip(MMA_WEIGHT_NAMES, weights):
-        check_cuda_input(name, w, dtype=torch.bfloat16 if (
-            bf16 and name[1:] == "mm") else torch.float32)
+
+def _l2hmc_chain_cuda(links, params, generator, eps, beta, num_leapfrog, n,
+                      bounded_q, hop, rand_arrays, precision, ablate_nets):
+    b, lt, lx, _ = links.shape
+    d = lt * lx
+    dev = links.device
+    bf16 = precision == "bf16"
+    with trace.span(WEIGHTS_SPAN):
+        packed = pack_weights(params, 2 * d, precision)
+        h = packed[0].shape[1]
+        K = packed[-1].shape[0]
+        if K != num_leapfrog:
+            raise ValueError(f"masks hold {K} steps, "
+                             f"num_leapfrog={num_leapfrog}")
+        lib = _cuda.library()
+        c, stages = chains_per_block(lt, lx, h, precision,
+                                     lib.smem_optin_bytes(dev.index or 0),
+                                     lib.l2hmc_chain_max_chains())
+        geo = mma_geometry(d, h, precision)
+        weights = mma_weights(packed, d, precision)
+        for name, w in zip(MMA_WEIGHT_NAMES, weights):
+            check_cuda_input(name, w, dtype=torch.bfloat16 if (
+                bf16 and name[1:] == "mm") else torch.float32)
 
     x0, x1 = _split_links(links)
-    rand, seed = _kernel_randomness(rand_arrays, generator, n, b, d)
+    with trace.span(SEED_SPAN):
+        rand, seed = _kernel_randomness(rand_arrays, generator, n, b, d)
     wptrs = (ctypes.c_void_p * len(weights))(*[w.data_ptr() for w in weights])
     # the accepted state's sin P and cos P (kernel scratch)
     spcp = torch.empty((2, b, d), dtype=torch.float32, device=dev)
@@ -796,16 +827,17 @@ def l2hmc_chain(links, params, generator, eps, beta, num_leapfrog,
     l2hmc_chain.launches += 1
     l2hmc_chain.bf16_launches += int(bf16)
     l2hmc_chain.ablate_launches += int(ablate_nets)
-    _cuda.check(lib.l2hmc_chain_launch(
-        x0.data_ptr(), x1.data_ptr(), spcp.data_ptr(),
-        ctypes.cast(wptrs, ctypes.c_void_p),
-        *[_cuda.ptr(r) for r in rand],
-        plaq.data_ptr(), chg.data_ptr(), prob.data_ptr(),
-        b, lt, lx, num_leapfrog, n, h, float(eps), float(beta),
-        int(bounded_q), int(hop), int(bf16), int(ablate_nets), seed,
-        c, geo.hp, geo.mt, geo.n_in, geo.n_tr, geo.n_hd, geo.kq, geo.bs,
-        geo.hs, stages, dev.index or 0, _cuda.stream_handle(dev)),
-        "l2hmc_chain_launch")
+    with trace.span(LAUNCH_SPAN):
+        _cuda.check(lib.l2hmc_chain_launch(
+            x0.data_ptr(), x1.data_ptr(), spcp.data_ptr(),
+            ctypes.cast(wptrs, ctypes.c_void_p),
+            *[_cuda.ptr(r) for r in rand],
+            plaq.data_ptr(), chg.data_ptr(), prob.data_ptr(),
+            b, lt, lx, num_leapfrog, n, h, float(eps), float(beta),
+            int(bounded_q), int(hop), int(bf16), int(ablate_nets), seed,
+            c, geo.hp, geo.mt, geo.n_in, geo.n_tr, geo.n_hd, geo.kq, geo.bs,
+            geo.hs, stages, dev.index or 0, _cuda.stream_handle(dev)),
+            "l2hmc_chain_launch")
     return _join_links(x0, x1, lt, lx), plaq, torch.round(chg), prob
 
 
@@ -964,32 +996,49 @@ def l2hmc_local_chain(links, params, generator, eps, beta, num_leapfrog,
 
     if links.dtype != torch.float32:
         raise ValueError(f"links: expected float32, got {links.dtype}")
+    with trace.span(CALL_SPAN):
+        return _l2hmc_local_chain_cuda(links, params, generator, eps, beta,
+                                       num_leapfrog, n, num_layers,
+                                       bounded_q, hop, rand_arrays,
+                                       ablate_nets)
+
+
+def _l2hmc_local_chain_cuda(links, params, generator, eps, beta,
+                            num_leapfrog, n, num_layers, bounded_q, hop,
+                            rand_arrays, ablate_nets):
+    b, lt, lx, _ = links.shape
+    d = lt * lx
     dev = links.device
-    s0w = params.xnet.stencils()[0].w
-    if tuple(s0w.shape[:2]) != (5, LOCAL_IN_CHANNELS):
-        raise ValueError(f"xs0w: expected (5, {LOCAL_IN_CHANNELS}, c), got "
-                         f"{tuple(s0w.shape)} (u1 position features)")
-    c = local_kernel_channels(s0w.shape[2])
-    names = local_weight_names(num_layers)
-    weights = pack_local_weights(pad_local_params(params, c), 2 * d,
-                                 num_layers)
-    for name, w in zip(names, weights):
-        check_cuda_input(name, w)
-    mask0, mask1 = weights[-2:]
-    K = mask0.shape[0]
-    if K != num_leapfrog or num_leapfrog < 1:
-        raise ValueError(f"masks hold {K} steps, num_leapfrog={num_leapfrog}")
-    masks = torch.stack([mask0, mask1])
-    if not bool(((masks == 0.0) | (masks == 1.0)).all()):
-        raise ValueError("masks: the kernel takes binary hold masks")
+    with trace.span(WEIGHTS_SPAN):
+        s0w = params.xnet.stencils()[0].w
+        if tuple(s0w.shape[:2]) != (5, LOCAL_IN_CHANNELS):
+            raise ValueError(f"xs0w: expected (5, {LOCAL_IN_CHANNELS}, c), "
+                             f"got {tuple(s0w.shape)} (u1 position features)")
+        c = local_kernel_channels(s0w.shape[2])
+        names = local_weight_names(num_layers)
+        weights = pack_local_weights(pad_local_params(params, c), 2 * d,
+                                     num_layers)
+        for name, w in zip(names, weights):
+            check_cuda_input(name, w)
+        mask0, mask1 = weights[-2:]
+        K = mask0.shape[0]
+        if K != num_leapfrog or num_leapfrog < 1:
+            raise ValueError(f"masks hold {K} steps, "
+                             f"num_leapfrog={num_leapfrog}")
+        masks = torch.stack([mask0, mask1])
+        with trace.waiting():
+            binary = bool(((masks == 0.0) | (masks == 1.0)).all())
+        if not binary:
+            raise ValueError("masks: the kernel takes binary hold masks")
+        flat = local_kernel_weights(weights, num_layers)
 
     lib = _cuda.library()
     deep, _ = local_chain_route(lt, lx, c, num_layers,
                                 lib.smem_optin_bytes(dev.index or 0))
 
     x0, x1 = _split_links(links)
-    rand, seed = _kernel_randomness(rand_arrays, generator, n, b, d)
-    flat = local_kernel_weights(weights, num_layers)
+    with trace.span(SEED_SPAN):
+        rand, seed = _kernel_randomness(rand_arrays, generator, n, b, d)
     # the accepted state's sin P and cos P, per chain (kernel scratch)
     spcp = torch.empty((b, 2, d), dtype=torch.float32, device=dev)
     # the deep route's hidden-layer outputs, two (c, d) buffers per chain
@@ -1000,14 +1049,17 @@ def l2hmc_local_chain(links, params, generator, eps, beta, num_leapfrog,
     prob = torch.empty_like(plaq)
     l2hmc_local_chain.launches += 1
     l2hmc_local_chain.ablate_launches += int(ablate_nets)
-    _cuda.check(lib.l2hmc_local_chain_launch(
-        x0.data_ptr(), x1.data_ptr(), spcp.data_ptr(), _cuda.ptr(hbuf),
-        flat.data_ptr(),
-        mask0.data_ptr(), mask1.data_ptr(), *[_cuda.ptr(r) for r in rand],
-        plaq.data_ptr(), chg.data_ptr(), prob.data_ptr(),
-        b, lt, lx, K, n, c, num_layers, float(eps), float(beta),
-        int(bounded_q), int(hop), int(ablate_nets), int(deep), seed,
-        dev.index or 0, _cuda.stream_handle(dev)), "l2hmc_local_chain_launch")
+    with trace.span(LAUNCH_SPAN):
+        _cuda.check(lib.l2hmc_local_chain_launch(
+            x0.data_ptr(), x1.data_ptr(), spcp.data_ptr(), _cuda.ptr(hbuf),
+            flat.data_ptr(),
+            mask0.data_ptr(), mask1.data_ptr(),
+            *[_cuda.ptr(r) for r in rand],
+            plaq.data_ptr(), chg.data_ptr(), prob.data_ptr(),
+            b, lt, lx, K, n, c, num_layers, float(eps), float(beta),
+            int(bounded_q), int(hop), int(ablate_nets), int(deep), seed,
+            dev.index or 0, _cuda.stream_handle(dev)),
+            "l2hmc_local_chain_launch")
     return _join_links(x0, x1, lt, lx), plaq, torch.round(chg), prob
 
 

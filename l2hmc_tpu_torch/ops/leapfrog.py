@@ -22,6 +22,13 @@ import numpy as np
 import torch
 
 from l2hmc_tpu_torch.ops import _cuda
+from l2hmc_tpu_torch.utils import trace
+
+# the spans of a chain wrapper's call on the card (utils/trace.py): the
+# whole call, its kernel seed or injected draws, its launch
+CALL_SPAN = "chain.call"
+SEED_SPAN = "chain.seed"
+LAUNCH_SPAN = "chain.launch"
 
 _TWO_PI = 2.0 * np.pi
 
@@ -220,9 +227,14 @@ def draw_hmc_randomness(generator, n, b, d, hop, device=None):
 
 
 def draw_seed(generator) -> int:
-    """A 63-bit kernel seed drawn from ``generator``."""
-    return int(torch.randint(0, 2 ** 62, (1,), generator=generator,
-                             device=generator.device).item())
+    """A 63-bit kernel seed drawn from ``generator`` (from a card's
+    generator the host waits for the card: a ``sync`` span)."""
+    draw = torch.randint(0, 2 ** 62, (1,), generator=generator,
+                         device=generator.device)
+    if not draw.is_cuda:
+        return int(draw.item())
+    with trace.waiting():
+        return int(draw.item())
 
 
 def check_links(links):
@@ -357,6 +369,15 @@ def hmc_chain(links, generator, eps, beta, num_leapfrog, num_transitions,
             f"the reference kernel's estimate is {est} B of on-chip memory, "
             f"over its {REFERENCE_VMEM_LIMIT} B; make fewer transitions per "
             "call")
+    with trace.span(CALL_SPAN):
+        return _hmc_chain_cuda(links, generator, eps, beta, num_leapfrog, n,
+                               hop, rand_arrays)
+
+
+def _hmc_chain_cuda(links, generator, eps, beta, num_leapfrog, n, hop,
+                    rand_arrays):
+    b, lt, lx, _ = links.shape
+    d = lt * lx
     lib = _cuda.library()
     dev = links.device
     plan = hmc_chain_plan(lt, lx, lib.smem_optin_bytes(dev.index or 0))
@@ -367,26 +388,28 @@ def hmc_chain(links, generator, eps, beta, num_leapfrog, num_transitions,
                               dtype=torch.float32, device=dev)
     rand = [None] * 5
     seed = 0
-    if rand_arrays is not None:
-        shapes = [(n, b, d), (n, b, d), (n, b), (n, b), (n, b)]
-        for i, (name, arr) in enumerate(zip(
-                ("v0s", "v1s", "us", "nus", "uhs"), rand_arrays)):
-            check_cuda_input(name, arr, shapes[i])
-            rand[i] = arr
-    else:
-        seed = draw_seed(generator)
+    with trace.span(SEED_SPAN):
+        if rand_arrays is not None:
+            shapes = [(n, b, d), (n, b, d), (n, b), (n, b), (n, b)]
+            for i, (name, arr) in enumerate(zip(
+                    ("v0s", "v1s", "us", "nus", "uhs"), rand_arrays)):
+                check_cuda_input(name, arr, shapes[i])
+                rand[i] = arr
+        else:
+            seed = draw_seed(generator)
     plaq = torch.empty((n, b), dtype=torch.float32, device=dev)
     chg = torch.empty_like(plaq)
     prob = torch.empty_like(plaq)
     hmc_chain.launches += 1
-    _cuda.check(lib.hmc_chain_launch(
-        x0.data_ptr(), x1.data_ptr(), _cuda.ptr(scratch),
-        *[_cuda.ptr(r) for r in rand],
-        plaq.data_ptr(), chg.data_ptr(), prob.data_ptr(),
-        b, lt, lx, num_leapfrog, n, float(eps), float(beta), int(hop), seed,
-        HMC_ROUTES.index(plan.route), plan.spt, plan.threads,
-        int(plan.nb_dev), dev.index or 0, _cuda.stream_handle(dev)),
-        "hmc_chain_launch")
+    with trace.span(LAUNCH_SPAN):
+        _cuda.check(lib.hmc_chain_launch(
+            x0.data_ptr(), x1.data_ptr(), _cuda.ptr(scratch),
+            *[_cuda.ptr(r) for r in rand],
+            plaq.data_ptr(), chg.data_ptr(), prob.data_ptr(),
+            b, lt, lx, num_leapfrog, n, float(eps), float(beta), int(hop),
+            seed, HMC_ROUTES.index(plan.route), plan.spt, plan.threads,
+            int(plan.nb_dev), dev.index or 0, _cuda.stream_handle(dev)),
+            "hmc_chain_launch")
     return _join_links(x0, x1, lt, lx), plaq, torch.round(chg), prob
 
 

@@ -32,6 +32,7 @@ import torch
 import torch.distributed as dist
 
 from l2hmc_tpu_torch._device import local_rank, resolve_device
+from l2hmc_tpu_torch.utils import trace
 
 AXES = ("data", "space")
 
@@ -68,8 +69,9 @@ class Mesh:
         group = self.groups[axis]
         if group is None:
             return t
-        out = t.detach().clone().contiguous()
-        dist.all_reduce(out, group=group)
+        with trace.span("mesh.all_reduce"):
+            out = t.detach().clone().contiguous()
+            dist.all_reduce(out, group=group)
         return out / self.shape[axis] if op == "mean" else out
 
     def all_gather(self, t: torch.Tensor, axis: str = "data") -> torch.Tensor:
@@ -78,9 +80,10 @@ class Mesh:
         group = self.groups[axis]
         if group is None:
             return t
-        parts = [torch.empty_like(t) for _ in range(self.shape[axis])]
-        dist.all_gather(parts, t.contiguous(), group=group)
-        return torch.cat(parts, dim=0)
+        with trace.span("mesh.all_gather"):
+            parts = [torch.empty_like(t) for _ in range(self.shape[axis])]
+            dist.all_gather(parts, t.contiguous(), group=group)
+            return torch.cat(parts, dim=0)
 
     def barrier(self):
         if _initialized():

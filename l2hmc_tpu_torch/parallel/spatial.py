@@ -37,18 +37,20 @@ import torch
 
 from l2hmc_tpu_torch.parallel.domain import _exchange
 from l2hmc_tpu_torch.parallel.mesh import Mesh, shard_chains
+from l2hmc_tpu_torch.utils import trace
 
 AXIS = "space"
 
 
-# torch.profiler ranges around each collective (their host time; the NCCL
-# kernels carry the device time): benchmarks/space_scaling.py reads them
+# spans (utils/trace.py) around each collective, on the profiler's timeline
+# (their host time; the NCCL kernels carry the device time):
+# benchmarks/space_scaling.py reads them
 HALO_RANGE = "lattice_sharding.halo"
 SUM_RANGE = "lattice_sharding.space_sum"
 
 
 def _halo(t, sp, dim, before, after):
-    with torch.profiler.record_function(HALO_RANGE):
+    with trace.span(HALO_RANGE):
         return _halo_parts(t, sp, dim, before, after)
 
 
@@ -65,7 +67,7 @@ def _halo_parts(t, sp, dim, before, after):
 
 
 def _halo_transpose(g, sp, dim, before, after):
-    with torch.profiler.record_function(HALO_RANGE):
+    with trace.span(HALO_RANGE):
         return _halo_transpose_parts(g, sp, dim, before, after)
 
 
@@ -109,7 +111,7 @@ class _SpaceSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, t, sp):
         ctx.sp = sp
-        with torch.profiler.record_function(SUM_RANGE):
+        with trace.span(SUM_RANGE):
             return sp.mesh.all_reduce(t, AXIS, "sum")
 
     @staticmethod

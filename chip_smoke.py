@@ -1001,15 +1001,16 @@ def conditioner_conv_ms(params, K, device, reps=5):
 
 
 def weight_stream_bytes(b, lt, lx, h, K, precision="f32"):
-    """Bytes ``csrc/l2hmc_chain.cu`` streams from L2 per transition: every
-    block reads its net's packed chunks once per MLP call."""
+    """Bytes the chain kernel streams from L2 per transition, on the route
+    ``chain_route_plan`` picks with the H100's defaults: every block (or
+    every CTA of a cluster) reads its net's packed chunks (its slab's share
+    on the cluster route) once per MLP call."""
     from l2hmc_tpu_torch.ops.l2hmc_kernel import (CHUNK_BYTES,
-                                                  chains_per_block,
-                                                  mma_geometry)
+                                                  chain_route_plan)
 
-    geo = mma_geometry(lt * lx, h, precision)
-    c, _ = chains_per_block(lt, lx, h, precision)
-    blocks = -(-b // c)
+    plan = chain_route_plan(lt, lx, h, precision, b)
+    geo = plan.geo
+    blocks = -(-b // plan.chains) * plan.cl
     return (geo.n_in + geo.n_tr + geo.n_hd) * CHUNK_BYTES * (3 * K + 1) \
         * blocks
 
@@ -1840,6 +1841,25 @@ def zero_nets(params):
     return z
 
 
+@contextlib.contextmanager
+def block_route():
+    """``l2hmc_chain`` held to its block route (``csrc/l2hmc_chain.cu``, the
+    route of the ablated mode) whatever ``chain_route_plan`` would pick."""
+    from l2hmc_tpu_torch.ops import l2hmc_kernel as lk
+
+    plan = lk.chain_route_plan
+
+    def block_plan(*a, **k):
+        k["cluster"] = False
+        return plan(*a, **k)
+
+    lk.chain_route_plan = block_plan
+    try:
+        yield
+    finally:
+        lk.chain_route_plan = plan
+
+
 def probe_check(device):
     """9(a): each issue-rate probe against its plain chain at (2048, 256)."""
     from l2hmc_tpu_torch.ops.issue_rates import (PROBES, probe_chain,
@@ -1867,8 +1887,10 @@ def probe_check(device):
 
 def decomposition_checks(params, eps_c, K_c, device):
     """9(d), 9(e): the ablated kernels against their plain versions and
-    against the same kernels on zeroed nets; the bf16 kernel against its
-    plain version.  Returns ``{entry: max error}``."""
+    against the same kernels on zeroed nets (the MLP chain's block route,
+    which runs the ablated mode; its cluster route on zeroed nets against
+    the plain version); the bf16 kernel against its plain version.  Returns
+    ``{entry: max error}``."""
     from l2hmc_tpu_torch.lattice.u1 import typical_links
     from l2hmc_tpu_torch.ops.l2hmc_kernel import (l2hmc_chain,
                                                   l2hmc_chain_reference,
@@ -1883,11 +1905,16 @@ def decomposition_checks(params, eps_c, K_c, device):
     rand = injected(rng, n, b, d, device)[:4]
     abl = l2hmc_chain(links, params, None, eps_c, BETA, K_c, n,
                       rand_arrays=rand, ablate_nets=True)
-    zero = l2hmc_chain(links, zero_nets(params), None, eps_c, BETA, K_c, n,
-                       rand_arrays=rand)
+    with block_route():
+        zero = l2hmc_chain(links, zero_nets(params), None, eps_c, BETA, K_c,
+                           n, rand_arrays=rand)
+    zero_cluster = l2hmc_chain(links, zero_nets(params), None, eps_c, BETA,
+                               K_c, n, rand_arrays=rand)
     plain = l2hmc_chain_reference(links, params, *rand, eps_c, BETA, K_c,
                                   ablate_nets=True)
     torch.cuda.synchronize()
+    check_kernel("l2hmc_chain(zeroed nets, cluster route) champion",
+                 zero_cluster, plain, rand[3])
     e_zero = max(float((a - z).abs().max()) for a, z in zip(abl, zero))
     log(f"[decomp] l2hmc_chain ablated vs zeroed nets ({b} chains, {n} "
         f"transitions): max|d| {e_zero:.3e} (atol {ABLATE_ATOL})")

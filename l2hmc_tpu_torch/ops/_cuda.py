@@ -77,6 +77,23 @@ _SIGNATURES = {
         _I, _I, _I, _I, _I,          # n_hd, kq, bs, hs, stages
         _I, _P,                      # device, stream
     ]),
+    "l2hmc_chain_cluster_smem_bytes": (ctypes.c_size_t,
+                                       [_I, _I, _I, _I, _I]),
+    "l2hmc_chain_cluster_max_active": (_I, [_I, _I, _I, _I, _I]),
+    "l2hmc_chain_cluster_launch": (_I, [
+        _P, _P,                      # x0, x1 (B, d), updated in place
+        _P,                          # scratch (2, B, d): accepted sin/cos P
+        _P,                          # host array of 22 weight pointers
+        _P, _P, _P, _P, _P, _P,      # v0s, v1s, ds, us, nus, uhs (or null)
+        _P, _P, _P,                  # plaq, chg, prob traces (N, B)
+        _I, _I, _I, _I, _I,          # B, lt, lx, K, N
+        _F, _F, _I, _I,              # eps, beta, bounded_q, hop
+        _I, _U64,                    # bf16, seed
+        _I, _I, _I, _I, _I, _I,      # CTAs per cluster, chains per CTA, hp,
+                                     # mt, n_in, n_tr
+        _I, _I, _I, _I, _I,          # n_hd, kq, bs, hs, stages
+        _I, _P,                      # device, stream
+    ]),
     "l2hmc_local_chain_smem_bytes": (ctypes.c_size_t, [_I, _I, _I, _I, _I]),
     "l2hmc_local_chain_launch": (_I, [
         _P, _P,                      # x0, x1 (B, d), updated in place

@@ -33,6 +33,7 @@ from __future__ import annotations
 import copy
 import ctypes
 import dataclasses
+import functools
 from types import SimpleNamespace
 from typing import Tuple
 
@@ -561,6 +562,17 @@ KERNEL_WARPS = 8                        # warps that run the products
 BLOCK_WARPS = 16                        # warps of a block
 MAX_STAGES = 8
 CHAINS_PER_BLOCK = (8, 4, 2)
+# the cluster route (csrc/l2hmc_chain_cluster.cu): CTAs per cluster and
+# chains per CTA, most first
+CLUSTER_SIZES = (4, 2)
+CLUSTER_CHAINS = (32, 16, 8)
+CLUSTER_MAX_MT = KERNEL_WARPS           # hidden widths up to 128
+H100_SMS = 132
+# clusters of 2 and 4 one-CTA-per-SM blocks that an H100 SXM runs at once
+# (cudaOccupancyMaxActiveClusters on the card; its GPCs hold the clusters)
+H100_ACTIVE_CLUSTERS = {2: 66, 4: 30}
+# a profiled window's count of launches on the cluster route
+CLUSTER_COUNTER = "chain.cluster_route"
 
 
 def _round_up(x, m):
@@ -641,6 +653,93 @@ def chains_per_block(lt: int, lx: int, h: int, precision: str = "f32",
         f"chains, 2 weight chunks), the device allows {smem_limit} B")
 
 
+def cluster_smem_bytes(cc: int, dl: int, geo, stages: int) -> int:
+    """Shared memory of one CTA of ``csrc/l2hmc_chain_cluster.cu`` (its
+    ``l2hmc_chain_cluster_smem_bytes``): the weight ring and its barriers,
+    seven fields of ``cc`` chains at ``dl`` sites (the six of the block route
+    and the per-site log-det), the features, two hidden rows, two buffers of
+    the products' partials (8 slots of 16 rows x ``cc + 4``), the per-chain
+    partial and cluster sums and scalars, and the exponentials of the
+    nets' coefficients at the slab's sites.  ``geo`` is the slab's
+    :func:`mma_geometry`."""
+    floats = (stages * CHUNK_BYTES // 4 + 4 * MAX_STAGES + 7 * cc * dl
+              + cc * geo.bs + 2 * cc * geo.hs
+              + 2 * KERNEL_WARPS * 16 * (cc + 4) + 26 * cc + 8 * dl)
+    return 4 * floats
+
+
+def _waves(units: int, at_once: int) -> int:
+    return -(-units // at_once)
+
+
+def chain_route_plan(lt: int, lx: int, h: int, precision: str = "f32",
+                     b: int = 1, smem_limit: int = H100_SMEM_OPTIN,
+                     sms: int = H100_SMS, active_clusters=None,
+                     max_chains: int = CHAINS_PER_BLOCK[0],
+                     cluster: bool = True) -> SimpleNamespace:
+    """How :func:`l2hmc_chain` runs ``b`` chains of ``lt x lx`` at hidden
+    width ``h``: ``route`` ('block' or 'cluster'), ``cl`` (CTAs per cluster,
+    1 on the block route), ``chains`` (per block, or per CTA), ``stages``
+    (ring slots), ``geo`` (:func:`mma_geometry` of the block's lattice or of
+    one slab), ``smem`` (bytes per block) and ``waves``.
+
+    The block route (``csrc/l2hmc_chain.cu``) runs :func:`chains_per_block`
+    chains per block, one block per SM (``sms`` at once).  The cluster route
+    (``csrc/l2hmc_chain_cluster.cu``) splits each chain's rows over ``cl``
+    CTAs, so that each CTA streams 1/cl of the in-projection and heads for
+    its ``chains``: the first ``cl`` of :data:`CLUSTER_SIZES` that divides
+    ``lt`` and ``chains`` of :data:`CLUSTER_CHAINS` whose CTA fits
+    ``smem_limit`` with a ring of at least 2 chunks, at hidden widths up to
+    128, whose clusters take no more waves than the block route's blocks;
+    ``active_clusters(cl, chains, smem)`` is how many run at once (the
+    card's ``cudaOccupancyMaxActiveClusters``; default
+    :data:`H100_ACTIVE_CLUSTERS`).  ``cluster=False`` (the ablated mode)
+    keeps the block route.  Raises ``ValueError`` (naming the shared memory)
+    when neither route fits."""
+    if active_clusters is None:
+        def active_clusters(cl, chains, smem):
+            return H100_ACTIVE_CLUSTERS[cl]
+    d = lt * lx
+    try:
+        c, stages = chains_per_block(lt, lx, h, precision, smem_limit,
+                                     max_chains)
+    except ValueError as e:
+        if not cluster:
+            raise
+        block, refused = None, e
+    else:
+        geo = mma_geometry(d, h, precision)
+        block = SimpleNamespace(
+            route="block", cl=1, chains=c, stages=stages, geo=geo,
+            smem=chain_smem_bytes(c, d, geo, stages),
+            waves=_waves(-(-b // c), sms))
+    if cluster:
+        for cl in CLUSTER_SIZES:
+            if lt % cl:
+                continue
+            dl = d // cl
+            geo = mma_geometry(dl, h, precision)
+            if geo.mt > CLUSTER_MAX_MT:
+                break
+            for cc in CLUSTER_CHAINS:
+                stages = min(MAX_STAGES, (smem_limit - cluster_smem_bytes(
+                    cc, dl, geo, 0)) // CHUNK_BYTES)
+                if stages < 2:
+                    continue
+                smem = cluster_smem_bytes(cc, dl, geo, stages)
+                at_once = active_clusters(cl, cc, smem)
+                if at_once < 1:
+                    continue
+                waves = _waves(-(-b // cc), at_once)
+                if block is None or waves <= block.waves:
+                    return SimpleNamespace(
+                        route="cluster", cl=cl, chains=cc, stages=stages,
+                        geo=geo, smem=smem, waves=waves)
+    if block is None:
+        raise refused
+    return block
+
+
 def _frag_index(ks: int):
     """(rows, cols), each (32 lanes, elements), of one lane's A fragment of
     mma.sync m16n8k8 (TF32: a0..a3) or m16n8k16 (bf16: a0..a3 as pairs)."""
@@ -667,19 +766,19 @@ def _index_on(idx: torch.Tensor, device) -> torch.Tensor:
 
 
 def _tiles(a: torch.Tensor, ks: int) -> torch.Tensor:
-    """(M, K) -> (M/16, K/ks, 32 * elements): each tile's fragments in lane
-    order."""
-    m, k = a.shape
-    t = a.reshape(m // 16, 16, k // ks, ks).permute(0, 2, 1, 3)
+    """(..., M, K) -> (..., M/16, K/ks, 32 * elements): each tile's
+    fragments in lane order."""
+    *lead, m, k = a.shape
+    t = a.reshape(*lead, m // 16, 16, k // ks, ks).transpose(-3, -2)
     rows, cols = (_index_on(i, a.device) for i in _frag_index(ks))
-    return t[:, :, rows, cols].reshape(m // 16, k // ks, -1)
+    return t[..., rows, cols].reshape(*lead, m // 16, k // ks, -1)
 
 
 def _pad2(a, rows, cols):
-    return F.pad(a, (0, cols - a.shape[1], 0, rows - a.shape[0]))
+    return F.pad(a, (0, cols - a.shape[-1], 0, rows - a.shape[-2]))
 
 
-def mma_pack(xin, hw, head, d, precision="f32") -> torch.Tensor:
+def mma_pack(xin, hw, head, d, precision="f32", slabs=1) -> torch.Tensor:
     """One net's three matmul operands in the chunk order the kernel reads:
     the in-projection ``xin (6d, h)``, the trunk ``hw (h, h)`` and the merged
     heads ``head (h, 6d)``, each transposed (weights as the M operand),
@@ -689,8 +788,16 @@ def mma_pack(xin, hw, head, d, precision="f32") -> torch.Tensor:
     // mt) * kpc + s % kpc`` (``kpc = 4 / rpw``: up to hp = 128 one row and 4
     k-steps, at 256 two rows and 2); head chunk ``(group, kq)``: warp ``w``
     holds tile row ``group * 8 + w``, k-steps ``kq * 4 + s``.  Flat, float32
-    or bfloat16."""
-    geo = mma_geometry(d, hw.shape[0], precision)
+    or bfloat16.
+
+    ``slabs = CL > 1`` packs for the cluster route, whose CTA ``r`` owns the
+    sites ``r dl .. (r + 1) dl - 1`` (``dl = d / CL``, whole rows): per slab,
+    one after another, the in-projection's rows of the slab's six feature
+    blocks, the trunk, and the heads' columns of the slab's six output
+    blocks, each laid out as above at ``dl`` sites.  The slabs share each
+    index gather, so the host waits as often as for one."""
+    dl = d // slabs
+    geo = mma_geometry(dl, hw.shape[0], precision)
     ks, mt, wp = geo.ks, geo.mt, geo.wp
     kpc = 4 // geo.rpw
     w_ = torch.arange(KERNEL_WARPS)[None, :, None]
@@ -698,12 +805,12 @@ def mma_pack(xin, hw, head, d, precision="f32") -> torch.Tensor:
 
     def narrow(a, kp):
         tiles = _tiles(_pad2(a.float(), geo.hp, kp), ks)
-        nch = tiles.shape[1] // (kpc * wp)
+        nch = tiles.shape[-2] // (kpc * wp)
         q = torch.arange(nch)[:, None, None]
         kidx = (q * wp + w_ // mt) * kpc + s_ % kpc
         rows = w_ % mt + KERNEL_WARPS * (s_ // kpc)
-        return tiles[_index_on(rows.expand_as(kidx), tiles.device),
-                     _index_on(kidx, tiles.device)]
+        return tiles[..., _index_on(rows.expand_as(kidx), tiles.device),
+                     _index_on(kidx, tiles.device), :]
 
     def heads(a):
         tiles = _tiles(_pad2(a.float(), geo.mp_hd, geo.hp), ks)
@@ -711,22 +818,30 @@ def mma_pack(xin, hw, head, d, precision="f32") -> torch.Tensor:
                                                               None]
         kq = torch.arange(geo.kq)[None, :, None, None]
         rows = (grp * KERNEL_WARPS + w_[None]).expand(-1, geo.kq, -1, 4)
-        return tiles[_index_on(rows, tiles.device),
+        return tiles[..., _index_on(rows, tiles.device),
                      _index_on((kq * 4 + s_[None]).expand_as(rows),
-                               tiles.device)]
+                               tiles.device), :]
 
-    flat = torch.cat([narrow(xin.t(), geo.kp_in).reshape(-1),
-                      narrow(hw.t(), geo.kp_tr).reshape(-1),
-                      heads(head.t()).reshape(-1)])
+    h = hw.shape[0]
+    xin_s = xin.reshape(6, slabs, dl, h).transpose(0, 1).reshape(
+        slabs, 6 * dl, h)
+    head_s = head.reshape(h, 6, slabs, dl).permute(2, 0, 1, 3).reshape(
+        slabs, h, 6 * dl)
+    flat = torch.cat([
+        narrow(xin_s.transpose(-1, -2), geo.kp_in).reshape(slabs, -1),
+        narrow(hw.t(), geo.kp_tr).reshape(1, -1).expand(slabs, -1),
+        heads(head_s.transpose(-1, -2)).reshape(slabs, -1)], dim=1)
     dtype = torch.bfloat16 if precision == "bf16" else torch.float32
-    return flat.to(dtype).contiguous()
+    return flat.reshape(-1).to(dtype).contiguous()
 
 
-def mma_weights(weights, d, precision="f32") -> Tuple[torch.Tensor, ...]:
+def mma_weights(weights, d, precision="f32",
+                slabs=1) -> Tuple[torch.Tensor, ...]:
     """:func:`pack_weights` tensors -> the chain kernel's arrays in
-    :data:`MMA_WEIGHT_NAMES` order: per net the :func:`mma_pack` chunks,
-    the time rows ``(2, hp)``, biases ``(hp,)`` (zero for padded units),
-    the head biases and the coefficients; then the masks."""
+    :data:`MMA_WEIGHT_NAMES` order: per net the :func:`mma_pack` chunks
+    (per slab of the cluster route for ``slabs > 1``), the time rows ``(2,
+    hp)``, biases ``(hp,)`` (zero for padded units), the head biases and the
+    coefficients; then the masks."""
     w = dict(zip(WEIGHT_NAMES, weights))
     hp = mma_geometry(d, w["xh_w"].shape[0], precision).hp
     out = []
@@ -738,7 +853,7 @@ def mma_weights(weights, d, precision="f32") -> Tuple[torch.Tensor, ...]:
                          (0, hp - h)).reshape(-1).contiguous()
 
         out += [mma_pack(w[n + "in"], w[n + "h_w"], w[n + "head"], d,
-                         precision),
+                         precision, slabs),
                 vec(w[n + "t"]), vec(w[n + "b"]), vec(w[n + "h_b"])]
         out += [w[n + k].float().reshape(-1).contiguous()
                 for k in ("headb0", "headb1", "cs0", "cs1", "ct0", "ct1")]
@@ -759,16 +874,20 @@ def l2hmc_chain(links, params, generator, eps, beta, num_leapfrog,
 
     A CPU tensor runs :func:`l2hmc_chain_reference`, with randomness drawn
     from ``generator`` unless ``rand_arrays=(v0s, v1s, ds, us[, nus, uhs])``
-    is given.  A CUDA tensor launches the kernel of ``csrc/l2hmc_chain.cu``
-    — with the injected arrays, or with in-kernel Philox randomness seeded
-    from ``generator`` — or raises.  Each block of the kernel runs 2, 4 or
-    8 chains (:func:`chains_per_block`), so that each read of the weights
-    feeds all of them; hidden widths up to 256 run (:func:`mma_geometry`); a
-    lattice whose two chains do not fit in one block's shared memory
-    raises.  Every
+    is given.  A CUDA tensor launches the kernel — with the injected
+    arrays, or with in-kernel Philox randomness seeded from ``generator`` —
+    or raises, on the route :func:`chain_route_plan` picks from the shapes,
+    the precision, the batch and the card's limits: the cluster route
+    (``csrc/l2hmc_chain_cluster.cu``: each chain's rows split over a
+    cluster of 2 or 4 CTAs of 8-32 chains, each CTA streaming its slab's
+    share of the weights), or the block route (``csrc/l2hmc_chain.cu``: 2,
+    4 or 8 whole chains per block, :func:`chains_per_block`), which also
+    runs the ablated mode and hidden widths above 128 (up to 256,
+    :func:`mma_geometry`).  A lattice that fits neither raises.  Every
     launch adds one to ``l2hmc_chain.launches``, and to
     ``l2hmc_chain.bf16_launches`` / ``l2hmc_chain.ablate_launches`` in
-    those modes.
+    those modes and ``l2hmc_chain.cluster_launches`` on the cluster route,
+    which also counts :data:`CLUSTER_COUNTER` on the program's recorder.
     """
     check_links(links)
     b, lt, lx, _ = links.shape
@@ -806,11 +925,13 @@ def _l2hmc_chain_cuda(links, params, generator, eps, beta, num_leapfrog, n,
             raise ValueError(f"masks hold {K} steps, "
                              f"num_leapfrog={num_leapfrog}")
         lib = _cuda.library()
-        c, stages = chains_per_block(lt, lx, h, precision,
-                                     lib.smem_optin_bytes(dev.index or 0),
-                                     lib.l2hmc_chain_max_chains())
-        geo = mma_geometry(d, h, precision)
-        weights = mma_weights(packed, d, precision)
+        idx = dev.index or 0
+        plan = chain_route_plan(
+            lt, lx, h, precision, b, lib.smem_optin_bytes(idx),
+            _sm_count(idx), functools.partial(_active_clusters, idx, bf16),
+            lib.l2hmc_chain_max_chains(), cluster=not ablate_nets)
+        geo = plan.geo
+        weights = mma_weights(packed, d, precision, plan.cl)
         for name, w in zip(MMA_WEIGHT_NAMES, weights):
             check_cuda_input(name, w, dtype=torch.bfloat16 if (
                 bf16 and name[1:] == "mm") else torch.float32)
@@ -827,23 +948,49 @@ def _l2hmc_chain_cuda(links, params, generator, eps, beta, num_leapfrog, n,
     l2hmc_chain.launches += 1
     l2hmc_chain.bf16_launches += int(bf16)
     l2hmc_chain.ablate_launches += int(ablate_nets)
-    with trace.span(LAUNCH_SPAN):
-        _cuda.check(lib.l2hmc_chain_launch(
-            x0.data_ptr(), x1.data_ptr(), spcp.data_ptr(),
+    head = (x0.data_ptr(), x1.data_ptr(), spcp.data_ptr(),
             ctypes.cast(wptrs, ctypes.c_void_p),
             *[_cuda.ptr(r) for r in rand],
             plaq.data_ptr(), chg.data_ptr(), prob.data_ptr(),
-            b, lt, lx, num_leapfrog, n, h, float(eps), float(beta),
-            int(bounded_q), int(hop), int(bf16), int(ablate_nets), seed,
-            c, geo.hp, geo.mt, geo.n_in, geo.n_tr, geo.n_hd, geo.kq, geo.bs,
-            geo.hs, stages, dev.index or 0, _cuda.stream_handle(dev)),
-            "l2hmc_chain_launch")
+            b, lt, lx, num_leapfrog, n)
+    layout = (geo.hp, geo.mt, geo.n_in, geo.n_tr, geo.n_hd, geo.kq, geo.bs,
+              geo.hs, plan.stages, idx, _cuda.stream_handle(dev))
+    with trace.span(LAUNCH_SPAN):
+        if plan.route == "cluster":
+            l2hmc_chain.cluster_launches += 1
+            trace.count(CLUSTER_COUNTER)
+            _cuda.check(lib.l2hmc_chain_cluster_launch(
+                *head, float(eps), float(beta), int(bounded_q), int(hop),
+                int(bf16), seed, plan.cl, plan.chains, *layout),
+                "l2hmc_chain_cluster_launch")
+        else:
+            _cuda.check(lib.l2hmc_chain_launch(
+                *head, h, float(eps), float(beta), int(bounded_q), int(hop),
+                int(bf16), int(ablate_nets), seed, plan.chains, *layout),
+                "l2hmc_chain_launch")
     return _join_links(x0, x1, lt, lx), plaq, torch.round(chg), prob
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _active_clusters(device_index: int, bf16: bool, cl: int, chains: int,
+                     smem: int) -> int:
+    """Clusters of the cluster route that the card runs at once."""
+    n = _cuda.library().l2hmc_chain_cluster_max_active(
+        cl, chains, int(bf16), smem, device_index)
+    if n < 0:
+        raise RuntimeError(f"l2hmc_chain_cluster_max_active: CUDA error {-n}")
+    return n
 
 
 l2hmc_chain.launches = 0
 l2hmc_chain.bf16_launches = 0
 l2hmc_chain.ablate_launches = 0
+l2hmc_chain.cluster_launches = 0
 
 # what csrc/l2hmc_local_chain.cu takes: stencil layers of
 # LOCAL_KERNEL_CHANNELS channels (a narrower net is padded) over the 6 u1

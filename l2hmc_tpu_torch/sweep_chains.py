@@ -18,7 +18,8 @@ limit, then per batch size the median and the least us/transition over
 ``--variants C ...`` runs the same in one process per cap, each with its
 own build of ``csrc/l2hmc_chain.cu`` at most C chains per block
 (``L2HMC_NVCC_DEFINES``, see ops/_cuda.py), after holding that build's
-kernel against the plain version on 16 chains.
+kernel against the plain version on 16 chains.  The cap binds the block
+route only; the route each run takes (``chain_route_plan``) is printed.
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ import torch
 
 from l2hmc_tpu_torch.dynamics.l2hmc import get_eps
 from l2hmc_tpu_torch.ops import _cuda
-from l2hmc_tpu_torch.ops.l2hmc_kernel import (chains_per_block, l2hmc_chain,
+from l2hmc_tpu_torch.ops.l2hmc_kernel import (chain_route_plan, l2hmc_chain,
                                               l2hmc_chain_reference)
 from l2hmc_tpu_torch.ops.leapfrog import hmc_chain
 from l2hmc_tpu_torch.train.checkpoint import load_champion
@@ -116,12 +117,14 @@ def main(argv=None):
                                   device=dev), gen, HMC_EPS, BETA, HMC_K,
                       500)[0]
     lib = _cuda.library()
-    c, stages = chains_per_block(cfg.time_size, cfg.space_size, cfg.hidden,
-                                 max_chains=lib.l2hmc_chain_max_chains())
+    plan = chain_route_plan(cfg.time_size, cfg.space_size, cfg.hidden,
+                            b=max(args.chains),
+                            max_chains=lib.l2hmc_chain_max_chains())
     err = _check(therm, params, eps, K)
-    print(f"build {_cuda.build()[0].parent.name}: {c} chains per block, "
-          f"{stages} ring stages; kernel vs plain on {CHECK_CHAINS} chains: "
-          f"max|dprob| {err:.3e}", flush=True)
+    print(f"build {_cuda.build()[0].parent.name}: {plan.route} route, "
+          f"{plan.cl} CTAs per cluster, {plan.chains} chains per block, "
+          f"{plan.stages} ring stages; kernel vs plain on {CHECK_CHAINS} "
+          f"chains: max|dprob| {err:.3e}", flush=True)
     if not err <= CHECK_ATOL:
         raise SystemExit(f"kernel disagrees with its plain version "
                          f"(atol {CHECK_ATOL})")

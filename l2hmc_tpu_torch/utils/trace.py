@@ -21,8 +21,10 @@ the count, total seconds and self seconds (the total less what its
 children cover), and the counters; :func:`reset` clears them.  Readers:
 ``bench_h100/metrics/host.chain_*.py`` (the chain wrappers' spans),
 ``benchmarks/config5_multihost.py`` (the SMC rung's, per rank),
-``benchmarks/space_scaling.py`` (the ``lattice_sharding.*`` spans) and
-``analysis/profile_digest.py`` (the device's idle time by span).
+``benchmarks/space_scaling.py`` (the ``lattice_sharding.*`` spans),
+``analysis/profile_digest.py`` (the device's idle time by span) and the
+card tests of the MLP chain (``chain.cluster_route``, one count per launch
+on its cluster route).
 """
 
 from __future__ import annotations

@@ -36,6 +36,7 @@ from l2hmc_tpu_torch.ops import l2hmc_kernel as tl2
 from l2hmc_tpu_torch.ops import leapfrog as tlf
 from l2hmc_tpu_torch.ops import wilson as tw
 from l2hmc_tpu_torch.train import gauge as tgauge
+from l2hmc_tpu_torch.utils import trace
 
 ATOL = 1e-4
 
@@ -92,6 +93,35 @@ def _local_params(lt, lx, K, channels, layers, device, seed=0):
     return params.to(device)
 
 
+def _on_route(monkeypatch, route):
+    """Runs the MLP chain on ``route``: 'cluster' and 'kept' as
+    ``chain_route_plan`` picks (the cluster route, or the block route it
+    keeps for the shape), 'block' with the plan held to the block route
+    (the ablated mode's), as ``wilson_routes.on_route`` holds a Wilson
+    route.  Returns a check that the launches since took that route: each
+    adds one to ``l2hmc_chain.cluster_launches`` and to the recorder's
+    ``chain.cluster_route`` on the cluster route, nothing on the other."""
+    if route == "block":
+        plan = tl2.chain_route_plan
+
+        def block_plan(*a, **k):
+            k["cluster"] = False
+            return plan(*a, **k)
+
+        monkeypatch.setattr(tl2, "chain_route_plan", block_plan)
+    before = tl2.l2hmc_chain.cluster_launches
+    trace.reset()
+    # record as trace.recording() does, until the test ends
+    monkeypatch.setattr(trace.RECORDER, "forced", trace.RECORDER.forced + 1)
+
+    def check(launches=1):
+        n = launches if route == "cluster" else 0
+        assert tl2.l2hmc_chain.cluster_launches - before == n
+        assert trace.summary()["counters"].get(tl2.CLUSTER_COUNTER, 0) == n
+
+    return check
+
+
 def _assert_matches(got, want, atol=ATOL):
     d = torch.remainder(got[0] - want[0] + np.pi, 2 * np.pi) - np.pi
     assert float(d.abs().max()) <= atol
@@ -127,10 +157,16 @@ def test_torch_hmc_chain_kernel_matches_plain(cuda_device, lt, lx, hop):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("hop", [False, True])
-@pytest.mark.parametrize("lt,lx,hidden", [(4, 6, 32), (8, 8, 64)])
-def test_torch_l2hmc_chain_kernel_matches_plain(cuda_device, lt, lx, hidden,
-                                                hop):
-    b, n, K = 7, 3, 3        # 7 chains: a ragged last block of 2 chains
+@pytest.mark.parametrize("lt,lx,hidden,route", [
+    (4, 6, 32, "block"), (4, 6, 32, "cluster"), (8, 8, 64, "block"),
+    (8, 8, 64, "cluster"), (5, 8, 32, "kept"), (6, 8, 64, "cluster")])
+def test_torch_l2hmc_chain_kernel_matches_plain(cuda_device, monkeypatch, lt,
+                                                lx, hidden, route, hop):
+    """7 chains: a ragged last block of 2 chains on the block route, a
+    cluster with 25 of its 32 chains idle on the cluster route (4 CTAs of
+    one row each at 4x6, 2 of 3 rows at 6x8); 5x8's rows split in neither
+    2 nor 4, so the plan keeps the block route."""
+    b, n, K = 7, 3, 3
     params = _params(lt, lx, K, hidden, cuda_device)
     links = torch.tensor(typical_links(np.random.default_rng(3), b, lt, lx),
                          device=cuda_device)
@@ -138,8 +174,10 @@ def test_torch_l2hmc_chain_kernel_matches_plain(cuda_device, lt, lx, hidden,
     want = tl2.l2hmc_chain_reference(links, params, *rand[:4], 0.12, 3.0, K,
                                      hop_arrays=rand[4:] if hop else None)
     before = tl2.l2hmc_chain.launches
+    routed = _on_route(monkeypatch, route)
     got = tl2.l2hmc_chain(links, params, None, 0.12, 3.0, K, n, hop=hop,
                           rand_arrays=rand)
+    routed()
     assert tl2.l2hmc_chain.launches == before + 1
     torch.cuda.synchronize()
     _assert_matches(got, want)
@@ -202,11 +240,12 @@ def test_torch_local_chain_kernel_c8_matches_plain(cuda_device, lt, lx, b,
 @pytest.mark.cuda
 @pytest.mark.parametrize("precision", ["f32", "bf16"])
 @pytest.mark.parametrize("hop", [False, True])
-def test_torch_l2hmc_chain_kernel_at_hidden_256(cuda_device, hop, precision):
+def test_torch_l2hmc_chain_kernel_at_hidden_256(cuda_device, monkeypatch,
+                                                hop, precision):
     """h=256 (two tile rows per product warp) at the champion's 16x16, 8
     chains per block, a ragged batch of 13: float32 against the plain
     version at ATOL, bf16 as test_torch_bf16_kernel_matches_plain holds
-    it."""
+    it.  The plan keeps this width on the block route."""
     b, n, K, lt, lx = 13, 2, 3, 16, 16
     assert tl2.mma_geometry(lt * lx, 256, precision).rpw == 2
     params = _params(lt, lx, K, 256, cuda_device)
@@ -218,8 +257,10 @@ def test_torch_l2hmc_chain_kernel_at_hidden_256(cuda_device, hop, precision):
                                      hop_arrays=rand[4:] if hop else None,
                                      precision=precision)
     before = tl2.l2hmc_chain.launches
+    routed = _on_route(monkeypatch, "kept")
     got = tl2.l2hmc_chain(links, params, None, 0.02, 3.0, K, n, hop=hop,
                           rand_arrays=rand, precision=precision)
+    routed()
     assert tl2.l2hmc_chain.launches == before + 1
     torch.cuda.synchronize()
     assert 0.05 < float(want[3].mean()) <= 1.0
@@ -235,15 +276,21 @@ def test_torch_l2hmc_chain_kernel_at_hidden_256(cuda_device, hop, precision):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("route", ["block", "cluster"])
 @pytest.mark.parametrize("hop", [False, True])
-@pytest.mark.parametrize("lt,lx,chains", [(16, 16, 8), (24, 24, 4),
-                                          (32, 32, 2)])
-def test_torch_l2hmc_chain_kernel_at_each_chains_per_block(cuda_device, lt,
-                                                           lx, chains, hop):
-    """The champion's width (h=64) at the lattices where the wrapper picks
-    8, 4 and 2 chains per block, on a ragged batch of 13 chains."""
+@pytest.mark.parametrize("lt,lx,chains,cluster_chains", [
+    (16, 16, 8, 32), (24, 24, 4, 16), (32, 32, 2, 8)])
+def test_torch_l2hmc_chain_kernel_at_each_chains_per_block(
+        cuda_device, monkeypatch, lt, lx, chains, cluster_chains, hop, route):
+    """The champion's width (h=64) at the lattices where the block route
+    runs 8, 4 and 2 chains per block and the cluster route 4 CTAs of 32, 16
+    and 8 chains, on a ragged batch of 13 chains (the only cluster partly
+    empty)."""
     b, n, K = 13, 2, 3
     assert tl2.chains_per_block(lt, lx, 64)[0] == chains
+    plan = tl2.chain_route_plan(lt, lx, 64, "f32", b)
+    assert (plan.route, plan.cl, plan.chains) == ("cluster", 4,
+                                                  cluster_chains)
     params = _params(lt, lx, K, 64, cuda_device)
     links = torch.tensor(typical_links(np.random.default_rng(21), b, lt, lx,
                                        sigma=0.3), device=cuda_device)
@@ -252,8 +299,10 @@ def test_torch_l2hmc_chain_kernel_at_each_chains_per_block(cuda_device, lt,
     want = tl2.l2hmc_chain_reference(links, params, *rand[:4], 0.02, 3.0, K,
                                      hop_arrays=rand[4:] if hop else None)
     before = tl2.l2hmc_chain.launches
+    routed = _on_route(monkeypatch, route)
     got = tl2.l2hmc_chain(links, params, None, 0.02, 3.0, K, n, hop=hop,
                           rand_arrays=rand)
+    routed()
     assert tl2.l2hmc_chain.launches == before + 1
     torch.cuda.synchronize()
     _assert_matches(got, want)
@@ -262,8 +311,9 @@ def test_torch_l2hmc_chain_kernel_at_each_chains_per_block(cuda_device, lt,
 
 @pytest.mark.cuda
 def test_torch_chain_kernel_layouts_agree_with_the_library(cuda_device):
-    """The wrappers' shared-memory formulas are the kernels', and the
-    committed build runs up to 8 chains per block."""
+    """The wrappers' shared-memory formulas are the kernels' (both routes of
+    the MLP chain), the committed build runs up to 8 chains per block, and
+    the card runs the clusters at once that the plan's defaults assume."""
     lib = _cuda.library()
     assert lib.l2hmc_chain_max_chains() == tl2.CHAINS_PER_BLOCK[0]
     for lt, lx, h, prec in ((16, 16, 64, "f32"), (24, 24, 64, "f32"),
@@ -276,6 +326,21 @@ def test_torch_chain_kernel_layouts_agree_with_the_library(cuda_device):
                                           geo.mt) == \
             tl2.chain_smem_bytes(c, d, geo, stages)
     assert lib.smem_optin_bytes(0) == tl2.H100_SMEM_OPTIN
+    for lt, lx, h, prec in ((16, 16, 64, "f32"), (16, 16, 64, "bf16"),
+                            (24, 24, 64, "f32"), (32, 32, 64, "bf16"),
+                            (6, 8, 64, "f32"), (12, 16, 128, "f32"),
+                            (8, 8, 32, "f32")):
+        plan = tl2.chain_route_plan(lt, lx, h, prec, 13)
+        assert plan.route == "cluster"
+        geo = plan.geo
+        assert lib.l2hmc_chain_cluster_smem_bytes(
+            plan.chains, lt * lx // plan.cl, geo.bs, geo.hs,
+            plan.stages) == plan.smem
+        assert lib.l2hmc_chain_cluster_max_active(
+            plan.cl, plan.chains, int(prec == "bf16"), plan.smem, 0) == \
+            tl2.H100_ACTIVE_CLUSTERS[plan.cl]
+    assert torch.cuda.get_device_properties(0).multi_processor_count == \
+        tl2.H100_SMS
     for lt, lx in ((16, 16), (8, 24), (64, 64), (64, 96), (128, 128),
                    (160, 160)):
         plan = tlf.hmc_chain_plan(lt, lx)
@@ -699,11 +764,13 @@ def test_torch_cheap_probe_rate_is_physical(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("layers", [0, 1, 2, 3])
-def test_torch_ablated_kernels_equal_zero_nets(cuda_device, layers):
+def test_torch_ablated_kernels_equal_zero_nets(cuda_device, monkeypatch,
+                                              layers):
     """ablate_nets=True against the same kernel on zeroed nets (bit for
     bit, the JAX package's gate 1e-6) and against the ablated plain version
-    (ATOL); layers 0 is the MLP kernel, 1 to 3 the local kernel (3: the
-    deep route)."""
+    (ATOL); layers 0 is the MLP kernel (the ablated mode and the zeroed nets
+    both on its block route), 1 to 3 the local kernel (3: the deep
+    route)."""
     b, n, K, lt, lx = 5, 3, 3, 8, 8
     if layers:
         params = _local_params(lt, lx, K, 4, layers, cuda_device)
@@ -723,9 +790,11 @@ def test_torch_ablated_kernels_equal_zero_nets(cuda_device, layers):
                 p.zero_()
     counter = tl2.l2hmc_local_chain if layers else tl2.l2hmc_chain
     before = counter.ablate_launches
+    routed = _on_route(monkeypatch, "block")
     got = run(params, ablate_nets=True)
     assert counter.ablate_launches == before + 1
     ref = run(zero)
+    routed(2 - bool(layers))
     eps = 0.05 if layers else 0.12
     want = tl2.l2hmc_chain_reference(links, params, *rand, eps, 3.0, K,
                                      local_layers=layers, ablate_nets=True)
@@ -736,20 +805,24 @@ def test_torch_ablated_kernels_equal_zero_nets(cuda_device, layers):
 
 
 @pytest.mark.cuda
-def test_torch_bf16_kernel_matches_plain(cuda_device):
-    """precision='bf16' against its plain version.  Both round the same
-    float32 activations to bf16 but sum before the rounding in another
-    order, so a value on a rounding boundary lands one bf16 step apart:
-    the median accept probability agrees as in float32 (ATOL), the largest
-    difference within 2e-2 (chip_smoke.py's gate), links within 2e-2."""
+@pytest.mark.parametrize("route", ["block", "cluster"])
+def test_torch_bf16_kernel_matches_plain(cuda_device, monkeypatch, route):
+    """precision='bf16' against its plain version, on each route.  Both
+    round the same float32 activations to bf16 but sum before the rounding
+    in another order, so a value on a rounding boundary lands one bf16 step
+    apart: the median accept probability agrees as in float32 (ATOL), the
+    largest difference within 2e-2 (chip_smoke.py's gate), links within
+    2e-2."""
     b, n, K, lt, lx = 64, 2, 3, 8, 8
     params = _params(lt, lx, K, 64, cuda_device)
     links = torch.tensor(typical_links(np.random.default_rng(12), b, lt, lx),
                          device=cuda_device)
     rand = _rand(13, n, b, lt * lx, False, True, cuda_device)
     before = tl2.l2hmc_chain.bf16_launches
+    routed = _on_route(monkeypatch, route)
     got = tl2.l2hmc_chain(links, params, None, 0.12, 3.0, K, n,
                           rand_arrays=rand, precision="bf16")
+    routed()
     assert tl2.l2hmc_chain.bf16_launches == before + 1
     want = tl2.l2hmc_chain_reference(links, params, *rand, 0.12, 3.0, K,
                                      precision="bf16")
@@ -767,18 +840,23 @@ def test_torch_bf16_kernel_matches_plain(cuda_device):
 
 
 @pytest.mark.cuda
-def test_torch_l2hmc_chain_modes_at_8_chains_per_block(cuda_device):
-    """bf16 and ablated at 16x16 (8 chains per block), ragged batch of 13:
-    bf16 against its plain version as test_torch_bf16_kernel_matches_plain
-    holds it; ablated equal to the kernel on zeroed nets bit for bit and
-    to its plain version at ATOL."""
+def test_torch_l2hmc_chain_modes_at_8_chains_per_block(cuda_device,
+                                                       monkeypatch):
+    """bf16 and ablated at 16x16, ragged batch of 13: bf16 on the cluster
+    route (4 CTAs of 32 chains) against its plain version as
+    test_torch_bf16_kernel_matches_plain holds it; ablated (the block
+    route, 8 chains per block) equal to the block route on zeroed nets bit
+    for bit, and to its plain version and the cluster route on zeroed nets
+    at ATOL."""
     b, n, K, lt, lx = 13, 2, 3, 16, 16
     params = _params(lt, lx, K, 64, cuda_device)
     links = torch.tensor(typical_links(np.random.default_rng(41), b, lt, lx),
                          device=cuda_device)
     rand = _rand(42, n, b, lt * lx, False, True, cuda_device)
+    routed = _on_route(monkeypatch, "cluster")
     got = tl2.l2hmc_chain(links, params, None, 0.12, 3.0, K, n,
                           rand_arrays=rand, precision="bf16")
+    routed()
     want = tl2.l2hmc_chain_reference(links, params, *rand, 0.12, 3.0, K,
                                      precision="bf16")
     torch.cuda.synchronize()
@@ -793,16 +871,21 @@ def test_torch_l2hmc_chain_modes_at_8_chains_per_block(cuda_device):
         for net in (zero.xnet, zero.vnet):
             for p in net.parameters():
                 p.zero_()
+    zero_cluster = tl2.l2hmc_chain(links, zero, None, 0.12, 3.0, K, n,
+                                   rand_arrays=rand)
+    routed = _on_route(monkeypatch, "block")
     abl = tl2.l2hmc_chain(links, params, None, 0.12, 3.0, K, n,
                           rand_arrays=rand, ablate_nets=True)
     ref = tl2.l2hmc_chain(links, zero, None, 0.12, 3.0, K, n,
                           rand_arrays=rand)
+    routed(2)
     plain = tl2.l2hmc_chain_reference(links, params, *rand, 0.12, 3.0, K,
                                       ablate_nets=True)
     torch.cuda.synchronize()
     for g, r in zip(abl, ref):
         assert torch.equal(g, r)
     _assert_matches(abl, plain)
+    _assert_matches(zero_cluster, abl)
 
 
 def test_torch_kernel_build_needs_nvcc():

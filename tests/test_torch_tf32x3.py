@@ -16,6 +16,10 @@ card to check:
   W^T f to float64 rounding;
 - the choice of chains per block: 8 at 16x16, 4 at 24x24, 2 at 32x32, a
   ValueError naming shared memory at 48x48;
+- the route plan: the cluster route (each chain's rows over 4 or 2 CTAs,
+  ``csrc/l2hmc_chain_cluster.cu``) up to hidden 128 where its slabs fit and
+  add no wave, the block route otherwise; the slab packing's walk, its
+  partial sums added in rank order, gives the same products;
 - padding a local net is exact: the plain chain on the padded net equals
   the unpadded one (atol 1e-6; bit for bit at these widths), and still
   matches the JAX reference (atol 2e-4, as tests/test_torch_local.py).
@@ -133,26 +137,31 @@ def test_torch_tf32x3_products_match_float32_on_champion(net, product):
     assert x1 >= 10.0 * x3, (x1, x3)
 
 
-def _emulate_chunks(mm, geo, feats, c):
+class _ChunkWalk:
     """The kernel's walk over one net's chunks (float64): warp w's tile q of
     a narrow chunk j at tile row w % mt + 8 (q // kpc) and k-step (j * wp +
     w // mt) * kpc + q % kpc, with wp = 8/mt k-groups and kpc = 4 k-steps up
     to mt = 8 (hp <= 128), wp = 1 and kpc = 2 at mt = 16 (hp = 256: two tile
     rows per warp); head chunk (group, kq) at tile row group * 8 + w, k-step
-    kq * 4 + q.  Returns (in-projection, trunk of it, head of that), (c, .)
-    each."""
-    ks = geo.ks
-    e = 4 if ks == 8 else 8
-    tiles = mm.double().numpy().reshape(-1, 8, 4, 32, e)
-    rows, cols = (t.numpy() for t in tl2._frag_index(ks))
+    kq * 4 + q.  ``mm`` is one net's chunks of one slab (or of the whole
+    lattice)."""
 
-    def a_tile(j, w, q):
-        a = np.zeros((16, ks))
-        a[rows, cols] = tiles[j, w, q]
+    def __init__(self, mm, geo):
+        self.geo, self.ks = geo, geo.ks
+        e = 4 if geo.ks == 8 else 8
+        self.tiles = mm.double().numpy().reshape(-1, 8, 4, 32, e)
+        self.rows, self.cols = (t.numpy() for t in tl2._frag_index(geo.ks))
+
+    def a_tile(self, j, w, q):
+        a = np.zeros((16, self.ks))
+        a[self.rows, self.cols] = self.tiles[j, w, q]
         return a
 
-    def narrow(j0, nch, bmat):
-        out = np.zeros((geo.hp, c))
+    def narrow(self, j0, nch, bmat):
+        """(hp, c) partial sums of chunks j0 .. j0 + nch - 1 on bmat (kp, c),
+        added in the kernel's chunk order."""
+        geo, ks = self.geo, self.ks
+        out = np.zeros((geo.hp, bmat.shape[1]))
         wp = max(1, 8 // geo.mt)
         kpc = 4 if geo.mt <= 8 else 2
         for j in range(nch):
@@ -160,53 +169,82 @@ def _emulate_chunks(mm, geo, feats, c):
                 for q in range(4):
                     m0 = 16 * (w % geo.mt + 8 * (q // kpc))
                     k0 = ((j * wp + w // geo.mt) * kpc + q % kpc) * ks
-                    out[m0:m0 + 16] += a_tile(j0 + j, w, q) @ bmat[k0:k0 + ks]
+                    out[m0:m0 + 16] += (self.a_tile(j0 + j, w, q)
+                                        @ bmat[k0:k0 + ks])
         return out
 
-    b_in = np.zeros((geo.kp_in, c))
-    b_in[:feats.shape[1]] = feats.T
-    pre = narrow(0, geo.n_in, b_in)
+    def heads(self, pre2):
+        geo, ks = self.geo, self.ks
+        head = np.zeros((geo.mp_hd, pre2.shape[1]))
+        j0 = geo.n_in + geo.n_tr
+        for j in range(geo.n_hd):
+            grp, kq = divmod(j, geo.kq)
+            for w in range(8):
+                m0 = (grp * 8 + w) * 16
+                for q in range(4):
+                    k0 = (kq * 4 + q) * ks
+                    head[m0:m0 + 16] += (self.a_tile(j0 + j, w, q)
+                                         @ pre2[k0:k0 + ks])
+        return head
+
+
+def _emulate_chunks(mm, geo, feats, c, slabs=1):
+    """The kernel's products over ``mma_pack``'s chunks, on a (c, 6d)
+    feature batch; ``slabs > 1`` walks the cluster route's CTAs: slab r's
+    chunks on its six feature blocks' columns, the in-projection partials
+    added over the slabs in rank order, the trunk (each slab's copy) on
+    their sum, each slab's heads on the trunk's output.  Returns
+    (in-projection, trunk of it, heads of that), (c, .) each."""
+    d = feats.shape[1] // 6
+    dl = d // slabs
+    per = mm.numel() // slabs
+    walks = [_ChunkWalk(mm[r * per:(r + 1) * per], geo) for r in range(slabs)]
+    pre = np.zeros((geo.hp, c))
+    for r, walk in enumerate(walks):
+        cols = (np.arange(6)[:, None] * d + r * dl
+                + np.arange(dl)[None, :]).reshape(-1)
+        b_in = np.zeros((geo.kp_in, c))
+        b_in[:6 * dl] = feats[:, cols].T
+        pre += walk.narrow(0, geo.n_in, b_in)
     b_tr = np.zeros((geo.kp_tr, c))
     b_tr[:geo.hp] = pre
-    pre2 = narrow(geo.n_in, geo.n_tr, b_tr)
-    head = np.zeros((geo.mp_hd, c))
-    j0 = geo.n_in + geo.n_tr
-    for j in range(geo.n_hd):
-        grp, kq = divmod(j, geo.kq)
-        for w in range(8):
-            m0 = (grp * 8 + w) * 16
-            for q in range(4):
-                k0 = (kq * 4 + q) * ks
-                head[m0:m0 + 16] += a_tile(j0 + j, w, q) @ pre2[k0:k0 + ks]
-    return pre.T, pre2.T, head[:feats.shape[1]].T
+    pre2s = [walk.narrow(geo.n_in, geo.n_tr, b_tr) for walk in walks]
+    for p2 in pre2s[1:]:
+        np.testing.assert_array_equal(p2, pre2s[0])
+    head = np.zeros((6, slabs, dl, c))
+    for r, walk in enumerate(walks):
+        head[:, r] = walk.heads(pre2s[0])[:6 * dl].reshape(6, dl, c)
+    return pre.T, pre2s[0].T, head.reshape(6 * d, c).T
 
 
-@pytest.mark.parametrize("d,h,precision", [(24, 32, "f32"), (64, 64, "f32"),
-                                           (64, 16, "f32"),
-                                           (64, 64, "bf16"),
-                                           (24, 48, "bf16"),
-                                           (24, 256, "f32"),
-                                           (16, 200, "f32"),
-                                           (24, 256, "bf16"),
-                                           (16, 150, "bf16")])
-def test_torch_mma_pack_layout_gives_the_products(d, h, precision):
+_LAYOUTS = [(24, 32, "f32"), (64, 64, "f32"), (64, 16, "f32"),
+            (64, 64, "bf16"), (24, 48, "bf16"), (24, 256, "f32"),
+            (16, 200, "f32"), (24, 256, "bf16"), (16, 150, "bf16")]
+
+
+@pytest.mark.parametrize("slabs", [1, 2, 4])
+@pytest.mark.parametrize("d,h,precision", _LAYOUTS)
+def test_torch_mma_pack_layout_gives_the_products(d, h, precision, slabs):
     """Each net's three operands packed in chunk order: the kernel's walk
-    over them (emulated) is W^T f, and each chunk is 16 KB."""
+    over them (emulated) is W^T f, and each chunk is 16 KB.  With ``slabs``
+    (the cluster route's CTAs) each slab holds its share of the
+    in-projection's columns and the heads' rows and a copy of the trunk, and
+    the slabs' partial sums, added in rank order, give the same products."""
     g = torch.Generator().manual_seed(d + h)
     xin, hw, head = (torch.randn(s, generator=g)
                      for s in ((6 * d, h), (h, h), (h, 6 * d)))
     if precision == "bf16":
         xin, hw, head = (t.bfloat16().float() for t in (xin, hw, head))
-    geo = tl2.mma_geometry(d, h, precision)
-    mm = tl2.mma_pack(xin, hw, head, d, precision)
+    geo = tl2.mma_geometry(d // slabs, h, precision)
+    mm = tl2.mma_pack(xin, hw, head, d, precision, slabs)
     assert mm.dtype == (torch.bfloat16 if precision == "bf16"
                         else torch.float32)
-    assert mm.numel() * mm.element_size() == (
+    assert mm.numel() * mm.element_size() == slabs * (
         geo.n_in + geo.n_tr + geo.n_hd) * tl2.CHUNK_BYTES
     assert geo.bs % 32 == 4 and geo.hs % 32 == 4
     c = 3
     f = torch.randn((c, 6 * d), generator=g).double()
-    pre, pre2, out = _emulate_chunks(mm.float(), geo, f.numpy(), c)
+    pre, pre2, out = _emulate_chunks(mm.float(), geo, f.numpy(), c, slabs)
     want = f @ xin.double()
     np.testing.assert_allclose(pre[:, :h], want.numpy(), atol=1e-10)
     assert not pre[:, h:].any()                  # padded units are zero
@@ -261,6 +299,101 @@ def test_torch_chains_per_block_from_the_lattice():
         tl2.chains_per_block(48, 48, 16)
     with pytest.raises(ValueError, match="hidden"):
         tl2.chains_per_block(16, 16, 300)
+
+
+# --- the route plan: the block route or the cluster route ---------------------
+
+H100_CLUSTERS = tl2.H100_ACTIVE_CLUSTERS      # {4: 30, 2: 66}
+
+
+def _plan(lt, lx, b, active=H100_CLUSTERS, h=64, precision="f32", **kw):
+    return tl2.chain_route_plan(lt, lx, h, precision, b,
+                                active_clusters=lambda cl, cc, smem: active[cl],
+                                **kw)
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("h", [64, 256])
+@pytest.mark.parametrize("lt,lx,b,cl,chains", [
+    (16, 16, 960, 4, 32), (16, 16, 2048, 2, 16), (8, 8, 960, 4, 32),
+    (8, 8, 2048, 2, 32), (24, 24, 960, 4, 16), (24, 24, 2048, 2, 8),
+    (32, 32, 960, 4, 8), (32, 32, 2048, 1, 2), (12, 16, 960, 4, 32),
+    (12, 16, 2048, 2, 16)])
+def test_torch_chain_route_plan(lt, lx, b, cl, chains, h, precision):
+    """On an H100 (132 SMs; 30 clusters of 4 and 66 of 2 at once), up to
+    hidden 128: the cluster route with 4 CTAs per cluster and the most
+    chains per CTA (32, 16, 8) whose slab fits 227 KB with a ring of at
+    least 2 chunks, where that takes no more waves than the block route;
+    else 2 CTAs per cluster (2048 chains: 64 clusters of 4 would take three
+    waves); else the block route (32x32).  Hidden 256 and the ablated mode
+    (cluster=False) keep the block route, which is chains_per_block's."""
+    d = lt * lx
+    plan = _plan(lt, lx, b, h=h, precision=precision)
+    block = _plan(lt, lx, b, h=h, precision=precision, cluster=False)
+    assert (block.route, block.cl) == ("block", 1)
+    assert (block.chains, block.stages) == tl2.chains_per_block(
+        lt, lx, h, precision)
+    assert block.geo == tl2.mma_geometry(d, h, precision)
+    assert block.waves == -(-(-(-b // block.chains)) // tl2.H100_SMS)
+    if h > 128 or cl == 1:
+        assert plan == block
+        return
+    assert (plan.route, plan.cl, plan.chains) == ("cluster", cl, chains)
+    geo = tl2.mma_geometry(d // cl, h, precision)
+    assert plan.geo == geo and geo.mt <= tl2.CLUSTER_MAX_MT
+    assert plan.smem == tl2.cluster_smem_bytes(chains, d // cl, geo,
+                                               plan.stages)
+    assert plan.smem <= tl2.H100_SMEM_OPTIN
+    assert 2 <= plan.stages <= tl2.MAX_STAGES
+    assert plan.stages == tl2.MAX_STAGES or tl2.cluster_smem_bytes(
+        chains, d // cl, geo, plan.stages + 1) > tl2.H100_SMEM_OPTIN
+    if chains < tl2.CLUSTER_CHAINS[0]:   # twice the chains do not fit
+        assert tl2.cluster_smem_bytes(2 * chains, d // cl, geo, 2) > \
+            tl2.H100_SMEM_OPTIN
+    assert plan.waves == -(-(-(-b // chains)) // H100_CLUSTERS[cl])
+    assert plan.waves <= block.waves
+    assert plan == tl2.chain_route_plan(lt, lx, h, precision, b)  # defaults
+
+
+@pytest.mark.parametrize("lt,lx,active,want", [
+    (6, 8, H100_CLUSTERS, ("cluster", 2, 32)),     # lt % 4 != 0: pairs
+    (14, 16, H100_CLUSTERS, ("cluster", 2, 16)),
+    (9, 9, H100_CLUSTERS, ("block", 1, 8)),        # rows do not split
+    (5, 8, H100_CLUSTERS, ("block", 1, 8)),
+    (16, 16, {4: 32, 2: 66}, ("cluster", 4, 32)),  # 64 clusters, two waves
+    (16, 16, {4: 30, 2: 66}, ("cluster", 2, 16)),  # 4s would add a wave
+    (16, 16, {4: 30, 2: 60}, ("block", 1, 8)),
+    (16, 16, {4: 0, 2: 0}, ("block", 1, 8)),       # no cluster fits the card
+])
+def test_torch_chain_route_plan_falls_back(lt, lx, active, want):
+    """2048 chains: clusters of 2 where the rows split in two but not four;
+    the block route where they split in neither, or where every cluster
+    shape would take more waves than the block route's 2 (256 blocks on 132
+    SMs)."""
+    plan = _plan(lt, lx, 2048, active)
+    assert (plan.route, plan.cl, plan.chains) == want
+    if plan.route == "cluster":
+        assert lt % plan.cl == 0
+
+
+def test_torch_chain_route_plan_adds_no_wave():
+    """Over lattices, batches and co-resident cluster counts the chosen
+    route never takes more waves than the block route; a lattice that fits
+    neither route raises naming the shared memory."""
+    for lt, lx in ((16, 16), (8, 8), (24, 24), (32, 32), (12, 16), (6, 8),
+                   (4, 6), (9, 9)):
+        for b in (1, 13, 100, 300, 2048, 4096, 8192):
+            for active in (H100_CLUSTERS, {4: 32, 2: 66}, {4: 30, 2: 60},
+                           {4: 8, 2: 16}):
+                plan = _plan(lt, lx, b, active)
+                block = _plan(lt, lx, b, active, cluster=False)
+                assert plan.waves <= block.waves, (lt, lx, b, active)
+                units = -(-b // plan.chains)
+                at_once = active[plan.cl] if plan.cl > 1 else tl2.H100_SMS
+                assert plan.waves == -(-units // at_once)
+    assert (_plan(16, 16, 13).cl, _plan(16, 16, 13).waves) == (4, 1)
+    with pytest.raises(ValueError, match="shared memory"):
+        _plan(48, 48, 1)
 
 
 # --- the local kernel's channel padding --------------------------------------

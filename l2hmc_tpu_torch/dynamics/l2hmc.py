@@ -30,6 +30,7 @@ from torch.utils.checkpoint import checkpoint
 from l2hmc_tpu_torch.lattice.u1 import chain_total
 from l2hmc_tpu_torch.lattice.u1 import wrap as _wrap
 from l2hmc_tpu_torch.ops.l2hmc_kernel import _circle_scale as circle_scale
+from l2hmc_tpu_torch.utils import trace
 
 PotentialFn = Callable[[torch.Tensor], torch.Tensor]
 
@@ -127,6 +128,10 @@ def make_dynamics(cfg: DynamicsConfig, potential_fn: PotentialFn,
     backward pass instead of kept, which re-runs the step's forces (and,
     sharded, their halo exchanges, in the same order on every rank).
 
+    Spans (``utils/trace.py``): ``l2hmc.vnet`` and ``l2hmc.xnet`` around
+    each conditioner call (features included), ``l2hmc.force`` around each
+    potential gradient.
+
     ``sharding`` (``parallel/spatial.py``, bound to the lattice): ``x``,
     ``v`` and every per-link tensor are this rank's slab columns, the nets
     run their ``forward_sharded``, ``potential_fn`` must be a slab
@@ -177,14 +182,16 @@ def make_dynamics(cfg: DynamicsConfig, potential_fn: PotentialFn,
         """d/dx [beta U(x)]; keeps the graph when x is part of one.  A
         potential with a ``force`` (``ops/wilson.py make_potential_fn``)
         gives it in one call; otherwise autograd differentiates U."""
-        if force is not None:
-            with torch.set_grad_enabled(x.requires_grad):
-                return force(x, beta)
-        with torch.enable_grad():
-            xg = x if x.requires_grad else x.detach().requires_grad_(True)
-            e = torch.sum(potential_energy(xg, beta))
-            (g,) = torch.autograd.grad(e, xg, create_graph=x.requires_grad)
-        return g
+        with trace.span("l2hmc.force"):
+            if force is not None:
+                with torch.set_grad_enabled(x.requires_grad):
+                    return force(x, beta)
+            with torch.enable_grad():
+                xg = x if x.requires_grad else x.detach().requires_grad_(True)
+                e = torch.sum(potential_energy(xg, beta))
+                (g,) = torch.autograd.grad(e, xg,
+                                           create_graph=x.requires_grad)
+            return g
 
     def pos_features(x, mask=None):
         """Raw position for 'r1', (cos, sin) for 'u1'."""
@@ -198,7 +205,8 @@ def make_dynamics(cfg: DynamicsConfig, potential_fn: PotentialFn,
     def update_v(params, x, v, g, tau, d_col, d_row, eps, aux,
                  factor=0.5):
         """Direction-fused momentum kick (``factor`` x eps)."""
-        s, t, q = apply_net(params.vnet, pos_features(x), g, tau, aux)
+        with trace.span("l2hmc.vnet"):
+            s, t, q = apply_net(params.vnet, pos_features(x), g, tau, aux)
         h_s = factor * eps * s
         a = factor * eps * (torch.exp(eps * q) * g - t)
         e = torch.exp(d_col * h_s)
@@ -209,8 +217,9 @@ def make_dynamics(cfg: DynamicsConfig, potential_fn: PotentialFn,
         """Direction-fused position step; ``hold_mask`` part stays fixed.
         'r1': ``x exp(eps s) + b`` forward, ``(x - b) exp(-eps s)``
         backward; 'u1': circle scaling and translation with wrap."""
-        s, t, q = apply_net(params.xnet, v, pos_features(x, hold_mask), tau,
-                            aux)
+        with trace.span("l2hmc.xnet"):
+            s, t, q = apply_net(params.xnet, v, pos_features(x, hold_mask),
+                                tau, aux)
         es = eps * s
         b = eps * (torch.exp(eps * q) * v + t)
         if not periodic:

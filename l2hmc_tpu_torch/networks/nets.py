@@ -55,6 +55,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from l2hmc_tpu_torch.ops.leapfrog import _nb
+from l2hmc_tpu_torch.utils import trace
 
 
 def _variance_scaling(generator: Optional[torch.Generator], shape,
@@ -454,15 +455,20 @@ class ConvNet(nn.Module):
         return y.reshape(flat.shape[0], -1)
 
     def forward(self, v, x, t):
+        """Spans (``utils/trace.py``): ``net.conv`` (both stacks) and
+        ``net.trunk`` (the dense layers and the heads)."""
         bf16 = self.spec.use_bf16
-        xc = self._stack(self.conv_x1, self.conv_x2, x)
-        vc = self._stack(self.conv_v1, self.conv_v2, v)
-        hh = torch.relu(self.v_layer(vc, bf16) + self.x_layer(xc, bf16)
-                        + self.t_layer(t, bf16))
-        hh = torch.relu(self.h_layer(hh, bf16))
-        heads = matmul(hh, self.head_w, bf16) + self.head_b
-        return _split_heads(heads, self.coeff_scale,
-                            self.coeff_transformation, self.spec.bounded_q)
+        with trace.span("net.conv"):
+            xc = self._stack(self.conv_x1, self.conv_x2, x)
+            vc = self._stack(self.conv_v1, self.conv_v2, v)
+        with trace.span("net.trunk"):
+            hh = torch.relu(self.v_layer(vc, bf16) + self.x_layer(xc, bf16)
+                            + self.t_layer(t, bf16))
+            hh = torch.relu(self.h_layer(hh, bf16))
+            heads = matmul(hh, self.head_w, bf16) + self.head_b
+            return _split_heads(heads, self.coeff_scale,
+                                self.coeff_transformation,
+                                self.spec.bounded_q)
 
     def _stack_sharded(self, c1: _Conv, c2: _Conv, flat, sp):
         bf16 = self.spec.use_bf16

@@ -63,6 +63,7 @@ from l2hmc_tpu_torch.networks.nets import (
     make_mlp_net,
     make_zero_net,
 )
+from l2hmc_tpu_torch.utils import trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -275,7 +276,12 @@ def make_eval_chunk(cfg: GaugeConfig, chunk_size: int, mesh=None,
     ``mesh``, ``x`` is this rank's chains, the draws are the global ones
     sliced, and the metrics are gathered to the global batch; with a
     ``sharding``, ``x`` is this rank's slab too and every metric is the
-    whole lattice's."""
+    whole lattice's.
+
+    Spans (``utils/trace.py``): ``eval.chunk`` around the call, one
+    ``eval.transition`` per transition (draws, transition, wrap) and inside
+    it ``eval.observables``; the transition's own spans are
+    ``make_dynamics``'."""
     from l2hmc_tpu_torch.parallel.mesh import mesh_of
 
     mesh = mesh_of(mesh, sharding)
@@ -286,19 +292,23 @@ def make_eval_chunk(cfg: GaugeConfig, chunk_size: int, mesh=None,
     def chunk(params: DynamicsParams, x: torch.Tensor, beta, generator):
         keys = ("accept_prob", "actions", "plaqs", "charges", "wloop22")
         out = {k: [] for k in keys}
-        for _ in range(chunk_size):
-            tr = dyn["transition_with"](
-                params, x, beta,
-                *draw_transition(generator, x, mesh, sharding))
-            x = u1.wrap(tr.x_out)
-            obs = u1.observables(x, shape, sharding=sharding)
-            out["accept_prob"].append(tr.accept_prob)
-            for k in ("actions", "plaqs", "charges"):
-                out[k].append(obs[k])
-            out["wloop22"].append(u1.wilson_loop(
-                u1.state_links(x, shape, sharding), 2, 2, sharding))
-        return x, {k: gather_trace(torch.stack(v), mesh)
-                   for k, v in out.items()}
+        with trace.span("eval.chunk"):
+            for _ in range(chunk_size):
+                with trace.span("eval.transition"):
+                    tr = dyn["transition_with"](
+                        params, x, beta,
+                        *draw_transition(generator, x, mesh, sharding))
+                    x = u1.wrap(tr.x_out)
+                    with trace.span("eval.observables"):
+                        obs = u1.observables(x, shape, sharding=sharding)
+                        out["accept_prob"].append(tr.accept_prob)
+                        for k in ("actions", "plaqs", "charges"):
+                            out[k].append(obs[k])
+                        out["wloop22"].append(u1.wilson_loop(
+                            u1.state_links(x, shape, sharding), 2, 2,
+                            sharding))
+            return x, {k: gather_trace(torch.stack(v), mesh)
+                       for k, v in out.items()}
 
     return chunk
 

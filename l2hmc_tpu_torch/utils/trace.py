@@ -20,6 +20,8 @@ memory (name, parent span, start and end by ``time.perf_counter_ns``).
 the count, total seconds and self seconds (the total less what its
 children cover), and the counters; :func:`reset` clears them.  Readers:
 ``bench_h100/metrics/host.chain_*.py`` (the chain wrappers' spans),
+``bench_h100/metrics/host.eval_*.py`` (the eval chunk's ``eval.*`` spans
+and ``host.waits``),
 ``benchmarks/config5_multihost.py`` (the SMC rung's, per rank),
 ``benchmarks/space_scaling.py`` (the ``lattice_sharding.*`` spans),
 ``analysis/profile_digest.py`` (the device's idle time by span) and the

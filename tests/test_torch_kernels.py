@@ -700,8 +700,13 @@ def test_torch_conv_split_train_step_kernel_matches_plain(cuda_device, remat):
         st = state._replace(params=copy.deepcopy(state.params))
         out.append(tgauge.make_train_step(cfg, pot, remat)[1](st, draws))
         if pot is None:
-            launches = {k: v for k, v in chip_smoke.launch_counts(
-                kernels).items() if k.startswith("wilson_")}
+            counted = chip_smoke.launch_counts(kernels)
+            launches = {k: v for k, v in counted.items()
+                        if k.startswith("wilson_")
+                        and not k.startswith("wilson_slab")}
+            # the unsharded step never takes the slab route
+            assert all(v == 0 for k, v in counted.items()
+                       if k.startswith("wilson_slab")), counted
     assert launches == chip_smoke.wilson_launches_per_step(cfg.num_steps,
                                                            remat)
     (sk, mk), (sp, mp) = out

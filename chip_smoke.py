@@ -206,10 +206,24 @@ Phases (any failure raises and the script exits non-zero):
    champion; every acceptance above 0.05, but local64's barely trained
    sampler, held to its plain version's on the same warm-start links
    within 5 standard errors, and charge_mixing's 50-step conv sampler,
-   which accepts ~0 (not gated); launches as derived from the code; the
+   which accepts ~0 (not gated); launches as derived from the code
+   (charge_mixing's and volume_sweep's conv evals also ``conv_stack``'s,
+   one a conditioner call: ``conv_stack_launches_per_transition``); the
    JSON keys of the JAX scripts (listed from their sources); PT's swap
    rates in (0, 1); the sweeps' rates and volume_sweep's fit finite and
    positive; scaling's two topology checks on the group.
+17. The conv conditioner's conv stacks (``csrc/conv_stack.cu``), run after
+   phase 9, before the child processes share the card: both slots (4 and
+   2 channels) at ``sample.conv16``'s shapes, 8192 chains of 16x16, one
+   launch against the plain version and the eager stacks (cuDNN, TF32 off)
+   within 1e-5 (``tests/test_torch_conv_stack.py``); the kernel's, the
+   plain version's and the eager stacks' (``library_ms``) time per call
+   (the least of 3 CUDA-event timings of back-to-back calls), beside the
+   bound (2.886 GFLOP at 67 TFLOP/s, 43.1 us; ``bench_h100/counts/
+   conv_stack.py``).  Its launches in the kernels line are a main path's:
+   phase 10's canonical command resumed by ``--restore`` (its eval, 4K a
+   transition), gated there, and in phase 16 on charge_mixing and
+   volume_sweep (L = 8-32; 64x64 takes the eager stacks).
 
 Each main path checks plaquettes against I1(4)/I0(4), the hop sampler's
 <Q^2> against the exact finite-volume value, and that its kernels were
@@ -686,6 +700,7 @@ def reset_launches():
     (wrapper, count attribute)}``, where ``name[variant]`` counts one mode
     of a kernel (``l2hmc_chain`` counts all of its launches)."""
     from l2hmc_tpu_torch.ops import wilson as W
+    from l2hmc_tpu_torch.ops.conv_stack import conv_stack
     from l2hmc_tpu_torch.ops.issue_rates import probe_chain
     from l2hmc_tpu_torch.ops.l2hmc_kernel import (l2hmc_chain,
                                                   l2hmc_local_chain)
@@ -711,7 +726,8 @@ def reset_launches():
                "wilson_slab_force": (W.wilson_slab_force, "launches"),
                "wilson_slab_double_backward": (
                    W.wilson_slab_double_backward, "launches"),
-               "issue_rates": (probe_chain, "launches")}
+               "issue_rates": (probe_chain, "launches"),
+               "conv_stack": (conv_stack, "launches")}
     for fn, attr in kernels.values():
         setattr(fn, attr, 0)
     return kernels
@@ -1295,6 +1311,26 @@ def wilson_launches_per_transition(K):
             "wilson_double_backward": 0}
 
 
+def conv_stack_launches_per_transition(cfg):
+    """``conv_stack`` launches of one eval transition of ``cfg`` on the
+    card (``make_eval_chunk``, no grad): one a conditioner call (the split
+    integrator's 4K, ``merge_v_halves``' 3K + 1, twice with
+    ``both_directions``) where the conv nets take the kernel
+    (``networks/nets.py conv_kernel_route``), else none."""
+    from l2hmc_tpu_torch.networks.nets import ConvNetSpec, conv_kernel_route
+
+    if cfg.hmc or cfg.network_arch != "conv":
+        return 0
+    spec = ConvNetSpec(cfg.time_size, cfg.space_size,
+                       num_filters=cfg.num_filters, use_bf16=cfg.use_bf16,
+                       x_channels=4 if cfg.group == "u1" else 2)
+    if not conv_kernel_route(spec, True, True, False):
+        return 0
+    k = cfg.num_steps
+    calls = 3 * k + 1 if cfg.merge_v_halves else 4 * k
+    return calls * (2 if cfg.both_directions else 1)
+
+
 def slab_launches_per_step(K, remat=True):
     """Slab-route launches of one dp x sp train step
     (``lattice_sharding``): :func:`wilson_launches_per_step`, every Wilson
@@ -1626,7 +1662,7 @@ class _Tee:
 
 def cli_run(name, argv, log_dir, kernels, device):
     """One CLI command in-process on the card; ``(run dir, log text, Wilson
-    launches)``."""
+    launches, conv_stack launches, seconds)``."""
     import contextlib
 
     from l2hmc_tpu_torch.cli import train_gauge
@@ -1651,8 +1687,9 @@ def cli_run(name, argv, log_dir, kernels, device):
         raise AssertionError(f"cli {name}: slab-route launches {slab} on "
                              f"an unsharded run")
     runs = sorted(log_dir.glob("run_*"), key=lambda p: int(p.name[4:]))
-    log(f"[cli] {name}: {secs:.1f} s; Wilson launches {wilson}")
-    return runs[-1], tee.text(), wilson, secs
+    log(f"[cli] {name}: {secs:.1f} s; Wilson launches {wilson}, "
+        f"conv_stack {counts['conv_stack']}")
+    return runs[-1], tee.text(), wilson, counts["conv_stack"], secs
 
 
 def cli_phase(device):
@@ -1672,8 +1709,8 @@ def cli_phase(device):
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
         for name, argv in CLI_RUNS.items():
             log_dir = Path(tmp) / name.split("-")[0]
-            run_dir, text, wilson, secs = cli_run(name, argv, log_dir,
-                                                  kernels, device)
+            run_dir, text, wilson, conv, secs = cli_run(
+                name, argv, log_dir, kernels, device)
             args = build_parser().parse_args(argv)
             cfg = flags_to_config(args)
             mfile = run_dir / "metrics.jsonl"
@@ -1697,12 +1734,17 @@ def cli_phase(device):
             if wilson != want:
                 failed.append(f"{name}: Wilson launches {wilson}, derived "
                               f"{want}")
+            conv_want = n_tr * conv_stack_launches_per_transition(cfg)
+            if conv != conv_want:
+                failed.append(f"{name}: conv_stack launches {conv}, derived "
+                              f"{conv_want}")
             ms_step = (float(np.mean([r["dt"] for r in recs[1:]])) * 1e3
                        if len(recs) > 1 else float("nan"))
             tps = [float(x) for x in re.findall(
                 r"\(([0-9.]+) transitions/s\)", text)]
             line = {"ms_per_train_step": ms_step, "transitions_per_s": tps,
-                    "seconds": secs, "train_steps": steps}
+                    "seconds": secs, "train_steps": steps,
+                    "conv_stack_launches": conv}
             for beta in ((cfg.beta_final, cfg.beta_final - 1.0)
                          if args.run_steps else ()):
                 ev = json.loads((run_dir / f"eval_beta{beta:g}.json")
@@ -2174,6 +2216,85 @@ def decomposition_phase(params, eps_c, K_c, device):
         f"{time.perf_counter() - t0:.1f} s")
     return {"errs": errs, "ms": ms, "plain": plain, "launches": launches,
             "bound": nb}
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: the conv stacks' kernel at the conv sampler's cell shapes
+# ---------------------------------------------------------------------------
+
+CONV_CHAINS = 8192
+CONV_SIDE = 16
+CONV_REPS = 50
+CONV_TOL = 1e-5               # float32 sums in other orders (the test's)
+
+
+def conv_stack_phase(device):
+    """``csrc/conv_stack.cu`` at ``sample.conv16``'s shapes (the position
+    net's slots; weights He-normal, biases and inputs seeded): one launch
+    against the plain version and the eager stacks, and each one's time
+    per call."""
+    from bench_h100.counts.conv_stack import chain_bytes, chain_macs
+    from l2hmc_tpu_torch.benchmarks import best_ms
+    from l2hmc_tpu_torch.networks.nets import ConvNetSpec, make_conv_net
+    from l2hmc_tpu_torch.ops import conv_stack as cs
+
+    t0 = time.perf_counter()
+    b, side = CONV_CHAINS, CONV_SIDE
+    d = side * side
+    g = torch.Generator().manual_seed(20)
+    spec = ConvNetSpec(side, side, num_hidden=16, x_channels=4)
+    net = make_conv_net(spec, g)
+    convs = (net.conv_x1, net.conv_x2, net.conv_v1, net.conv_v2)
+    with torch.no_grad():
+        for c in convs:
+            c.b.copy_(0.1 * torch.randn(c.b.shape, generator=g))
+    net = net.to(device)
+    gen = torch.Generator(device=device).manual_seed(21)
+    x = torch.rand((b, 4 * d), generator=gen, device=device) * 2 - 1
+    v = torch.randn((b, 2 * d), generator=gen, device=device)
+    slots = [(x, net.conv_x1.w, net.conv_x1.b, net.conv_x2.w, net.conv_x2.b),
+             (v, net.conv_v1.w, net.conv_v1.b, net.conv_v2.w, net.conv_v2.b)]
+
+    def kernel():
+        return cs.conv_stack(slots, side, side)
+
+    def plain():
+        return [cs.conv_stack_reference(*s, side, side) for s in slots]
+
+    def eager():
+        return (net._stack(net.conv_x1, net.conv_x2, x),
+                net._stack(net.conv_v1, net.conv_v2, v))
+
+    with torch.no_grad():
+        before = cs.conv_stack.launches
+        got, want, lib = kernel(), plain(), eager()
+        torch.cuda.synchronize()
+        launches = cs.conv_stack.launches - before
+        err = max(float((k - r).abs().max())
+                  for k, r in zip(got, list(want) + list(lib)))
+        scale = max(float(r.abs().max()) for r in want)
+        ms = {"kernel": best_ms(kernel, 3, CONV_REPS),
+              "plain": best_ms(plain, 3, CONV_REPS // 10),
+              "eager": best_ms(eager, 3, CONV_REPS)}
+    # the position's slot takes the cos/sin features: the u1 sampler's
+    sampler = {"group": "u1", "num_filters": spec.num_filters,
+               "filter_size1": spec.filter_size1,
+               "filter_size2": spec.filter_size2}
+    bnd = bound(b * chain_bytes(d, sampler),
+                2.0 * b * chain_macs(d, sampler))
+    log(f"[conv_stack] {b} chains of {side}x{side}, both slots: kernel "
+        f"{1e3 * ms['kernel']:.1f} us per call ({launches} launch), bound "
+        f"{1e3 * bnd[0]:.1f} us ({bnd[1]}; {100 * bnd[0] / ms['kernel']:.1f}"
+        f"% of it), plain {1e3 * ms['plain']:.1f} us, eager stacks (cuDNN, "
+        f"library_ms) {1e3 * ms['eager']:.1f} us; max|kernel - plain, "
+        f"eager| {err:.3e} (outputs up to {scale:.3f}); phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    if launches != 1 or not err <= CONV_TOL * max(1.0, scale):
+        raise RuntimeError(f"conv_stack: {launches} launches, max|d| "
+                           f"{err:.3e} against {CONV_TOL} x {scale:.3f}")
+    return {"max_abs_err": err, "ms": ms["kernel"], "plain_ms": ms["plain"],
+            "library_ms": ms["eager"], "bound_ms": bnd[0],
+            "bound_by": bnd[1], "launches": launches}
 
 
 # ---------------------------------------------------------------------------
@@ -4246,6 +4367,7 @@ def charge_mixing_check(device, kernels, failed):
     """charge_mixing: the conv sampler's annealed training (beta 2 -> 4),
     then charge statistics of it and of HMC at 16x16, 128 chains."""
     from l2hmc_tpu_torch.benchmarks import charge_mixing
+    from l2hmc_tpu_torch.train.gauge import GaugeConfig
 
     p = charge_mixing.build_parser()
     (res,), secs = run_main(charge_mixing.main,
@@ -4263,8 +4385,12 @@ def charge_mixing_check(device, kernels, failed):
     k = flag(CM_ARGV, "num_steps", p)
     tc, ec = min(250, train), min(500, steps)
     n = ec + -(-steps // ec) * ec
-    got = launch_gate(failed, "charge_mixing", launches, wilson_launches(
-        [(2 * n, k)], [((train // tc) * tc, k)]))
+    cfg = GaugeConfig(time_size=flag(CM_ARGV, "size", p),
+                      space_size=flag(CM_ARGV, "size", p), num_steps=k,
+                      network_arch="conv")
+    got = launch_gate(failed, "charge_mixing", launches, {
+        **wilson_launches([(2 * n, k)], [((train // tc) * tc, k)]),
+        "conv_stack": n * conv_stack_launches_per_transition(cfg)})
     log(f"[drivers] charge_mixing {secs:.1f} s: {json.dumps(res)}")
     return {"seconds": secs, "launches": got, "result": res}
 
@@ -4466,6 +4592,7 @@ def volume_sweep_check(device, kernels, failed):
     """volume_sweep: conv transitions at L = 8, 16, 32, 64, 128 chains, and
     the power-law fit."""
     from l2hmc_tpu_torch.benchmarks import volume_sweep
+    from l2hmc_tpu_torch.train.gauge import GaugeConfig
 
     p = volume_sweep.build_parser()
     (res,), secs = run_main(volume_sweep.main,
@@ -4485,8 +4612,12 @@ def volume_sweep_check(device, kernels, failed):
     if res["platform"] != "gpu":
         failed.append(f"volume_sweep platform {res['platform']}")
     sizes, chunk = flag(VOL_ARGV, "sizes", p), flag(VOL_ARGV, "chunk", p)
-    got = launch_gate(failed, "volume_sweep", launches, wilson_launches(
-        [(len(sizes) * 4 * chunk, 3)]))
+    conv = sum(4 * chunk * conv_stack_launches_per_transition(GaugeConfig(
+        time_size=lt, space_size=lt, num_steps=3,
+        network_arch=flag(VOL_ARGV, "arch", p))) for lt in sizes)
+    got = launch_gate(failed, "volume_sweep", launches, {
+        **wilson_launches([(len(sizes) * 4 * chunk, 3)]),
+        "conv_stack": conv})
     log(f"[drivers] volume_sweep {secs:.1f} s: {json.dumps(res)}")
     return {"seconds": secs, "launches": got, "result": res}
 
@@ -4562,6 +4693,7 @@ def main():
     train_err = train_check_phase(device)
     tl, train_ms, train_plain_ms = train_phase(device)
     dec = decomposition_phase(params, eps_c, cfg.num_steps, device)
+    conv = conv_stack_phase(device)
     # the analytic-target runs (no kernel, host-bound) beside phases 10-13,
     # after the phases that time kernels
     targets = start_child("targets_child", device)
@@ -4668,6 +4800,14 @@ def main():
             "ms": w["ms"], "plain_ms": w["plain_ms"],
             "bound_ms": w["bound_ms"], "bound_by": w["bound_by"],
             "library_ms": None})
+    kernels.append({
+        "name": "conv_stack", "route": "cuda",
+        "source": "l2hmc_tpu_torch/ops/csrc/conv_stack.cu",
+        "replaces": None,
+        "launches": cli["canonical-restore"]["conv_stack_launches"],
+        "max_abs_err": conv["max_abs_err"], "ms": conv["ms"],
+        "plain_ms": conv["plain_ms"], "bound_ms": conv["bound_ms"],
+        "bound_by": conv["bound_by"], "library_ms": conv["library_ms"]})
     sources = {"issue_rates": ("issue_rates.cu",
                                "benchmarks/vpu_roofline.py:208"),
                "l2hmc_chain[ablate]": ("l2hmc_chain.cu",
@@ -4694,14 +4834,18 @@ def main():
         f"16, 16, 2) and their slab route at (128, 18, 16, 2) (the "
         f"quick-start lattice extended by its halo rows; device time by "
         f"torch.profiler) and for issue_rates "
-        f"(the cheap probe at {RATE_SHAPES[0]}, m={RATE_M[0]}); launches are"
+        f"(the cheap probe at {RATE_SHAPES[0]}, m={RATE_M[0]}), per call for "
+        f"conv_stack (both slots, {CONV_CHAINS} chains at {CONV_SIDE}x"
+        f"{CONV_SIDE}, CUDA events); launches are"
         f" the main paths' (Wilson: the train path's; its slab route: the "
         f"quick-start train path's under lattice_sharding, {PAR_STEPS + 1} "
-        f"steps; the modes and issue_rates: the decomposition path's); "
+        f"steps; the modes and issue_rates: the decomposition path's; "
+        f"conv_stack: the canonical CLI command's eval, --restore); "
         f"library_ms: l2hmc_chain's "
         f"ten conditioner products as torch.matmul and l2hmc_local_chain's "
         f"13 conditioner calls as conv2d (yardsticks for part of their "
-        f"work), null elsewhere: no single PyTorch call computes these "
+        f"work), conv_stack's the eager stacks (cuDNN, the same function),"
+        f" null elsewhere: no single PyTorch call computes these "
         f"functions.  Train step {train_ms:.3f} "
         f"ms (plain potential {train_plain_ms:.3f} ms); train-step check "
         f"max rel err {train_err:.3e}; on {smi}")

@@ -20,7 +20,9 @@ Port of ``l2hmc_tpu/networks/nets.py``:
   embeddings and the fused head), and ``make_local_net``: the weight-shared
   image conditioner (``num_layers`` periodic kxk convs and a 1x1 head to
   per-link S/T/Q).  Both run NCHW with OIHW conv weights; the reference is
-  NHWC with HWIO weights.  :meth:`ConvNet.from_reference_leaf` and
+  NHWC with HWIO weights.  Where :func:`conv_kernel_route` holds (float32
+  CUDA inputs, no gradient to record), the CNN's two stacks run in one launch
+  of ``ops/conv_stack.py`` (``csrc/conv_stack.cu``).  :meth:`ConvNet.from_reference_leaf` and
   :meth:`LocalNet.from_reference_leaf` convert a reference leaf (conv
   weights HWIO -> OIHW; the conv net's ``x_layer``/``v_layer`` rows from
   the reference's NHWC flatten order to NCHW's).
@@ -54,8 +56,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from l2hmc_tpu_torch.ops import conv_stack
 from l2hmc_tpu_torch.ops.leapfrog import _nb
 from l2hmc_tpu_torch.utils import trace
+
+# a traced window's count of conditioner calls whose conv stacks ran on
+# csrc/conv_stack.cu
+CONV_KERNEL_COUNTER = "net.conv_kernel"
 
 
 def _variance_scaling(generator: Optional[torch.Generator], shape,
@@ -377,6 +384,22 @@ class ConvNetSpec:
         return self.time_size * self.space_size * 2
 
 
+def conv_kernel_route(spec: ConvNetSpec, cuda: bool, float32: bool,
+                      grad: bool) -> bool:
+    """Whether :meth:`ConvNet.forward` runs both conv stacks in one launch
+    of ``csrc/conv_stack.cu``: float32 inputs (``float32``) on CUDA
+    (``cuda``), no gradient to record (``grad``: grad mode on and a
+    parameter or input requiring one), neither LRN nor bf16 operands, and
+    a shape the kernel takes (``ops/conv_stack.py takes``).  Everything
+    else runs the eager stacks."""
+    return (cuda and float32 and not grad and not spec.use_lrn
+            and not spec.use_bf16
+            and conv_stack.takes(spec.time_size, spec.space_size,
+                                 spec.filter_size1, spec.filter_size2,
+                                 spec.num_filters,
+                                 (spec.x_channels, spec.v_channels)))
+
+
 class ConvNet(nn.Module):
     """``forward(v, x, t) -> (S, T, Q)``: each of ``v`` and ``x`` through a
     periodic conv stack (conv k1 -> relu [-> LRN] -> conv k2 at stride 2
@@ -456,11 +479,27 @@ class ConvNet(nn.Module):
 
     def forward(self, v, x, t):
         """Spans (``utils/trace.py``): ``net.conv`` (both stacks) and
-        ``net.trunk`` (the dense layers and the heads)."""
+        ``net.trunk`` (the dense layers and the heads); the counter
+        :data:`CONV_KERNEL_COUNTER` once per call whose stacks take
+        :func:`conv_kernel_route`."""
         bf16 = self.spec.use_bf16
         with trace.span("net.conv"):
-            xc = self._stack(self.conv_x1, self.conv_x2, x)
-            vc = self._stack(self.conv_v1, self.conv_v2, v)
+            grad = torch.is_grad_enabled() and (
+                v.requires_grad or x.requires_grad
+                or any(c.w.requires_grad or c.b.requires_grad
+                       for c in (self.conv_x1, self.conv_x2, self.conv_v1,
+                                 self.conv_v2)))
+            f32 = all(t.dtype == torch.float32 for t in (v, x))
+            if conv_kernel_route(self.spec, x.is_cuda, f32, grad):
+                trace.count(CONV_KERNEL_COUNTER)
+                xc, vc = conv_stack.conv_stack(
+                    [(flat.contiguous(), c1.w, c1.b, c2.w, c2.b)
+                     for flat, c1, c2 in ((x, self.conv_x1, self.conv_x2),
+                                          (v, self.conv_v1, self.conv_v2))],
+                    self.spec.time_size, self.spec.space_size)
+            else:
+                xc = self._stack(self.conv_x1, self.conv_x2, x)
+                vc = self._stack(self.conv_v1, self.conv_v2, v)
         with trace.span("net.trunk"):
             hh = torch.relu(self.v_layer(vc, bf16) + self.x_layer(xc, bf16)
                             + self.t_layer(t, bf16))

@@ -107,6 +107,12 @@ _SIGNATURES = {
         _I, _I, _U64,                # ablate, deep, seed
         _I, _P,                      # device, stream
     ]),
+    "conv_stack_launch": (_I, [
+        _P, _P, _P, _P, _P, _P, _I,  # slot 0: flat, w1, b1, w2, b2, out; cin
+        _P, _P, _P, _P, _P, _P, _I,  # slot 1
+        _I, _I, _I,                  # B, lt, lx
+        _I, _P,                      # device, stream
+    ]),
     "issue_rates_launch": (_I, [
         _P, _I,                      # x (n elements), updated in place; n
         _I, _I,                      # probe id, chain length m
